@@ -1,17 +1,24 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # add --profile for a device-time breakdown
+    python3 chip_smoke.py            # add --profile for device-time breakdowns
 
-Builds the three hand-written CUDA kernels from dct_autoencoder_torch/csrc
+Builds the five hand-written CUDA kernels from dct_autoencoder_torch/csrc
 (nvcc, sm_90a), holds each against its plain PyTorch version at the shapes
-the serving path gives it, runs the serving round trip with the trained
-checkpoint in docs/calibrated_run_r3b/model (and the same batch through the
-port on the CPU in fp32), a lossless no-model round trip, and one
-forward of a random-init patch14-L model at full width on a 64 x 256
-packed batch.  Every phase prints one JSON line; any failed check raises and
-the script exits non-zero.  The line before the last lists the kernels with
-their launches on the serving round trip, errors, times and bounds; the last
-line is {"ok": true, "device": {...}}.
+the main paths give it, and then drives the paths themselves:
+  * the serving round trip with the trained checkpoint in
+    docs/calibrated_run_r3b/model (and the same batch through the port on
+    the CPU in fp32), and a lossless no-model round trip;
+  * one forward of a random-init patch14-L model at full width on a 64 x 256
+    packed batch;
+  * train() for 20 steps on that checkpoint (bf16 compute, fp32 masters) on
+    one fixed packed batch, its first step held against the port's fp32 CPU
+    run;
+  * train() at the full width of patch14-L on 64 x 256 batches, then timed
+    train steps.
+Every phase prints one JSON line; any failed check raises and the script
+exits non-zero.  The line before the last lists the kernels with their
+launches on the main paths, errors, times and bounds; the last line is
+{"ok": true, "device": {...}}.
 
 Needs a CUDA device, and exits non-zero without one.  Imports no JAX.
 """
@@ -36,10 +43,16 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 ATTN_ATOL_BF16 = 2e-2
+# backward: dq, dk, dv reach ~4, where half a bf16 ulp is 1.6e-2; the kernels keep
+# p and ds in fp32 and round once at the store, the plain version is fp32 inside
+ATTN_BWD_ATOL_BF16 = 3e-2
 DCT_REL_TOL = 1e-5
 MIN_CODE_AGREEMENT = 0.95
 MAX_PSNR_DELTA_DB = 0.5
 MIN_LOSSLESS_PSNR_DB = 60.0
+# bf16 training step on the card against the port's fp32 step on the CPU, same batch
+MAX_TRAIN_LOSS_REL = 0.05
+MAX_TRAIN_GRAD_NORM_REL = 0.30
 
 
 def emit(obj) -> None:
@@ -99,18 +112,33 @@ def phase_environment():
 # ---------------------------------------------------------------- phase 2
 
 
+def _attention_inputs(b, h, s, d, dtype, gen, n_tensors):
+    """n random (b, h, s, d) tensors on the card, and packed rows: sorted image ids, a padded tail."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    dev = torch.device("cuda")
+    tensors = tuple(torch.randn(b, h, s, d, generator=gen).to(dtype).to(dev) for _ in range(n_tensors))
+    ids = torch.sort(torch.randint(0, 6, (b, s), generator=gen), dim=1).values.int().to(dev)
+    lens = torch.randint(max(1, s // 2), s + 1, (b,), generator=gen).to(dev)
+    pad = torch.arange(s, device=dev)[None] >= lens[:, None]
+    return tensors, pad, *A.segment_ids(ids, pad)
+
+
+def _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype):
+    """The additive mask that makes scaled_dot_product_attention compute the same
+    function, and the (query, key) pairs whose products the function needs."""
+    allowed = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+    if mode == "bias":
+        return allowed.to(dtype), allowed.numel()
+    return torch.where(allowed, 0.0, -1e9).to(dtype), allowed.sum().item()  # only pairs inside an image
+
+
 def _attention_case(b, h, s, d, dtype, mode, gen):
     import torch.nn.functional as F
 
     from dct_autoencoder_torch.kernels import attention as A
 
-    dev = torch.device("cuda")
-    q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dtype).to(dev) for _ in range(3))
-    # packed rows: sorted image ids, a padded tail
-    ids = torch.sort(torch.randint(0, 6, (b, s), generator=gen), dim=1).values.int().to(dev)
-    lens = torch.randint(max(1, s // 2), s + 1, (b,), generator=gen).to(dev)
-    pad = torch.arange(s, device=dev)[None] >= lens[:, None]
-    q_ids, kv_ids = A.segment_ids(ids, pad)
+    (q, k, v), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, dtype, gen, 3)
     scale = d**-0.5
 
     kernel = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode)
@@ -127,13 +155,7 @@ def _attention_case(b, h, s, d, dtype, mode, gen):
         pad_max = o.transpose(1, 2)[pad].abs().max().item() if pad.any() else 0.0
         check(pad_max == 0.0, f"attention block mode: padded queries not 0 ({pad_max})")
 
-    allowed = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
-    if mode == "bias":
-        sdpa_mask = allowed.to(dtype)
-        pairs = b * s * s
-    else:
-        sdpa_mask = torch.where(allowed, 0.0, -1e9).to(dtype)
-        pairs = allowed.sum().item()  # only pairs inside an image need products
+    sdpa_mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype)
     library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask, scale=scale)
 
     elt = q.element_size()
@@ -145,6 +167,66 @@ def _attention_case(b, h, s, d, dtype, mode, gen):
         "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": tol,
         "ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
         "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
+    """The dq and dk/dv kernels against attention_bwd_plain; o and lse come from the forward kernel."""
+    import torch.nn.functional as F
+
+    from dct_autoencoder_torch.kernels import attention as A
+
+    (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, dtype, gen, 4)
+    scale = d**-0.5
+    o, lse = A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode)
+
+    dq_kernel = lambda: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode)
+    dq, delta = dq_kernel()
+    dkv_kernel = lambda: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode)
+    dk, dv = dkv_kernel()
+    torch.cuda.synchronize()
+    plain = lambda: A.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode)
+    dq_ref, dk_ref, dv_ref = plain()
+    tol = ATTN_BWD_ATOL_BF16 if dtype == torch.bfloat16 else 1e-5
+    errs = {}
+    for name, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        errs[name] = (got.float() - ref.float()).abs().max().item()
+        check(torch.isfinite(got).all().item(), f"attention backward {name} not finite")
+        check(errs[name] <= tol, f"attention backward {name} {mode} {(b, h, s, d)}: max|diff| {errs[name]} > {tol}")
+    delta_err = (delta - (do.float() * o.float()).sum(-1)).abs().max().item()
+    check(delta_err <= 1e-3, f"delta from the dq kernel: max|diff| {delta_err}")
+    if mode == "block" and pad.any():
+        pad_max = dq.transpose(1, 2)[pad].abs().max().item()
+        check(pad_max == 0.0, f"attention backward block mode: dq of padded queries not 0 ({pad_max})")
+
+    sdpa_mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=sdpa_mask, scale=scale)
+    # the library's whole backward (dq, dk and dv in one call), timed alone
+    library = lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+
+    elt, n = q.element_size(), b * h * s * d
+    vec = b * h * s * 4  # one fp32 row vector: lse or delta
+    ids_bytes = 2 * b * s * 4
+    # dq: q, k, v, o, do read, lse read, dq and delta written; three products
+    dq_bound = bound(6 * n * elt + 2 * vec + ids_bytes, 6 * h * d * pairs, dtype)
+    # dk/dv: q, k, v, do, lse, delta read, dk and dv written; four products
+    dkv_bound = bound(6 * n * elt + 2 * vec + ids_bytes, 8 * h * d * pairs, dtype)
+    plain_ms, library_ms = time_ms(plain, reps=10), time_ms(library)
+    common = {
+        "shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "tol": tol,
+        "plain_ms": plain_ms, "plain_computes": "dq, dk and dv", "library_ms": library_ms,
+        "library_computes": "dq, dk and dv (backward of scaled_dot_product_attention)",
+    }
+    return {
+        "attention_dq": {
+            **common, "max_abs_err": errs["dq"], "delta_max_abs_err": delta_err, "ms": time_ms(dq_kernel),
+            "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+        },
+        "attention_dkv": {
+            **common, "max_abs_err": max(errs["dk"], errs["dv"]), "ms": time_ms(dkv_kernel),
+            "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+        },
     }
 
 
@@ -202,7 +284,18 @@ def phase_kernels():
         _attention_case(1, 8, 173, 32, torch.bfloat16, "block", gen),
         _attention_case(3, 8, 173, 64, torch.float32, "bias", gen),
     ]
-    cases = {"attention": attn, **_dct_cases(gen)}
+    bwd = [
+        _attention_bwd_case(64, 16, 256, 64, torch.bfloat16, "block", gen),
+        _attention_bwd_case(64, 16, 256, 64, torch.bfloat16, "bias", gen),
+        _attention_bwd_case(64, 8, 256, 32, torch.bfloat16, "block", gen),
+        _attention_bwd_case(1, 8, 173, 32, torch.float32, "block", gen),
+    ]
+    cases = {
+        "attention": attn,
+        "attention_dq": [c["attention_dq"] for c in bwd],
+        "attention_dkv": [c["attention_dkv"] for c in bwd],
+        **_dct_cases(gen),
+    }
     for name, rows in cases.items():
         for row in rows:
             emit({"phase": "kernel_vs_plain", "kernel": name, **row})
@@ -264,7 +357,8 @@ def phase_serving():
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = K.launch_counts()
-    check(all(n > 0 for n in launches.values()), f"a kernel was not launched on the serving path: {launches}")
+    check(all(launches[k] > 0 for k in SERVING_KERNELS), f"a kernel was not launched on the serving path: {launches}")
+    check(launches["attention_dq"] == launches["attention_dkv"] == 0, f"serving ran a backward kernel: {launches}")
     check(len(recon) == len(ims) and all(r.shape == im.shape and np.isfinite(r).all() for r, im in zip(recon, ims)),
           "reconstructions have the wrong shape or are not finite")
     gpu_psnr = statistics.mean(psnr(r, im) for r, im in zip(recon, ims))
@@ -299,11 +393,8 @@ def phase_serving():
 # ---------------------------------------------------------------- phase 4
 
 
-def packed_batch(cfg, max_seq_len=256, rows=64, beta=0.02, seed=0, device="cuda"):
-    """TruncExp(beta) token counts packed into `rows` rows by the port's packer."""
-    from dct_autoencoder_torch.patches.packing import batch_groups, group_patches_by_max_seq_len
-
-    rng, nprng = random.Random(seed), np.random.default_rng(seed)
+def token_items(cfg, max_seq_len, rows, beta, rng, nprng):
+    """Random tokens of images with TruncExp(beta) token counts, a little more than `rows` rows' worth."""
     items, total = [], 0
     while total < rows * max_seq_len * 1.05:
         k = min(max(1, round(-1.0 / beta * math.log(rng.random()))), max_seq_len)
@@ -313,6 +404,14 @@ def packed_batch(cfg, max_seq_len=256, rows=64, beta=0.02, seed=0, device="cuda"
             nprng.integers(0, 3, size=(k,)).astype(np.int32),
         ))
         total += k
+    return items
+
+
+def packed_batch(cfg, max_seq_len=256, rows=64, beta=0.02, seed=0, device="cuda"):
+    """TruncExp(beta) token counts packed into `rows` rows by the port's packer."""
+    from dct_autoencoder_torch.patches.packing import batch_groups, group_patches_by_max_seq_len
+
+    items = token_items(cfg, max_seq_len, rows, beta, random.Random(seed), np.random.default_rng(seed))
     groups = group_patches_by_max_seq_len(items, max_seq_len).groups[:rows]
     n_images = sum(len(g) for g in groups)
     batch = batch_groups(
@@ -322,8 +421,8 @@ def packed_batch(cfg, max_seq_len=256, rows=64, beta=0.02, seed=0, device="cuda"
     return batch, n_images
 
 
-def profile_forward(forward, reps=3, top=12):
-    """Device time by kernel over `reps` forwards (torch.profiler), per forward."""
+def profile_device(forward, reps=3, top=12):
+    """Device time by kernel over `reps` calls of forward() (torch.profiler), per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -342,9 +441,9 @@ def profile_forward(forward, reps=3, top=12):
     busy = sum(r[1] for r in rows)
     check(busy > 0, "the profiler saw no device time")
     return {
-        "wall_ms_per_forward": wall_ms, "device_busy_ms_per_forward": busy,
+        "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy,
         "device_idle_share": max(0.0, 1 - busy / wall_ms),
-        "top_kernels": [{"kernel": k[:120], "ms_per_forward": ms, "launches_per_forward": n} for k, ms, n in rows[:top]],
+        "top_kernels": [{"kernel": k[:120], "ms_per_call": ms, "launches_per_call": n} for k, ms, n in rows[:top]],
     }
 
 
@@ -372,28 +471,177 @@ def phase_full_width(profile: bool):
     check(bool(((codes >= 0) & (codes < cfg.vq_codebook_size)).all()), "codes out of range")
     check(bool(torch.isfinite(out["dct_patches"].patches[valid]).all()), "decoded patches not finite")
 
-    ms = time_ms(lambda: model.forward(nb), reps=20)
+    ms = time_ms(lambda: model.forward(nb), reps=10)
     emit({
         "phase": "full_width_patch14l", "dtype": "bfloat16", "rows": 64, "seq_len": 256, "images": n_images,
         "ms_per_batch": ms, "images_per_s": n_images / ms * 1e3, "attention_launches_per_forward": attn_launches,
         "params": model.n_params,
     })
     if profile:
-        emit({"phase": "profile_patch14l", **profile_forward(lambda: model.forward(nb))})
+        emit({"phase": "profile_patch14l", **profile_device(lambda: model.forward(nb))})
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def _columns(ds):
+    return {k: [d[k] for d in ds] for k in ds[0]}
+
+
+def phase_train_r3b(steps=20, learning_rate=3e-4):
+    """train() on the trained checkpoint, one fixed packed batch; step 0 against the fp32 CPU step."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+
+    model, proc = dt.get_model_and_processor(resume_path=R3B, dtype=torch.bfloat16)  # on the card
+    check(model.device.type == "cuda", "the model did not land on the card")
+    check(all(p.dtype == torch.float32 for p in model.module.parameters()), "master weights are not fp32")
+    proc.rng = random.Random(0)
+    cols = _columns(proc.preprocess_many(smooth_images(16, 448, seed=1)))
+    n_layers = model.config.encoder_config.num_hidden_layers + model.config.decoder_config.num_hidden_layers
+
+    logs = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, state = T.train(
+        model, proc, iter([cols] * steps), batch_size=None, learning_rate=learning_rate, max_iters=steps,
+        log_every=1, log=logs.append,
+    )
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    check(state.step == steps and len(logs) == steps, f"{state.step} steps, {len(logs)} log lines for {steps}")
+    for name in ("attention", "attention_dq", "attention_dkv"):
+        check(launches[name] == n_layers * steps, f"{launches[name]} {name} launches for {n_layers} layers x {steps} steps")
+    loss_keys = ("loss", "rec_loss", "rec_loss_unnormalized", "commit_loss", "entropy_loss", "grad_norm", "perplexity")
+    check(all(math.isfinite(m[k]) for m in logs for k in loss_keys), "a loss of the training run is not finite")
+    check(logs[-1]["loss"] < logs[0]["loss"], f"loss did not fall: {logs[0]['loss']} -> {logs[-1]['loss']}")
+    check(all(torch.isfinite(p).all().item() for p in model.module.parameters()), "a parameter is not finite")
+
+    # the same batch through the port on the CPU in fp32: one step (its rate is 0, as on the card)
+    cpu_model, cpu_proc = dt.get_model_and_processor(resume_path=R3B, dtype=torch.float32, device="cpu")
+    tx = T.make_optimizer(learning_rate, steps)
+    batch = next(cpu_proc.iter_batches(iter([cols]), batch_size=None))
+    _, cpu = T.make_train_step(cpu_model.module, tx)(
+        T.TrainState.create(cpu_model.module, tx), cpu_model.patchnorm, T.prepare_train_batch(batch)[0]
+    )
+    cpu = {k: float(v) for k, v in cpu.items()}
+    loss_rel = abs(logs[0]["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    norm_rel = abs(logs[0]["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    check(loss_rel <= MAX_TRAIN_LOSS_REL, f"step-0 loss {logs[0]['loss']} vs CPU fp32 {cpu['loss']}")
+    check(norm_rel <= MAX_TRAIN_GRAD_NORM_REL, f"step-0 grad norm {logs[0]['grad_norm']} vs CPU fp32 {cpu['grad_norm']}")
+    emit({
+        "phase": "train_r3b", "steps": steps, "dtype": "bfloat16 compute, float32 masters",
+        "images": len(cols["patches"]),
+        "rows": int(batch.patches.shape[0]), "tokens": int((~batch.key_pad_mask).sum()),
+        "learning_rate": learning_rate, "loss_first": logs[0]["loss"], "loss_last": logs[-1]["loss"],
+        "step0": {k: logs[0][k] for k in loss_keys}, "step0_cpu_fp32": {k: cpu[k] for k in loss_keys},
+        "step0_loss_rel_diff": loss_rel, "step0_grad_norm_rel_diff": norm_rel,
+        "launches": launches, "wall_s": wall_s,
+    })
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def phase_train_full_width(profile: bool, train_steps=4, timed_steps=5):
+    """patch14-L at random init: train() on 64 x 256 batches, then timed train steps on one batch."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+
+    cfg = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
+    rng, nprng = random.Random(1), np.random.default_rng(1)
+
+    def pulls(rows, n):
+        for _ in range(n):
+            items = token_items(cfg, 256, rows, 0.02, rng, nprng)
+            yield {
+                "patches": [it[0] for it in items], "positions": [it[1] for it in items],
+                "channels": [it[2] for it in items], "original_sizes": [(448, 448)] * len(items),
+                "patch_sizes": [(32, 32)] * len(items),
+            }
+
+    result = None
+    for rows in (64, 48, 32, 16):  # rows are cut if the batch does not fit; widths never
+        model, proc = dt.get_model_and_processor(cfg, dtype=torch.bfloat16, sample_patches_beta=0.02, seed=0)
+        check(proc.max_seq_len == 256, f"max_seq_len {proc.max_seq_len}")
+        logs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        try:
+            model, state = T.train(
+                model, proc, pulls(rows, train_steps + 1), batch_size=rows, max_iters=train_steps, log_every=1,
+                log=logs.append,
+            )
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            del model, proc
+            torch.cuda.empty_cache()
+            continue
+        result = rows
+        break
+    check(result is not None, "the patch14-L train step fits at no row count down to 16")
+    launches = K.launch_counts()
+    for name in ("attention", "attention_dq", "attention_dkv"):
+        check(launches[name] == n_layers * train_steps, f"{launches[name]} {name} launches for {n_layers} layers x {train_steps} steps")
+    check(len(logs) == train_steps and all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in logs),
+          f"train() at full width: {logs}")
+    check(all(torch.isfinite(p).all().item() for p in model.module.parameters()), "a parameter is not finite")
+
+    # timed steps of make_train_step on one fixed batch, the moments carried on
+    batch = next(proc.iter_batches(pulls(rows, 1), batch_size=rows))
+    n_images = len(batch.original_sizes)
+    check(tuple(batch.patches.shape) == (rows, 256, cfg.patch_dim), f"batch shape {tuple(batch.patches.shape)}")
+    batch = T.prepare_train_batch(batch)[0]
+    tx = T.make_optimizer(1e-4, 10000)
+    step = T.make_train_step(model.module, tx)
+    for _ in range(2):
+        state, metrics = step(state, model.patchnorm, batch)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        state, metrics = step(state, model.patchnorm, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed_steps
+    per_step = {k: v / timed_steps for k, v in K.launch_counts().items() if k.startswith("attention")}
+    check(all(v == n_layers for v in per_step.values()), f"attention launches per step {per_step} for {n_layers} layers")
+    check(math.isfinite(float(metrics["loss"])), "timed steps: loss not finite")
+    emit({
+        "phase": "train_full_width_patch14l", "dtype": "bfloat16 compute, float32 masters", "rows": rows,
+        "seq_len": 256, "images": n_images, "train_steps": train_steps, "loss_first": logs[0]["loss"],
+        "loss_last": logs[-1]["loss"], "ms_per_step": ms, "images_per_s": n_images / ms * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches_per_step": per_step,
+        "launches_in_train": launches, "params": model.n_params,
+    })
+    if profile:
+        emit({"phase": "profile_train_step_patch14l", **profile_device(lambda: step(state, model.patchnorm, batch), reps=2, top=24)})
+    return launches
 
 
 # ---------------------------------------------------------------- main
 
 
+# (cases key, name, source, TPU kernel, launch counter, the main path its count is read from)
 KERNEL_TABLE = [
     ("attention", "packed_attention_fwd", "dct_autoencoder_torch/csrc/attention_fwd.cu",
-     "dct_autoencoder_tpu/kernels/attention.py:91"),
+     "dct_autoencoder_tpu/kernels/attention.py:91", "attention", "serving"),
+    ("attention_dq", "packed_attention_bwd_dq", "dct_autoencoder_torch/csrc/attention_bwd.cu",
+     "dct_autoencoder_tpu/kernels/attention.py:194", "attention_dq", "train_patch14l"),
+    ("attention_dkv", "packed_attention_bwd_dkv", "dct_autoencoder_torch/csrc/attention_bwd.cu",
+     "dct_autoencoder_tpu/kernels/attention.py:236", "attention_dkv", "train_patch14l"),
     ("dct", "fused_ipt_dct_patchify", "dct_autoencoder_torch/csrc/dct_patchify.cu",
-     "dct_autoencoder_tpu/kernels/dct_patchify.py:43"),
+     "dct_autoencoder_tpu/kernels/dct_patchify.py:43", "dct_patchify", "serving"),
     ("idct", "fused_idct_unpatchify_rgb", "dct_autoencoder_torch/csrc/idct_unpatchify.cu",
-     "dct_autoencoder_tpu/kernels/idct_unpatchify.py:47"),
+     "dct_autoencoder_tpu/kernels/idct_unpatchify.py:47", "idct_unpatchify", "serving"),
 ]
-LAUNCH_KEY = {"attention": "attention", "dct": "dct_patchify", "idct": "idct_unpatchify"}
+SERVING_KERNELS = ("attention", "dct_patchify", "idct_unpatchify")
 
 
 def main() -> int:
@@ -402,15 +650,22 @@ def main() -> int:
         return 2
     smi = phase_environment()
     cases = phase_kernels()
-    launches = phase_serving()
-    phase_full_width(profile="--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    launches = {"serving": phase_serving()}
+    phase_full_width(profile)
+    torch.cuda.empty_cache()
+    launches["train_r3b"] = phase_train_r3b()
+    torch.cuda.empty_cache()
+    launches["train_patch14l"] = phase_train_full_width(profile)
 
     kernels = []
-    for key, name, source, replaces in KERNEL_TABLE:
-        head = cases[key][0]  # the serving path's main shape
+    for key, name, source, replaces, counter, path in KERNEL_TABLE:
+        head = cases[key][0]  # the main path's shape
+        check(launches[path][counter] > 0, f"{name} was not launched on the {path} path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[LAUNCH_KEY[key]],
+            "launches": launches[path][counter], "launches_on": path,
+            "launches_by_path": {p: n[counter] for p, n in launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[key]),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -1,18 +1,25 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
 Each module holds a wrapper that launches its kernel for CUDA tensors and
-runs the plain version for CPU tensors, plus a ``LAUNCHES`` counter.  The
-kernels are built from ../csrc at first use (see _build.py).
+runs the plain version for CPU tensors, plus a launch counter per kernel.
+The kernels are built from ../csrc at first use (see _build.py).
 """
 from . import attention, dct_patchify, idct_unpatchify
 
-KERNEL_MODULES = (attention, dct_patchify, idct_unpatchify)
+# kernel name -> (module, name of its launch counter)
+COUNTERS = {
+    "attention": (attention, "LAUNCHES"),
+    "attention_dq": (attention, "LAUNCHES_DQ"),
+    "attention_dkv": (attention, "LAUNCHES_DKV"),
+    "dct_patchify": (dct_patchify, "LAUNCHES"),
+    "idct_unpatchify": (idct_unpatchify, "LAUNCHES"),
+}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES:
-        mod.LAUNCHES = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {mod.__name__.rsplit(".", 1)[-1]: mod.LAUNCHES for mod in KERNEL_MODULES}
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}

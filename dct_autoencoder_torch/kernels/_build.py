@@ -28,6 +28,7 @@ NVCC_FLAGS = [
 # kernel library name -> its .cu source (headers in csrc/ are hashed too)
 SOURCES = {
     "attention_fwd": "attention_fwd.cu",
+    "attention_bwd": "attention_bwd.cu",
     "dct_patchify": "dct_patchify.cu",
     "idct_unpatchify": "idct_unpatchify.cu",
 }

@@ -1,18 +1,24 @@
-"""Packed block-diagonal attention, forward, with a CUDA kernel for Hopper.
+"""Packed block-diagonal attention, forward and backward, with CUDA kernels for Hopper.
 
-Replaces dct_autoencoder_tpu/kernels/attention.py::_attn_fwd_kernel (the
-Pallas forward called from _flash_attention_fwd_impl).  The kernel is
-csrc/attention_fwd.cu: one block per (b*h, 64-row q tile) streams 64-row
-k/v tiles through shared memory with an online fp32 softmax, because a
-Hopper block cannot hold the whole k/v stripe the Pallas kernel keeps in
-VMEM.  The mask is derived from per-token ids inside the kernel.  On the
-H100 the tensor-core bound of this call is memory (q/k/v/o bytes); this
-first version multiplies on the CUDA cores in fp32 and is bound by their
-rate (see the source's header).
+Replaces the three Pallas kernels of dct_autoencoder_tpu/kernels/attention.py:
+_attn_fwd_kernel (called from _flash_attention_fwd_impl), and _attn_dq_kernel
+and _attn_dkv_kernel (called from _flash_attention_bwd_impl).  The forward
+kernel is csrc/attention_fwd.cu: one block per (b*h, 64-row q tile) streams
+64-row k/v tiles through shared memory with an online fp32 softmax, because
+a Hopper block cannot hold the whole k/v stripe the Pallas kernel keeps in
+VMEM.  The backward kernels are csrc/attention_bwd.cu: one block per q tile
+for dq, one per k tile for dk/dv, each recomputing p = exp(logits - lse)
+from the saved row log-sum-exp.  The mask is derived from per-token ids
+inside the kernels.  On the H100 the tensor-core bound of these calls is
+memory (the q/k/v/o/do bytes); these first versions multiply on the CUDA
+cores in fp32 and are bound by their rate (see the sources' headers).
 
-``packed_flash_attention`` keeps the JAX layout (b, h, s, d) and contract.
-For a CPU tensor it runs ``attention_fwd_plain``; for a CUDA tensor it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+``packed_flash_attention`` keeps the JAX layout (b, h, s, d) and contract,
+and carries the gradient through a ``torch.autograd.Function`` whenever an
+input requires it.  For a CPU tensor each wrapper runs its plain version
+(``attention_fwd_plain``, ``attention_bwd_plain``); for a CUDA tensor it
+launches the kernel or raises.  ``LAUNCHES``, ``LAUNCHES_DQ`` and
+``LAUNCHES_DKV`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import torch
 NEG_INF = -1e9
 
 LAUNCHES = 0
+LAUNCHES_DQ = 0
+LAUNCHES_DKV = 0
 
 
 def segment_ids(image_ids: torch.Tensor, key_pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -34,14 +42,42 @@ def segment_ids(image_ids: torch.Tensor, key_pad_mask: torch.Tensor) -> Tuple[to
     return q_ids.contiguous(), kv_ids.contiguous()
 
 
-def attention_fwd_plain(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block"):
-    """Eager PyTorch version of the kernel: returns (o, lse)."""
+def _masked_logits(q, k, q_ids, kv_ids, scale: float, mode: str) -> torch.Tensor:
+    """(b, h, s, s) fp32 logits with the segment mask applied as the kernels apply it."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     allowed = (q_ids[:, None, :, None] == kv_ids[:, None, None, :])
     if mode == "bias":
-        logits = logits + allowed.float()
-    else:
-        logits = torch.where(allowed, logits, torch.full_like(logits, NEG_INF))
+        return logits + allowed.float()
+    return torch.where(allowed, logits, torch.full_like(logits, NEG_INF))
+
+
+def _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode: str, rows=None) -> None:
+    """Raise on what the kernels do not take.  `like_q` maps names to tensors of
+    q's layout, `rows` to (b, h, s) fp32 row vectors (lse, delta)."""
+    b, h, s, d = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"attention kernel takes bfloat16 or float32, got {q.dtype}")
+    if d not in (32, 64):
+        raise ValueError(f"attention kernel supports head dim 32 or 64, got {d}")
+    if mode not in ("block", "bias"):
+        raise ValueError(f"unknown attention mask mode {mode!r}")
+    for name, t in like_q.items():
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q in shape, dtype and device")
+    for name, t in (("q_ids", q_ids), ("kv_ids", kv_ids)):
+        if t.shape != (b, s) or t.dtype != torch.int32 or t.device != q.device:
+            raise ValueError(f"{name} must be int32 of shape {(b, s)} on {q.device}")
+    rows = rows or {}
+    for name, t in rows.items():
+        if t.shape != (b, h, s) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be float32 of shape {(b, h, s)} on {q.device}")
+    if not all(t.is_contiguous() for t in (q, *like_q.values(), q_ids, kv_ids, *rows.values())):
+        raise ValueError("attention kernel takes contiguous tensors")
+
+
+def attention_fwd_plain(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block"):
+    """Eager PyTorch version of the kernel: returns (o, lse)."""
+    logits = _masked_logits(q, k, q_ids, kv_ids, scale, mode)
     m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=NEG_INF * 0.5)
     p = torch.exp(logits - m)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-9)
@@ -55,22 +91,8 @@ def attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block"
     global LAUNCHES
     from . import _build
 
+    _check_kernel_inputs(q, {"k": k, "v": v}, q_ids, kv_ids, mode)
     b, h, s, d = q.shape
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"attention kernel takes bfloat16 or float32, got {q.dtype}")
-    if d not in (32, 64):
-        raise ValueError(f"attention kernel supports head dim 32 or 64, got {d}")
-    if mode not in ("block", "bias"):
-        raise ValueError(f"unknown attention mask mode {mode!r}")
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q in shape, dtype and device")
-    for name, t in (("q_ids", q_ids), ("kv_ids", kv_ids)):
-        if t.shape != (b, s) or t.dtype != torch.int32 or t.device != q.device:
-            raise ValueError(f"{name} must be int32 of shape {(b, s)} on {q.device}")
-    if not all(t.is_contiguous() for t in (q, k, v, q_ids, kv_ids)):
-        raise ValueError("attention kernel takes contiguous tensors")
-
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.load("attention_fwd")
@@ -99,6 +121,107 @@ def attention_fwd(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block"):
     return attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode)
 
 
+def attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block"):
+    """Eager PyTorch version of the two backward kernels: returns (dq, dk, dv).
+
+    Recomputes p from the saved lse, fp32 inside, results in the input types.
+    """
+    logits = _masked_logits(q, k, q_ids, kv_ids, scale, mode)
+    p = torch.exp(logits - lse[..., None])  # rows of padded queries are 0 in 'block' mode
+    do32 = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, v.float())
+    delta = (do32 * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# both backward entry points: 10 pointers, b h s d, scale, mode, dtype, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
+]
+
+
+def attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block"):
+    """Launch attn_dq_kernel of csrc/attention_bwd.cu: returns (dq, delta).
+
+    delta = rowsum(do * o) (b, h, s) fp32 is computed in the kernel's
+    prologue; ``attention_dkv_cuda`` takes it.
+    """
+    global LAUNCHES_DQ
+    from . import _build
+
+    _check_kernel_inputs(q, {"k": k, "v": v, "o": o, "do": do}, q_ids, kv_ids, mode, {"lse": lse})
+    b, h, s, d = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = _build.load("attention_bwd").attn_bwd_dq
+    fn.restype = ctypes.c_int
+    fn.argtypes = _BWD_ARGTYPES
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+        b, h, s, d, float(scale), 1 if mode == "bias" else 0, 1 if q.dtype == torch.bfloat16 else 0,
+        _build.stream_ptr(q.device),
+    )
+    _build.check(err, "attention_bwd dq")
+    LAUNCHES_DQ += 1
+    return dq, delta
+
+
+def attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale: float, mode: str = "block"):
+    """Launch attn_dkv_kernel of csrc/attention_bwd.cu: returns (dk, dv)."""
+    global LAUNCHES_DKV
+    from . import _build
+
+    _check_kernel_inputs(q, {"k": k, "v": v, "do": do}, q_ids, kv_ids, mode, {"lse": lse, "delta": delta})
+    b, h, s, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.load("attention_bwd").attn_bwd_dkv
+    fn.restype = ctypes.c_int
+    fn.argtypes = _BWD_ARGTYPES
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, s, d, float(scale), 1 if mode == "bias" else 0, 1 if q.dtype == torch.bfloat16 else 0,
+        _build.stream_ptr(q.device),
+    )
+    _build.check(err, "attention_bwd dkv")
+    LAUNCHES_DKV += 1
+    return dk, dv
+
+
+def attention_bwd(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block"):
+    """(dq, dk, dv) from the two kernels for CUDA tensors, the plain version on the CPU."""
+    if q.device.type == "cuda":
+        dq, delta = attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode)
+        dk, dv = attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode)
+        return dq, dk, dv
+    if q.device.type != "cpu":
+        raise ValueError(f"attention runs on CUDA or the CPU, not {q.device}")
+    return attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode)
+
+
+class _PackedAttention(torch.autograd.Function):
+    """o = attention(q, k, v) with the backward kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_ids, kv_ids, scale, mode):
+        o, lse = attention_fwd(q, k, v, q_ids, kv_ids, scale, mode)
+        ctx.save_for_backward(q, k, v, q_ids, kv_ids, o, lse)
+        ctx.scale, ctx.mode = scale, mode
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_ids, kv_ids, o, lse = ctx.saved_tensors
+        # autograd often hands over a transposed view (the head merge)
+        dq, dk, dv = attention_bwd(q, k, v, q_ids, kv_ids, o, lse, do.contiguous(), ctx.scale, ctx.mode)
+        return dq, dk, dv, None, None, None, None
+
+
 def packed_flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -118,5 +241,8 @@ def packed_flash_attention(
     if causal:
         raise NotImplementedError("causal packed attention is not ported yet")
     q_ids, kv_ids = segment_ids(image_ids, key_pad_mask)
-    o, _ = attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), q_ids, kv_ids, scale, mode)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _PackedAttention.apply(q, k, v, q_ids, kv_ids, scale, mode)
+    o, _ = attention_fwd(q, k, v, q_ids, kv_ids, scale, mode)
     return o

@@ -3,26 +3,32 @@
 `DCTAutoencoderModule` is the nn.Module; its parameter names follow the
 JAX package's flax tree (see models/convert.py).  `DCTAutoencoder` wraps it
 with the patchnorm state and the reference API (normalize_, encode, decode,
-decode_from_codes, forward, from_pretrained).
+decode_from_codes, forward, from_pretrained, save_pretrained).
 
-Types: the transformer and the patch-embed / proj_out projections run in
-the model dtype (bf16 for serving); LayerNorms keep fp32 parameters and
-statistics; position embeddings are gathered and summed in fp32 and then
-cast; LFQ and its projections run in fp32, as in the JAX model.
+Types: every parameter is an fp32 master.  The transformer and the
+patch-embed / proj_out projections cast their weights at use and run in the
+model dtype (bf16 on the card); LayerNorms keep fp32 statistics; position
+embeddings are gathered and summed in fp32 and then cast; LFQ and its
+projections run in fp32, as in the JAX model.
+
+The module's parameters are trainable (train/loop.py updates them in
+place); the wrapper's serving methods run without autograd.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..patches.container import DCTPatches
 from .config import DCTAutoencoderConfig
 from .lfq import LFQ
 from .patchnorm import PatchNormState, apply_patchnorm, inverse_patchnorm
-from .transformer import LayerNorm, TransformerEncoder
+from .transformer import Dense, LayerNorm, TransformerEncoder
 
 
 def resolve_device(device) -> torch.device:
@@ -49,33 +55,41 @@ class DCTAutoencoderModule(nn.Module):
             setattr(self, f"{prefix}_pos_embed_channel", nn.Parameter(torch.randn(c, dim)))
             setattr(self, f"{prefix}_pos_embed_height", nn.Parameter(torch.randn(mh, dim)))
             setattr(self, f"{prefix}_pos_embed_width", nn.Parameter(torch.randn(mw, dim)))
-        self.patch_embed_linear = nn.Linear(config.patch_dim, dim, bias=False, dtype=dtype)
+        self.patch_embed_linear = Dense(config.patch_dim, dim, bias=False, dtype=dtype)
         self.patch_embed_norm = LayerNorm(dim, 1e-4)
         self.encoder = TransformerEncoder(config.encoder_config, dtype)
         self.decoder = TransformerEncoder(config.decoder_config, dtype)
         self.vq_model = LFQ(dim, config.vq_codebook_size, config.vq_num_codebooks)
         self.proj_out_norm = LayerNorm(dim, 1e-4)
-        self.proj_out_linear = nn.Linear(dim, config.patch_dim, bias=False, dtype=dtype)
+        self.proj_out_linear = Dense(dim, config.patch_dim, bias=False, dtype=dtype)
 
     def _pos_embedding(self, prefix: str, x: DCTPatches) -> torch.Tensor:
-        c = getattr(self, f"{prefix}_pos_embed_channel")[x.patch_channels.long()]
-        h = getattr(self, f"{prefix}_pos_embed_height")[x.h_indices.long()]
-        w = getattr(self, f"{prefix}_pos_embed_width")[x.w_indices.long()]
+        # F.embedding, not table[ids]: the same gather, but its gradient is the
+        # embedding scatter-add, not the general (sorting) indexing backward
+        c = F.embedding(x.patch_channels.long(), getattr(self, f"{prefix}_pos_embed_channel"))
+        h = F.embedding(x.h_indices.long(), getattr(self, f"{prefix}_pos_embed_height"))
+        w = F.embedding(x.w_indices.long(), getattr(self, f"{prefix}_pos_embed_width"))
         return (c + h + w).to(self.dtype)
 
-    def _stack(self, stack: nn.Module, feats: torch.Tensor, x: DCTPatches) -> torch.Tensor:
-        return stack(feats, x.batched_image_ids, x.key_pad_mask, self.config.attn_mask_mode)
+    def _stack(self, stack: nn.Module, feats: torch.Tensor, x: DCTPatches, training=False, generator=None):
+        return stack(
+            feats, x.batched_image_ids, x.key_pad_mask, self.config.attn_mask_mode, training, generator
+        )
 
-    def encode(self, x: DCTPatches):
-        """Normalized patches -> (x with quantized fp32 features, codes (b, s, c))."""
+    def encode(self, x: DCTPatches, training: bool = False, generator: Optional[torch.Generator] = None):
+        """Normalized patches -> (x with quantized fp32 features, codes (b, s, c),
+        commit_loss, distances); the last two are zeros unless training."""
         feats = self.patch_embed_norm(self.patch_embed_linear(x.patches.to(self.dtype)))
         feats = feats + self._pos_embedding("encoder", x)
-        feats = self._stack(self.encoder, feats, x)
-        quantized, codes = self.vq_model(feats)
-        return x.replace(patches=quantized), codes
+        feats = self._stack(self.encoder, feats, x, training, generator)
+        quantized, codes, commit_loss, distances = self.vq_model(feats, mask=~x.key_pad_mask, training=training)
+        return x.replace(patches=quantized), codes, commit_loss, distances
 
     def decode(self, x: DCTPatches) -> DCTPatches:
-        """Quantized features -> DCT patch predictions (model dtype)."""
+        """Quantized features -> DCT patch predictions (model dtype).
+
+        Runs the decoder stack without dropout, in training too, as the JAX
+        module does."""
         feats = x.patches.to(self.dtype) + self._pos_embedding("decoder", x)
         feats = self._stack(self.decoder, feats, x)
         return x.replace(patches=self.proj_out_linear(self.proj_out_norm(feats)))
@@ -83,9 +97,11 @@ class DCTAutoencoderModule(nn.Module):
     def decode_from_codes(self, codes: torch.Tensor, x: DCTPatches) -> DCTPatches:
         return self.decode(x.replace(patches=self.vq_model.indices_to_codes(codes)))
 
-    def forward(self, x: DCTPatches) -> Dict[str, Any]:
-        q, codes = self.encode(x)
-        return dict(dct_patches=self.decode(q), codes=codes)
+    def forward(
+        self, x: DCTPatches, training: bool = False, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, Any]:
+        q, codes, commit_loss, distances = self.encode(x, training, generator)
+        return dict(dct_patches=self.decode(q), commit_loss=commit_loss, codes=codes, distances=distances)
 
 
 class DCTAutoencoder:
@@ -105,7 +121,7 @@ class DCTAutoencoder:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             module = DCTAutoencoderModule(config, dtype)
-        self.module = module.to(self.device).eval().requires_grad_(False)
+        self.module = module.to(self.device)
         self.patchnorm = (patchnorm or PatchNormState.create(
             config.image_channels, config.max_patch_h, config.max_patch_w, config.patch_dim
         )).to(self.device)
@@ -120,21 +136,19 @@ class DCTAutoencoder:
     def inv_normalize_(self, x: DCTPatches) -> DCTPatches:
         return x.replace(patches=inverse_patchnorm(self.patchnorm, x))
 
-    def _check_eval(self, training: bool) -> None:
-        if training:
-            raise NotImplementedError("the training forward is not ported yet")
-
-    @torch.no_grad()
     def forward(self, batch: DCTPatches, training: bool = False) -> Dict[str, Any]:
-        self._check_eval(training)
-        return self.module(batch.to(self.device))
+        """dct_patches, codes, commit_loss, distances.  training=True runs the
+        LFQ training path under autograd; otherwise nothing is recorded."""
+        with torch.set_grad_enabled(training):
+            return self.module(batch.to(self.device), training=training)
 
     __call__ = forward
 
-    @torch.no_grad()
     def encode(self, batch: DCTPatches, training: bool = False):
-        self._check_eval(training)
-        return self.module.encode(batch.to(self.device))
+        """(quantized batch, codes); with training=True also (commit_loss, distances)."""
+        with torch.set_grad_enabled(training):
+            out = self.module.encode(batch.to(self.device), training=training)
+        return out if training else out[:2]
 
     @torch.no_grad()
     def decode(self, batch: DCTPatches) -> DCTPatches:
@@ -144,6 +158,20 @@ class DCTAutoencoder:
     def decode_from_codes(self, codes: torch.Tensor, **dct_patches_kwargs) -> DCTPatches:
         x = DCTPatches(patches=torch.zeros(()), **dct_patches_kwargs).to(self.device)
         return self.module.decode_from_codes(torch.as_tensor(codes, device=self.device), x)
+
+    def save_pretrained(self, path: str) -> None:
+        """Write config.json, params.npz (flat '/' paths) and patchnorm.npz in
+        the JAX package's checkpoint format, so either package loads it."""
+        from .convert import jax_arrays_from_state_dict
+
+        os.makedirs(path, exist_ok=True)
+        self.config.to_json_file(os.path.join(path, "config.json"))
+        np.savez(os.path.join(path, "params.npz"), **jax_arrays_from_state_dict(self.module.state_dict(), self.config))
+        pn = self.patchnorm
+        np.savez(
+            os.path.join(path, "patchnorm.npz"),
+            n=pn.n.detach().cpu().numpy(), median=pn.median.detach().cpu().numpy(), b=pn.b.detach().cpu().numpy(),
+        )
 
     @classmethod
     def from_pretrained(cls, path: str, dtype: torch.dtype = torch.float32, device="cuda") -> "DCTAutoencoder":

@@ -2,8 +2,8 @@
 
 Nested `encoder_config` / `decoder_config` blocks use CLIPVisionConfig
 field names, so conf/*.json and saved checkpoints load unchanged.  Fields
-that only the JAX package acts on (remat, sequence parallelism, int8
-serving, attention_impl) are kept so a config round-trips; the port runs
+that only the JAX package acts on (sequence parallelism, int8 serving,
+attention_impl) are kept so a config round-trips; the port runs
 its attention kernel on the card whatever `attention_impl` says.
 """
 from __future__ import annotations

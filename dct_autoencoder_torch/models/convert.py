@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's params.npz into the port's state_dict.
+"""Carry weights between the JAX package's params.npz and the port's state_dict.
 
 The JAX package saves its flax parameter tree as flat '/'-joined paths,
 e.g. ``encoder/layers_0/self_attn/q_proj/kernel``.  The port's module tree
@@ -6,8 +6,11 @@ uses the same names, so the mapping is mechanical:
   * '/' -> '.', and ``layers_N`` -> ``layers.N``;
   * a Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed;
   * a LayerNorm ``scale`` -> ``weight``.
-Every key must be consumed and every port parameter filled, with matching
-shapes; anything else raises.
+`jax_arrays_from_state_dict` is the reverse map (a 2-d ``weight`` is a Dense
+kernel, a 1-d ``weight`` a LayerNorm scale); it also carries a dict of
+gradients keyed like the state_dict.  In both directions every key must be
+consumed and every parameter filled, with matching shapes; anything else
+raises.
 """
 from __future__ import annotations
 
@@ -67,4 +70,43 @@ def state_dict_from_jax_npz(
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f"port parameters not filled by the checkpoint: {missing}")
+    return out
+
+
+def _jax_key(port_key: str, ndim: int) -> str:
+    parts = port_key.split(".")
+    out = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    if out[-1] == "weight":
+        out[-1] = "kernel" if ndim == 2 else "scale"
+    return "/".join(out)
+
+
+def jax_arrays_from_state_dict(
+    state_dict: Mapping[str, torch.Tensor], config: DCTAutoencoderConfig
+) -> Dict[str, np.ndarray]:
+    """Map the port's state_dict (or gradients under the same names) onto the
+    JAX package's flat parameter paths, as fp32 numpy arrays."""
+    want = expected_shapes(config)
+    out: Dict[str, np.ndarray] = {}
+    for key, t in state_dict.items():
+        if key not in want:
+            raise KeyError(f"{key!r} is not a parameter of the port's module")
+        if t.shape != want[key]:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, the module expects {tuple(want[key])}")
+        arr = t.detach().to(torch.float32).cpu().numpy()
+        jax_key = _jax_key(key, arr.ndim)
+        if jax_key.endswith("/kernel"):
+            arr = arr.T
+        out[jax_key] = np.ascontiguousarray(arr)
+    missing = sorted(set(want) - set(state_dict))
+    if missing:
+        raise KeyError(f"parameters missing from the state_dict: {missing}")
     return out

@@ -1,0 +1,105 @@
+"""Masked statistics, MaskGIT-style entropy loss, codebook perplexity.
+
+The loss and metric numerics of the JAX package's ops/stats.py, in PyTorch.
+`compute_entropy_loss` gives the same value and gradient as the reference
+but walks the codebook heads one at a time: at the full-width batch the
+affinities are (64, 256, 16, 8192) fp32 = 8.6 GB, and softmax, log_softmax
+and their product would each keep another copy for the backward.  The loss
+separates over heads (a per-head masked mean of the probabilities, averaged
+over heads at the end; a sum over heads of per-token entropies), so each
+head runs under torch.utils.checkpoint and only about one head's worth of
+temporaries (0.5 GB a copy) is alive at a time.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+
+def mult_along_first_dims(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x * m where m broadcasts over x's leading dims."""
+    return x * m.reshape(m.shape + (1,) * (x.ndim - m.ndim))
+
+
+def masked_mean(x: torch.Tensor, m: torch.Tensor, dim=None) -> torch.Tensor:
+    """Mean of x over entries where m (a 0/1 or bool mask on leading dims) is set.
+
+    With `dim` given the division is still by the *total* mask count (the
+    reference's convention).  An all-zero mask yields 0, not 0/0.
+    """
+    m = m.to(x.dtype)
+    x = mult_along_first_dims(x, m) / torch.clamp(m.sum(), min=1)
+    return x.sum() if dim is None else x.sum(dim=dim)
+
+
+def _head_entropy_terms(affinity: torch.Tensor, weights: torch.Tensor, temperature: float, eps: float):
+    """One codebook head: affinity (n, z), weights (n,) = mask / max(count, 1).
+
+    Returns (sum_n w_n sum_z p log p, sum_n w_n p) = (scalar, (z,)).
+    """
+    log_probs = torch.log_softmax(affinity / temperature + eps, dim=-1)
+    probs = torch.exp(log_probs)
+    neg_entropy = (probs * log_probs).sum(dim=-1)  # as a batched dot this runs as n tiny GEMVs
+    return torch.dot(weights, neg_entropy), weights @ probs
+
+
+def compute_entropy_loss(
+    affinity: torch.Tensor, mask: torch.Tensor, temperature: float = 0.01, eps: float = 1e-9
+) -> torch.Tensor:
+    """MaskGIT-style codebook entropy loss: sample_entropy - avg_entropy, in fp32.
+
+    affinity: (b, s, c, z) code affinities (last dim over codebook entries).
+    mask: (b, s) bool, False where padding is.
+    """
+    og_dtype = affinity.dtype
+    b, s = mask.shape
+    m = mask.reshape(b * s).to(torch.float32)
+    weights = m / torch.clamp(m.sum(), min=1)
+    need_grad = torch.is_grad_enabled() and affinity.requires_grad
+
+    sample_sum = None
+    avg_probs = None
+    heads = affinity.float().unbind(dim=2)  # c views of (b, s, z); one stacked gradient
+    for head in heads:
+        head = head.reshape(b * s, head.shape[-1])
+        if need_grad:
+            neg_ent, probs = checkpoint(_head_entropy_terms, head, weights, temperature, eps, use_reentrant=False)
+        else:
+            neg_ent, probs = _head_entropy_terms(head, weights, temperature, eps)
+        sample_sum = neg_ent if sample_sum is None else sample_sum + neg_ent
+        avg_probs = probs if avg_probs is None else avg_probs + probs
+    avg_probs = avg_probs / len(heads)
+
+    avg_entropy = -torch.sum(avg_probs * torch.log(avg_probs + eps))
+    sample_entropy = -sample_sum
+    return (sample_entropy - avg_entropy).to(og_dtype)
+
+
+def calculate_perplexity(codes: torch.Tensor, codebook_size: int, null_index: int = -1) -> torch.Tensor:
+    """2^H(p) over the empirical code histogram; entries equal to `null_index` are left out."""
+    codes = codes.reshape(-1)
+    valid = codes != null_index
+    bucket = torch.where(valid, codes, torch.full_like(codes, codebook_size)).long()
+    counts = torch.bincount(bucket, minlength=codebook_size + 1)[:codebook_size].float()
+    probs = counts / torch.clamp(valid.sum(), min=1)
+    logits = torch.where(probs > 0.0, torch.log2(torch.clamp(probs, min=1e-30)), torch.zeros_like(probs))
+    return 2.0 ** (-torch.sum(probs * logits))
+
+
+def get_decay_fn(start_val: float, end_value: float, n: int):
+    """Linear decay schedule fn."""
+
+    def fn(i: int) -> float:
+        if i > n:
+            return end_value
+        return ((n - i) / n) * start_val + (i / n) * end_value
+
+    return fn
+
+
+def psnr(a, b) -> float:
+    """RGB-space PSNR in dB between two [0, 1] images (clipped; mse floored at
+    1e-12, so capped at 120 dB)."""
+    mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2))
+    return 10.0 * float(np.log10(1.0 / max(mse, 1e-12)))

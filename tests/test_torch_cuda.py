@@ -6,8 +6,11 @@ JAX, so it runs on a machine with the card and without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: attention atol 2e-2 in bf16 and 1e-5 in fp32 on o, 1e-4 on lse;
-padded queries exactly 0 in 'block' mode.  DCT and IDCT max|diff| <= 1e-5 x
-max|value| (true fp32 on both sides, sums in another order).
+padded queries exactly 0 in 'block' mode.  The attention backward (dq, dk,
+dv) atol 3e-2 in bf16 (one bf16 rounding of values up to ~4 at the store)
+and 1e-5 in fp32; dq of padded queries exactly 0 in 'block' mode.  DCT and
+IDCT max|diff| <= 1e-5 x max|value| (true fp32 on both sides, sums in
+another order).
 """
 import pytest
 import torch
@@ -61,6 +64,62 @@ def test_attention_kernel_matches_plain(cuda, b, h, s, d, dtype, mode):
         assert (o.transpose(1, 2)[pad] == 0).all()
 
 
+@pytest.mark.parametrize(
+    "b,h,s,d,dtype,mode",
+    [
+        (4, 16, 256, 64, torch.bfloat16, "block"),
+        (4, 16, 256, 64, torch.bfloat16, "bias"),
+        (4, 8, 256, 32, torch.bfloat16, "block"),
+        (3, 8, 173, 32, torch.float32, "block"),
+        (3, 8, 173, 64, torch.float32, "bias"),
+        (1, 8, 1, 32, torch.float32, "block"),
+    ],
+)
+def test_attention_backward_kernels_match_plain(cuda, b, h, s, d, dtype, mode):
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, dtype, cuda)
+    do = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(1)).to(dtype).to(cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, d**-0.5, mode)
+    tk.reset_launch_counts()
+    got = tatt.attention_bwd(q, k, v, q_ids, kv_ids, o, lse, do, d**-0.5, mode)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert counts["attention_dq"] == 1 and counts["attention_dkv"] == 1 and counts["attention"] == 0
+    want = tatt.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, d**-0.5, mode)
+    atol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+    if mode == "block" and pad.any():
+        assert (got[0].transpose(1, 2)[pad] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["block", "bias"])
+def test_attention_gradients_match_cpu(cuda, mode):
+    """fp32 gradients through the autograd.Function on the card against the
+    plain path on the CPU, with the head merge's transposed grad_output."""
+    b, h, s, d = 2, 4, 173, 32
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.float32, "cpu", seed=2)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        qq, kk, vv = (t.clone().to(dev).requires_grad_(True) for t in (q, k, v))
+        o = tatt.packed_flash_attention(qq, kk, vv, ids.to(dev), pad.to(dev), d**-0.5, mode)
+        (o.transpose(1, 2).reshape(b, s, h * d) ** 2).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in (qq, kk, vv)]
+    for a, c in zip(grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(c, a, atol=1e-5, rtol=1e-5)
+
+
+def test_attention_backward_refuses_bad_input_on_cuda(cuda):
+    q, k, v, ids, pad = _attn_inputs(1, 2, 16, 32, torch.float32, cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, 1.0)
+    with pytest.raises(ValueError):
+        tatt.attention_bwd(q, k, v, q_ids, kv_ids, o, lse, q.mT.contiguous().mT, 1.0)  # not contiguous
+    with pytest.raises(ValueError):
+        half = lambda t: t[..., :16].contiguous()  # head dim 16 has no kernel
+        tatt.attention_bwd(half(q), half(k), half(v), q_ids, kv_ids, half(o), lse, half(q), 1.0)
+
+
 def test_attention_causal_raises_on_cuda(cuda):
     q, k, v, ids, pad = _attn_inputs(1, 1, 8, 32, torch.float32, cuda)
     with pytest.raises(NotImplementedError):
@@ -82,4 +141,6 @@ def test_dct_kernels_match_plain(cuda, b, h, w, ch, cw, p):
     torch.cuda.synchronize()
     r_ref = tid.fused_idct_unpatchify_rgb_plain(planes, h, w)
     assert (r - r_ref).abs().max().item() <= 1e-5 * r_ref.abs().max().item()
-    assert tk.launch_counts() == {"attention": 0, "dct_patchify": 1, "idct_unpatchify": 1}
+    counts = tk.launch_counts()
+    assert counts.pop("dct_patchify") == 1 and counts.pop("idct_unpatchify") == 1
+    assert set(counts.values()) == {0}

@@ -6,6 +6,8 @@ Tolerances:
   * DCT patch tokens atol 2e-4 (as tests/test_kernels.py).  Tokens are
     compared as sets keyed by (channel, h, w): equal importance scores may
     sort in another order in the two packages;
+    Each package is also held on its own to a float64 numpy computation of
+    the same tokens (atol 1e-4), so a failure names the side that moved;
   * RGB from postprocess atol 2e-4; images decoded from the same records by
     the two packages atol 1e-3 (fp32 on both sides; the signed power 1/0.43
     of the colour transform amplifies rounding).
@@ -43,6 +45,27 @@ def _extractors(**overrides):
     return jext.DCTAutoencoderFeatureExtractor(**kw), text.DCTAutoencoderFeatureExtractor(**kw, device="cpu")
 
 
+def _tokens_f64(im, p, grid):
+    """RGB -> IPT -> whole-image DCT -> patches in float64 numpy: {(c, h, w): (p*p,)}."""
+    from dct_autoencoder_torch.ops.colorspace import IPT_GAMMA, M_IPT, RGB2LMS
+
+    x = np.asarray(im, np.float64) / (255.0 if im.dtype == np.uint8 else 1.0)
+    lms = np.einsum("ij,jhw->ihw", np.asarray(RGB2LMS, np.float64), x)
+    ipt = np.einsum("ij,jhw->ihw", np.asarray(M_IPT, np.float64), np.sign(lms) * np.abs(lms) ** IPT_GAMMA)
+
+    def dct(n):
+        k, i = np.arange(n)[:, None], np.arange(n)[None, :]
+        m = np.cos(np.pi * (2 * i + 1) * k / (2 * n)) * np.sqrt(2.0 / n)
+        m[0] = np.sqrt(1.0 / n)
+        return m
+
+    y = dct(x.shape[1]) @ ipt @ dct(x.shape[2]).T
+    return {
+        (c, h, w): y[c, h * p : (h + 1) * p, w * p : (w + 1) * p].reshape(-1)
+        for c in range(3) for h in range(grid[0]) for w in range(grid[1])
+    }
+
+
 def _token_map(d):
     return {
         (int(c), int(h), int(w)): p
@@ -60,7 +83,10 @@ def test_preprocess_matches_jax(size, dtype):
     assert dj["patch_sizes"] == dt_["patch_sizes"] and dj["original_sizes"] == dt_["original_sizes"]
     mj, mt = _token_map(dj), _token_map(dt_)
     assert mj.keys() == mt.keys()
+    want = _tokens_f64(im, KW["patch_size"], dj["patch_sizes"])
     for key in mj:
+        np.testing.assert_allclose(mt[key], want[key], atol=1e-4, err_msg=f"the port's token {key} against float64")
+        np.testing.assert_allclose(mj[key], want[key], atol=1e-4, err_msg=f"the JAX token {key} against float64")
         np.testing.assert_allclose(mt[key], mj[key], atol=2e-4)
 
 
@@ -155,7 +181,7 @@ def test_records_match_jax_records(pipelines):
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, dct_autoencoder_torch\n"
+        "import sys, dct_autoencoder_torch, dct_autoencoder_torch.train, dct_autoencoder_torch.ops.stats\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'dct_autoencoder_tpu'))]\n"
         "assert not bad, bad\n"
     )
@@ -163,7 +189,10 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
 
 
-@pytest.mark.parametrize("entry", ["get_model_and_processor", "from_config", "from_pretrained", "extractor"])
+@pytest.mark.parametrize(
+    "entry",
+    ["get_model_and_processor", "from_config", "from_pretrained", "extractor", "trainable_model", "resumed_model"],
+)
 def test_entry_points_need_cuda_by_default(entry, monkeypatch):
     """Without a CUDA device and without device='cpu', every entry point raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -175,5 +204,9 @@ def test_entry_points_need_cuda_by_default(entry, monkeypatch):
             dt.DCTPipeline.from_config(cfg)
         elif entry == "from_pretrained":
             dt.DCTPipeline.from_pretrained(R3B)
+        elif entry == "trainable_model":
+            dt.DCTAutoencoder(cfg)  # what train() and make_train_step are handed
+        elif entry == "resumed_model":
+            dt.get_model_and_processor(resume_path=R3B)
         else:
             text.DCTAutoencoderFeatureExtractor(**KW)
