@@ -1,10 +1,11 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and AR paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # add --profile for device-time breakdowns
 
 Builds the five hand-written CUDA kernels from dct_autoencoder_torch/csrc
-(nvcc, sm_90a), holds each against its plain PyTorch version at the shapes
-the main paths give it, and then drives the paths themselves:
+(nvcc, sm_90a), holds each, and the causal mode of the three attention
+kernels, against its plain PyTorch version at the shapes the main paths give
+it, and then drives the paths themselves:
   * the serving round trip with the trained checkpoint in
     docs/calibrated_run_r3b/model (and the same batch through the port on
     the CPU in fp32), and a lossless no-model round trip;
@@ -14,7 +15,14 @@ the main paths give it, and then drives the paths themselves:
     one fixed packed batch, its first step held against the port's fp32 CPU
     run;
   * train() at the full width of patch14-L on 64 x 256 batches, then timed
-    train steps.
+    train steps;
+  * train steps of the 33.6 M-parameter AR token model on packed 8 x 1024
+    rows (bf16 compute, fp32 masters), through the causal kernels;
+  * the AR example's loop on records that the trained tokenizer makes:
+    train, save, load, the KV-cached decode step against the kernel path,
+    sample, decode to pixels;
+  * the samplers of the 33.6 M model: the captured decode step beside the
+    eager per-token loop, at b = 1 and b = 8.
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The line before the last lists the kernels with their
 launches on the main paths, errors, times and bounds; the last line is
@@ -53,6 +61,14 @@ MIN_LOSSLESS_PSNR_DB = 60.0
 # bf16 training step on the card against the port's fp32 step on the CPU, same batch
 MAX_TRAIN_LOSS_REL = 0.05
 MAX_TRAIN_GRAD_NORM_REL = 0.30
+# the AR example trains in fp32 on the card; its step 0 against the port's fp32 CPU step
+MAX_AR_STEP0_LOSS_REL = 1e-3
+# decode_step logits against the teacher-forced forward of the same sequence
+# (another order of sums; in bf16 the cached path also rounds the softmax
+# weights to bf16 where the kernel keeps them in fp32)
+MAX_CACHED_VS_KERNEL_FP32 = 2e-3
+MAX_CACHED_VS_KERNEL_BF16 = 0.25
+MAX_AR_LOSS0_FROM_LN_Z = 0.7
 
 
 def emit(obj) -> None:
@@ -124,10 +140,19 @@ def _attention_inputs(b, h, s, d, dtype, gen, n_tensors):
     return tensors, pad, *A.segment_ids(ids, pad)
 
 
-def _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype):
-    """The additive mask that makes scaled_dot_product_attention compute the same
-    function, and the (query, key) pairs whose products the function needs."""
+def _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype, causal=False):
+    """The mask that makes scaled_dot_product_attention compute the same
+    function, and the (query, key) pairs whose products the function needs.
+    With causal=True in 'block' mode the mask is boolean: same image AND
+    k <= q (`is_causal` alone cannot express packing); the diagonal is
+    allowed for padded queries too, so that no row of the library's softmax
+    is empty."""
     allowed = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+    if causal:
+        s = q_ids.shape[1]
+        allowed = allowed & torch.ones(s, s, dtype=torch.bool, device=q_ids.device).tril()
+        if mode == "block":
+            return allowed | torch.eye(s, dtype=torch.bool, device=q_ids.device), allowed.sum().item()
     if mode == "bias":
         return allowed.to(dtype), allowed.numel()
     return torch.where(allowed, 0.0, -1e9).to(dtype), allowed.sum().item()  # only pairs inside an image
@@ -230,6 +255,100 @@ def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
     }
 
 
+def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
+    """The causal mode of the forward, dq and dk/dv kernels against the plain
+    versions; in 'block' mode also timed without the tile skipping, held to the
+    same bits, and checked for leakage from later keys."""
+    import torch.nn.functional as F
+
+    from dct_autoencoder_torch.kernels import attention as A
+
+    (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, dtype, gen, 4)
+    scale = d**-0.5
+    bf16 = dtype == torch.bfloat16
+    fwd = lambda skip=True: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, True, skip)
+    o, lse = fwd()
+    dq_k = lambda skip=True: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, True, skip)
+    dq, delta = dq_k()
+    dkv_k = lambda skip=True: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, True, skip)
+    dk, dv = dkv_k()
+    torch.cuda.synchronize()
+
+    fwd_plain = lambda: A.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, True)
+    bwd_plain = lambda: A.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, True)
+    o_ref, lse_ref = fwd_plain()
+    refs = dict(zip(("dq", "dk", "dv"), bwd_plain()))
+    what = f"causal attention {mode} {(b, h, s, d)}"
+    tol_f, tol_b = (ATTN_ATOL_BF16, ATTN_BWD_ATOL_BF16) if bf16 else (1e-5, 1e-5)
+    errs = {"o": (o.float() - o_ref.float()).abs().max().item()}
+    check(errs["o"] <= tol_f, f"{what}: o max|diff| {errs['o']} > {tol_f}")
+    lse_err = (lse - lse_ref).abs().max().item()
+    check(lse_err <= 1e-4, f"{what}: lse max|diff| {lse_err}")
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        errs[name] = (got.float() - refs[name].float()).abs().max().item()
+        check(torch.isfinite(got).all().item(), f"{what}: {name} not finite")
+        check(errs[name] <= tol_b, f"{what}: {name} max|diff| {errs[name]} > {tol_b}")
+    del o_ref, lse_ref, refs
+    if mode == "block":
+        if pad.any():
+            check(o.transpose(1, 2)[pad].abs().max().item() == 0.0, f"{what}: padded queries not 0")
+            check(dq.transpose(1, 2)[pad].abs().max().item() == 0.0, f"{what}: dq of padded queries not 0")
+        # every tile, no skipping: the same bits
+        o_all, lse_all = fwd(False)
+        dq_all, delta_all = dq_k(False)
+        dk_all, dv_all = dkv_k(False)
+        same = all(torch.equal(x, y) for x, y in ((o, o_all), (lse, lse_all), (dq, dq_all), (dk, dk_all), (dv, dv_all)))
+        check(same, f"{what}: skipping the tiles above the diagonal changed a bit")
+        # no leakage: later keys and values moved, earlier outputs stay
+        cut = s // 2 + 5
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, cut:] += 3.0
+        v2[:, :, cut:] += 100.0
+        o2, _ = A.attention_fwd_cuda(q, k2, v2, q_ids, kv_ids, scale, mode, True)
+        leak = (o2[:, :, :cut].float() - o[:, :, :cut].float()).abs().max().item()
+        check(leak <= 1e-5, f"{what}: outputs before {cut} moved by {leak} with later keys")
+        check((o2[:, :, cut:].float() - o[:, :, cut:].float()).abs().max().item() > 1, f"{what}: later outputs did not move")
+        del o_all, lse_all, dq_all, delta_all, dk_all, dv_all, k2, v2, o2
+
+    mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype, causal=True)
+    lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
+    lib_bwd = lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+
+    elt, n = q.element_size(), b * h * s * d
+    vec, ids_bytes = b * h * s * 4, 2 * b * s * 4
+    bounds = {
+        "attention_causal": bound(4 * n * elt + ids_bytes + vec, 4 * h * d * pairs, dtype),
+        "attention_dq_causal": bound(6 * n * elt + 2 * vec + ids_bytes, 6 * h * d * pairs, dtype),
+        "attention_dkv_causal": bound(6 * n * elt + 2 * vec + ids_bytes, 8 * h * d * pairs, dtype),
+    }
+    plain_fwd_ms, plain_bwd_ms = time_ms(fwd_plain, reps=5), time_ms(bwd_plain, reps=5)
+    lib_fwd_ms, lib_bwd_ms = time_ms(lib_fwd, reps=reps), time_ms(lib_bwd, reps=reps)
+    common = {
+        "shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "causal": True,
+        "allowed_pairs_share": pairs / (b * s * s),
+    }
+    bwd_notes = {
+        "plain_computes": "dq, dk and dv",
+        "library_computes": "dq, dk and dv (backward of scaled_dot_product_attention)",
+    }
+    rows = {
+        "attention_causal": {**common, "tol": tol_f, "max_abs_err": errs["o"], "lse_max_abs_err": lse_err,
+                             "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms},
+        "attention_dq_causal": {**common, "tol": tol_b, "max_abs_err": errs["dq"], "plain_ms": plain_bwd_ms,
+                                "library_ms": lib_bwd_ms, **bwd_notes},
+        "attention_dkv_causal": {**common, "tol": tol_b, "max_abs_err": max(errs["dk"], errs["dv"]),
+                                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms, **bwd_notes},
+    }
+    for name, kernel in (("attention_causal", fwd), ("attention_dq_causal", dq_k), ("attention_dkv_causal", dkv_k)):
+        rows[name]["ms"] = time_ms(kernel, reps=reps)
+        # 'bias' mode may skip nothing: there is one time
+        rows[name]["ms_every_tile"] = time_ms(lambda: kernel(False), reps=reps) if mode == "block" else None
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
+    return rows
+
+
 def _dct_cases(gen):
     from dct_autoencoder_torch.kernels import dct_patchify as P
     from dct_autoencoder_torch.kernels import idct_unpatchify as I
@@ -290,10 +409,21 @@ def phase_kernels():
         _attention_bwd_case(64, 8, 256, 32, torch.bfloat16, "block", gen),
         _attention_bwd_case(1, 8, 173, 32, torch.float32, "block", gen),
     ]
+    causal = [
+        _attention_causal_case(8, 8, 1024, 64, torch.bfloat16, "block", gen),  # the AR train step's shape
+        _attention_causal_case(8, 16, 1024, 64, torch.bfloat16, "block", gen),
+        _attention_causal_case(2, 16, 3072, 64, torch.bfloat16, "block", gen),
+        _attention_causal_case(8, 4, 128, 64, torch.float32, "block", gen),  # the AR example's shape
+        _attention_causal_case(2, 8, 384, 32, torch.float32, "block", gen),
+        _attention_causal_case(2, 8, 384, 32, torch.float32, "bias", gen),
+        _attention_causal_case(1, 8, 173, 32, torch.float32, "block", gen),
+    ]
+    torch.cuda.empty_cache()
     cases = {
         "attention": attn,
         "attention_dq": [c["attention_dq"] for c in bwd],
         "attention_dkv": [c["attention_dkv"] for c in bwd],
+        **{name: [c[name] for c in causal] for name in causal[0]},
         **_dct_cases(gen),
     }
     for name, rows in cases.items():
@@ -611,7 +741,8 @@ def phase_train_full_width(profile: bool, train_steps=4, timed_steps=5):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / timed_steps
     per_step = {k: v / timed_steps for k, v in K.launch_counts().items() if k.startswith("attention")}
-    check(all(v == n_layers for v in per_step.values()), f"attention launches per step {per_step} for {n_layers} layers")
+    check(all(v == (0 if k.endswith("_causal") else n_layers) for k, v in per_step.items()),
+          f"attention launches per step {per_step} for {n_layers} non-causal layers")
     check(math.isfinite(float(metrics["loss"])), "timed steps: loss not finite")
     emit({
         "phase": "train_full_width_patch14l", "dtype": "bfloat16 compute, float32 masters", "rows": rows,
@@ -625,6 +756,259 @@ def phase_train_full_width(profile: bool, train_steps=4, timed_steps=5):
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+
+
+def ar_33m_config():
+    """The repo's 33.6 M-parameter AR decoder over the r3b tokenizer's code space (8 codebooks x 1024)."""
+    from dct_autoencoder_torch.models.ar import ARConfig
+    from dct_autoencoder_torch.models.config import TransformerConfig
+
+    return ARConfig(
+        codebook_size=1024, num_codebooks=8, image_channels=3, max_patch_h=32, max_patch_w=32,
+        transformer=TransformerConfig(hidden_size=512, intermediate_size=2048, num_hidden_layers=8, num_attention_heads=8),
+    )
+
+
+def packed_ar_rows(cfg, rows, seq_len, seed, device):
+    """Random codes and layouts in packed rows: several images a row (64-400 tokens each), a padded tail."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((rows, seq_len), np.int32)
+    pad = np.ones((rows, seq_len), bool)
+    n_images = 0
+    for r in range(rows):
+        at, image = 0, 0
+        while True:
+            n = int(rng.integers(64, 401))
+            if at + n > seq_len:
+                break
+            ids[r, at : at + n] = image
+            pad[r, at : at + n] = False
+            at, image, n_images = at + n, image + 1, n_images + 1
+    arrays = (
+        rng.integers(0, cfg.codebook_size, (rows, seq_len, cfg.num_codebooks)).astype(np.int32),
+        rng.integers(0, cfg.image_channels, (rows, seq_len)).astype(np.int32),
+        np.stack([rng.integers(0, cfg.max_patch_h, (rows, seq_len)), rng.integers(0, cfg.max_patch_w, (rows, seq_len))], -1).astype(np.int32),
+        pad, ids,
+    )
+    return [torch.from_numpy(a).to(device) for a in arrays], n_images
+
+
+def cached_vs_kernel(model, codes, chans, poss):
+    """Largest |decode_step logits - teacher-forced forward logits| along one forced sequence (1, s)."""
+    from dct_autoencoder_torch.models.transformer import KVCache
+
+    s = codes.shape[1]
+    with torch.no_grad():
+        full = model(codes, chans, poss, torch.zeros_like(chans, dtype=torch.bool), training=False)
+        cache = KVCache(model.config.transformer, 1, s, model.dtype, model.device)
+        worst = torch.zeros((), device=model.device)
+        for t in range(s):
+            prev = codes[:, t - 1 : t] if t else torch.zeros_like(codes[:, :1])
+            step = model.decode_step(prev, chans[:, t : t + 1], poss[:, t : t + 1], torch.tensor(t, device=model.device), cache)
+            worst = torch.maximum(worst, (step - full[:, t]).abs().max())
+    return worst.item(), full.abs().max().item()
+
+
+CAUSAL_KERNELS = ("attention_causal", "attention_dq_causal", "attention_dkv_causal")
+
+
+def phase_ar_train_full_width(profile: bool, warmup_steps=3, timed_steps=10):
+    """Teacher-forced train steps of the 33.6 M AR decoder on packed 8 x 1024 rows of random codes."""
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.models.ar import build_ar_model
+    from dct_autoencoder_torch.tools.train_ar_example import ar_train_step, make_ar_optimizer
+
+    cfg = ar_33m_config()
+    rows, seq_len = 8, 1024
+    n_layers = cfg.transformer.num_hidden_layers
+    model = build_ar_model(cfg, dtype=torch.bfloat16, seed=0)  # on the card
+    check(model.device.type == "cuda", "the AR model did not land on the card")
+    check(all(p.dtype == torch.float32 for p in model.parameters()), "master weights are not fp32")
+    n_params = sum(p.numel() for p in model.parameters())
+    (codes, chans, poss, pad, ids), n_images = packed_ar_rows(cfg, rows, seq_len, seed=0, device=model.device)
+    check(n_images > rows and bool(pad.any()), "rows are not packed with several images and padding")
+    tokens = int((~pad).sum())
+    tx = make_ar_optimizer(3e-4, 1000)
+    adamw = tx.init(model)
+    step = lambda i: ar_train_step(model, adamw, tx.schedule(i), codes, chans, poss, pad, image_ids=ids)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses = [float(step(i)) for i in range(warmup_steps)]
+    launches = K.launch_counts()
+    for name in CAUSAL_KERNELS:
+        check(launches[name] == n_layers * warmup_steps, f"{launches[name]} {name} launches for {n_layers} layers x {warmup_steps} steps")
+    check(abs(losses[0] - math.log(cfg.codebook_size)) <= MAX_AR_LOSS0_FROM_LN_Z,
+          f"step-0 loss {losses[0]} is not near ln {cfg.codebook_size} = {math.log(cfg.codebook_size)}")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    timed = [step(warmup_steps + i) for i in range(timed_steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed_steps
+    timed_launches = {k: v for k, v in K.launch_counts().items() if k.startswith("attention")}
+    per_step = {k: v / timed_steps for k, v in timed_launches.items()}
+    check(all(per_step[k] == n_layers for k in CAUSAL_KERNELS), f"causal launches per step {per_step} for {n_layers} layers")
+    check(all(v == 0 for k, v in per_step.items() if k not in CAUSAL_KERNELS), f"a non-causal kernel ran in the AR step: {per_step}")
+    losses += [float(x) for x in timed]
+    check(all(math.isfinite(x) for x in losses), f"an AR train loss is not finite: {losses}")
+    check(all(torch.isfinite(p).all().item() for p in model.parameters()), "an AR parameter is not finite")
+    emit({
+        "phase": "ar_train_full_width", "dtype": "bfloat16 compute, float32 masters", "rows": rows, "seq_len": seq_len,
+        "images": n_images, "tokens": tokens, "params": n_params, "loss_first": losses[0], "loss_last": losses[-1],
+        "ln_codebook_size": math.log(cfg.codebook_size), "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches_per_step": per_step,
+    })
+    if profile:
+        emit({"phase": "profile_ar_train_step", **profile_device(lambda: step(warmup_steps + timed_steps), reps=2, top=24)})
+
+    # the KV-cached step against the kernel path in bf16, on one unpadded sequence of 256
+    (c1, ch1, po1, _, _), _ = packed_ar_rows(cfg, 1, 256, seed=3, device=model.device)
+    worst, scale = cached_vs_kernel(model, c1, ch1, po1)
+    check(worst <= MAX_CACHED_VS_KERNEL_BF16, f"decode_step vs forward in bf16: max|diff| {worst} > {MAX_CACHED_VS_KERNEL_BF16}")
+    emit({"phase": "ar_cached_vs_kernel_bf16", "seq_len": 256, "max_abs_diff": worst, "max_abs_logit": scale,
+          "tol": MAX_CACHED_VS_KERNEL_BF16})
+    return timed_launches, model
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def phase_ar_example_r3b(steps=200):
+    """The AR example's loop on the card, on records the trained tokenizer makes from smooth 448 x 448 fields."""
+    import tempfile
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.models import ar as AR
+    from dct_autoencoder_torch.tools import train_ar_example as EX
+
+    pipe = dt.DCTPipeline.from_pretrained(R3B, sample_patches_beta=0.02)  # bf16 tokenizer on the card
+    images = smooth_images(8, 448, seed=2)
+    batch_size, max_len, seed = 8, 128, 0
+    logs = []
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = EX.train_ar(pipe, images, steps=steps, batch_size=batch_size, max_len=max_len, out=out, seed=seed, log=logs.append)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        check(sorted(os.listdir(out)) == ["ar_metrics.jsonl", "ar_model"], f"the example wrote {os.listdir(out)}")
+        loaded = AR.load_ar_model(os.path.join(out, "ar_model"))  # on the card
+    model, losses, records = result["model"], result["losses"], result["records"]
+    n_layers = model.config.transformer.num_hidden_layers
+    check(model.device.type == "cuda" and loaded.device.type == "cuda", "the AR model did not land on the card")
+    for name in CAUSAL_KERNELS:
+        check(launches[name] == n_layers * steps, f"{launches[name]} {name} launches for {n_layers} layers x {steps} steps")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses), "a loss of the AR example is not finite")
+    check(losses[-1] < losses[0], f"the AR loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # step 0 again by the port in fp32 on the CPU: same records, same seeded init, same batch
+    arrays = EX.records_to_arrays(records, max_len)
+    idx = np.random.default_rng(seed).integers(0, arrays[0].shape[0], batch_size)
+    cpu_model = AR.build_ar_model(model.config, dtype=torch.float32, device="cpu", seed=seed)
+    codes, chans, poss, pad = (torch.from_numpy(a[idx]) for a in arrays)
+    with torch.no_grad():
+        cpu_loss = float(AR.ar_loss(cpu_model(codes, chans, poss, pad, training=True), codes, ~pad))
+    loss_rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    check(loss_rel <= MAX_AR_STEP0_LOSS_REL, f"step-0 loss {losses[0]} vs CPU fp32 {cpu_loss}")
+
+    dev = model.device
+    codes, chans, poss, pad = (torch.from_numpy(a[:8]).to(dev) for a in arrays)
+    with torch.no_grad():
+        same = torch.equal(model(codes, chans, poss, pad, training=False), loaded(codes, chans, poss, pad, training=False))
+    check(same, "save_ar_model -> load_ar_model changed the logits")
+
+    # the KV-cached path against the kernel path, along the longest of these records (fp32)
+    row = int((~pad).sum(dim=1).argmax())
+    n = int((~pad[row]).sum())
+    codes, chans, poss = codes[row : row + 1, :n], chans[row : row + 1, :n], poss[row : row + 1, :n]
+    worst, scale = cached_vs_kernel(model, codes, chans, poss)
+    check(worst <= MAX_CACHED_VS_KERNEL_FP32, f"decode_step vs forward in fp32: max|diff| {worst} > {MAX_CACHED_VS_KERNEL_FP32}")
+
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    forced = AR.sample_codes_scan(model, chans, poss, gen(0), prefix_codes=codes, prefix_len=n)
+    check(torch.equal(forced.long(), codes.long()), "sample_codes_scan with prefix_len = s did not return the prefix")
+    scanned = AR.sample_codes_scan(model, chans, poss, gen(5))
+    cached = AR.sample_codes_cached(model, chans, poss, gen(5))
+    agree = (scanned == cached).float().mean().item()
+    check(agree == 1.0, f"the captured sampler and the eager one disagree under one generator (fp32): {agree}")
+
+    # timed steps at the example's shape, at learning rate 0 (the moments move, the weights do not)
+    tx = EX.make_ar_optimizer(3e-4, steps)
+    adamw = tx.init(model)
+    batch = [torch.from_numpy(a[idx]).to(dev) for a in arrays]
+    for _ in range(3):
+        EX.ar_train_step(model, adamw, 0.0, *batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        EX.ar_train_step(model, adamw, 0.0, *batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 20
+
+    img = result["image"]
+    check(img.shape == (3, 448, 448) and np.isfinite(img).all() and img.min() >= 0 and img.max() <= 1,
+          f"the decoded sample is not a finite {(3, 448, 448)} image in [0, 1]")
+    emit({
+        "phase": "ar_example_r3b", "steps": steps, "dtype": "float32", "records": len(records), "batch": [batch_size, max_len],
+        "params": sum(p.numel() for p in model.parameters()), "loss_first": losses[0], "loss_last": losses[-1],
+        "step0_cpu_fp32_loss": cpu_loss, "step0_loss_rel_diff": loss_rel, "tol_step0": MAX_AR_STEP0_LOSS_REL,
+        "cached_vs_kernel_max_abs_diff": worst, "max_abs_logit": scale, "tol_cached_vs_kernel": MAX_CACHED_VS_KERNEL_FP32,
+        "forced_and_sampled_tokens": n, "captured_equals_eager": agree, "decoded_sample_tokens": len(result["sampled_record"]["codes"]),
+        "ms_per_step": step_ms, "valid_tokens_per_step": int((~batch[3]).sum()), "sample_mean": float(img.mean()),
+        "launches": launches, "wall_s": wall_s,
+    })
+    return launches
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def phase_ar_sampling(model, s=256):
+    """tokens/s of the captured sampler beside the eager per-token loop, best of 3 after a warm-up call."""
+    from dct_autoencoder_torch.models import ar as AR
+
+    cfg, dev = model.config, model.device
+    rng = np.random.default_rng(0)
+    out = {"phase": "ar_sampling", "seq_len": s, "dtype": "bfloat16", "params": sum(p.numel() for p in model.parameters())}
+    for b in (1, 8):
+        chans = rng.integers(0, 3, (b, s)).astype(np.int32)
+        poss = rng.integers(0, 32, (b, s, 2)).astype(np.int32)
+        gens = lambda seed: [torch.Generator(device=dev).manual_seed(seed * 100 + i) for i in range(b)]
+        if b == 1:
+            captured = lambda seed: AR.sample_codes_scan(model, chans, poss, gens(seed)[0])
+            eager = lambda seed: AR.sample_codes_cached(model, chans, poss, gens(seed)[0])
+        else:
+            captured = lambda seed: AR.sample_codes_scan_batched(model, chans, poss, None, generators=gens(seed))
+            eager = AR.DecodeLoop(model, s, 1.0, b, capture=False)
+            eager = lambda seed, loop=eager: loop.run(chans, poss, gens(seed))
+        best = {}
+        for name, fn in (("captured", captured), ("eager", eager)):
+            codes = fn(0)  # warm-up: builds the loop, and captures its graph
+            torch.cuda.synchronize()
+            times = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                codes = fn(1 + i)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            check(codes.shape == (b, s, cfg.num_codebooks) and bool(((codes >= 0) & (codes < cfg.codebook_size)).all()),
+                  f"{name} sampler, b = {b}: codes of the wrong shape or out of range")
+            best[name] = b * s / min(times)
+        runner = AR._scan_runner(model, s, 1.0, b)
+        check(runner.graph is not None and runner.captures == 1, f"b = {b}: the runner was captured {runner.captures} times over 4 calls")
+        out[f"b{b}"] = {
+            "captured_tokens_per_s": best["captured"], "eager_tokens_per_s": best["eager"],
+            "captured_over_eager": best["captured"] / best["eager"], "captures": runner.captures,
+        }
+    emit(out)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -636,6 +1020,12 @@ KERNEL_TABLE = [
      "dct_autoencoder_tpu/kernels/attention.py:194", "attention_dq", "train_patch14l"),
     ("attention_dkv", "packed_attention_bwd_dkv", "dct_autoencoder_torch/csrc/attention_bwd.cu",
      "dct_autoencoder_tpu/kernels/attention.py:236", "attention_dkv", "train_patch14l"),
+    ("attention_causal", "packed_attention_fwd_causal", "dct_autoencoder_torch/csrc/attention_fwd.cu",
+     "dct_autoencoder_tpu/kernels/attention.py:80", "attention_causal", "ar_train"),
+    ("attention_dq_causal", "packed_attention_bwd_dq_causal", "dct_autoencoder_torch/csrc/attention_bwd.cu",
+     "dct_autoencoder_tpu/kernels/attention.py:80", "attention_dq_causal", "ar_train"),
+    ("attention_dkv_causal", "packed_attention_bwd_dkv_causal", "dct_autoencoder_torch/csrc/attention_bwd.cu",
+     "dct_autoencoder_tpu/kernels/attention.py:80", "attention_dkv_causal", "ar_train"),
     ("dct", "fused_ipt_dct_patchify", "dct_autoencoder_torch/csrc/dct_patchify.cu",
      "dct_autoencoder_tpu/kernels/dct_patchify.py:43", "dct_patchify", "serving"),
     ("idct", "fused_idct_unpatchify_rgb", "dct_autoencoder_torch/csrc/idct_unpatchify.cu",
@@ -657,6 +1047,10 @@ def main() -> int:
     launches["train_r3b"] = phase_train_r3b()
     torch.cuda.empty_cache()
     launches["train_patch14l"] = phase_train_full_width(profile)
+    torch.cuda.empty_cache()
+    launches["ar_train"], ar_model = phase_ar_train_full_width(profile)
+    launches["ar_example"] = phase_ar_example_r3b()
+    phase_ar_sampling(ar_model)
 
     kernels = []
     for key, name, source, replaces, counter, path in KERNEL_TABLE:
@@ -665,11 +1059,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[path][counter], "launches_on": path,
-            "launches_by_path": {p: n[counter] for p, n in launches.items()},
+            "launches_by_path": {p: n.get(counter, 0) for p, n in launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[key]),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"], "card": smi,
+            "ms_every_tile": head.get("ms_every_tile"), "shape": head["shape"], "card": smi,
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})

@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of the DCT autoencoder tokenizer, for NVIDIA Hopper.
 
 Mirrors the module tree of the JAX package (ops/, patches/, models/,
-kernels/, train/, pipeline.py).  The kernels of the serving path (packed
-attention forward, fused IPT+DCT+patchify, fused IDCT+RGB) and of training
-(the attention backward: dq, and dk/dv) are CUDA C++ under csrc/, built
-with nvcc at first use.  Entry points run on the card unless given
-device="cpu".
+kernels/, train/, tools/, pipeline.py).  The kernels of the serving path
+(packed attention forward, fused IPT+DCT+patchify, fused IDCT+RGB) and of
+training (the attention backward: dq, and dk/dv) are CUDA C++ under csrc/,
+built with nvcc at first use; the same three attention kernels have the
+causal mode that the autoregressive token model (models/ar.py,
+tools/train_ar_example.py) trains through.  Entry points run on the card
+unless given device="cpu".
 
 The DCT products must run in true fp32, so importing the package turns
 TF32 off for matmuls and cuDNN.

@@ -28,6 +28,14 @@
 // Keys past the end of a ragged last tile get p = 0 and are not written;
 // query rows past the end contribute nothing.
 //
+// causal != 0 ANDs k_pos <= q_pos (row indices) into `allowed`, exactly as
+// the forward does, in both modes.  In 'block' mode with skip_tiles != 0 the
+// dq kernel stops at its diagonal tile and the dk/dv kernel starts at it:
+// a skipped (query, key) pair has logit -1e9, and exp(-1e9 - lse) is 0 in
+// float32 both for a valid row (a causal row always holds its own key, so
+// its lse is an ordinary number) and for a fully masked one, so the sums
+// do not depend on skip_tiles.  In 'bias' mode nothing is skipped.
+//
 // Rounding: the Pallas kernels cast p and ds to the operand type before the
 // second product; these kernels multiply in float32 on the CUDA cores, keep
 // p and ds in float32, accumulate in float32 and round once at the store.
@@ -90,7 +98,7 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                const T* __restrict__ o, const T* __restrict__ dout,
                const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ delta,
-               int h, int s, float scale, int bias_mode) {
+               int h, int s, float scale, int bias_mode, int causal, int skip_tiles) {
     constexpr int KP = D + 1;       // padded k / v row (bank spread)
     constexpr int PP = BK + 4;      // padded ds row: (4 r + sub) spreads a warp over all banks
     constexpr int NK = BK / 4;      // keys per thread per tile
@@ -107,7 +115,8 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int tid = threadIdx.x;
     const int r = tid >> 2;
     const int sub = tid & 3;
-    const int qi = blockIdx.y * BQ + r;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal blocks first
+    const int qi = q0 + r;
     const bool q_in = qi < s;
 
     const size_t base = (size_t)bh * s * D;
@@ -142,7 +151,8 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
     for (int i = 0; i < NC; ++i) acc[i] = 0.f;
 
-    for (int k0 = 0; k0 < s; k0 += BK) {
+    const int k_end = (causal && !bias_mode && skip_tiles) ? min(s, q0 + BQ) : s;
+    for (int k0 = 0; k0 < k_end; k0 += BK) {
         for (int idx = tid; idx < BK * D; idx += THREADS) {
             const int j = idx / D, c = idx % D;
             const int kj = k0 + j;
@@ -171,7 +181,8 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                     dot = fmaf(qr[c], Ks[j * KP + c], dot);
                     dp = fmaf(dor[c], Vs[j * KP + c], dp);
                 }
-                const float p = expf(masked_logit(dot, scale, qid == kid_s[j], bias_mode) - lse_r);
+                const bool allowed = qid == kid_s[j] && (!causal || k0 + j <= qi);
+                const float p = expf(masked_logit(dot, scale, allowed, bias_mode) - lse_r);
                 ds = p * (dp - dl) * scale;
             }
             Ss[r * PP + j] = ds;
@@ -200,7 +211,7 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 T* __restrict__ dk, T* __restrict__ dv,
-                int h, int s, float scale, int bias_mode) {
+                int h, int s, float scale, int bias_mode, int causal, int skip_tiles) {
     constexpr int QP = D + 1;       // padded q / do row
     constexpr int PP = BQ + 4;      // padded p^T / ds^T row, as in attn_dq_kernel
     constexpr int NQ = BQ / 4;      // queries per thread per tile
@@ -243,7 +254,8 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         dv_acc[i] = 0.f;
     }
 
-    for (int q0 = 0; q0 < s; q0 += BQ) {
+    const int q_begin = (causal && !bias_mode && skip_tiles) ? blockIdx.y * BK : 0;
+    for (int q0 = q_begin; q0 < s; q0 += BQ) {
         for (int idx = tid; idx < BQ * D; idx += THREADS) {
             const int j = idx / D, c = idx % D;
             const int qj = q0 + j;
@@ -275,7 +287,8 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                     dot = fmaf(kr[c], Qs[j * QP + c], dot);
                     dp = fmaf(vr[c], Os[j * QP + c], dp);
                 }
-                p = expf(masked_logit(dot, scale, qid_s[j] == kid, bias_mode) - lse_s[j]);
+                const bool allowed = qid_s[j] == kid && (!causal || kj <= q0 + j);
+                p = expf(masked_logit(dot, scale, allowed, bias_mode) - lse_s[j]);
                 ds = p * (dp - delta_s[j]) * scale;
             }
             Pt[r * PP + j] = p;
@@ -308,7 +321,8 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                       const int* q_ids, const int* kv_ids, const float* lse, void* dq, float* delta,
-                      int b, int h, int s, float scale, int bias_mode, cudaStream_t stream) {
+                      int b, int h, int s, float scale, int bias_mode, int causal, int skip_tiles,
+                      cudaStream_t stream) {
     constexpr size_t smem = dq_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
         attn_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -317,7 +331,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
     attn_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), q_ids, kv_ids, lse,
-        static_cast<T*>(dq), delta, h, s, scale, bias_mode);
+        static_cast<T*>(dq), delta, h, s, scale, bias_mode, causal, skip_tiles);
     return cudaGetLastError();
 }
 
@@ -325,7 +339,7 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const int* q_ids, const int* kv_ids, const float* lse, const float* delta,
                        void* dk, void* dv, int b, int h, int s, float scale, int bias_mode,
-                       cudaStream_t stream) {
+                       int causal, int skip_tiles, cudaStream_t stream) {
     constexpr size_t smem = dkv_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
         attn_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -334,27 +348,28 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
     attn_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), q_ids, kv_ids, lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), h, s, scale, bias_mode);
+        static_cast<T*>(dk), static_cast<T*>(dv), h, s, scale, bias_mode, causal, skip_tiles);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Both return a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; causal and skip_tiles as in the header.
+// Both return a cudaError_t (0 on success).
 
 // dq (b, h, s, d) in the input type, and delta (b, h, s) float32 as a by-product.
 extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const int* q_ids, const int* kv_ids,
                            const float* lse, void* dq, float* delta, int b, int h, int s, int d,
-                           float scale, int bias_mode, int dtype, void* stream) {
+                           float scale, int bias_mode, int causal, int skip_tiles, int dtype, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (b * h == 0 || s == 0) return cudaSuccess;
     if (dtype == 1) {
-        if (d == 64) return launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, st);
-        if (d == 32) return launch_dq<__nv_bfloat16, 32>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, st);
+        if (d == 64) return launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, causal, skip_tiles, st);
+        if (d == 32) return launch_dq<__nv_bfloat16, 32>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, causal, skip_tiles, st);
     } else if (dtype == 0) {
-        if (d == 64) return launch_dq<float, 64>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, st);
-        if (d == 32) return launch_dq<float, 32>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, st);
+        if (d == 64) return launch_dq<float, 64>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, causal, skip_tiles, st);
+        if (d == 32) return launch_dq<float, 32>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, causal, skip_tiles, st);
     }
     return cudaErrorInvalidValue;
 }
@@ -363,15 +378,15 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const vo
 extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const int* q_ids, const int* kv_ids, const float* lse,
                             const float* delta, void* dk, void* dv, int b, int h, int s, int d,
-                            float scale, int bias_mode, int dtype, void* stream) {
+                            float scale, int bias_mode, int causal, int skip_tiles, int dtype, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (b * h == 0 || s == 0) return cudaSuccess;
     if (dtype == 1) {
-        if (d == 64) return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, st);
-        if (d == 32) return launch_dkv<__nv_bfloat16, 32>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, st);
+        if (d == 64) return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, causal, skip_tiles, st);
+        if (d == 32) return launch_dkv<__nv_bfloat16, 32>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, causal, skip_tiles, st);
     } else if (dtype == 0) {
-        if (d == 64) return launch_dkv<float, 64>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, st);
-        if (d == 32) return launch_dkv<float, 32>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, st);
+        if (d == 64) return launch_dkv<float, 64>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, causal, skip_tiles, st);
+        if (d == 32) return launch_dkv<float, 32>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, causal, skip_tiles, st);
     }
     return cudaErrorInvalidValue;
 }

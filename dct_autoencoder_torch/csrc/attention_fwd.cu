@@ -26,6 +26,17 @@
 // lse = -5e8 + log(1e-9), as in the reference; a fully masked tile met
 // before a row's valid keys contributes nothing and is rescaled away.
 // Keys past the end of a ragged last tile are excluded (p = 0).
+//
+// causal != 0 (dct_autoencoder_tpu/kernels/attention.py::_causal_allowed)
+// ANDs k_pos <= q_pos into `allowed`; positions are the row indices the
+// kernel already holds, so there is no new operand.  In 'bias' mode that
+// only decides who gets the +1: future keys still take part in the softmax,
+// as in the Pallas kernel.  In 'block' mode with skip_tiles != 0 a block
+// stops at its own diagonal tile: every later tile would be all -1e9, and
+// such a tile leaves m, l and acc bit for bit as they were (alpha =
+// exp(0) = 1, p = exp(-1e9 - m) = 0 for every m >= -5e8), so o and lse do
+// not depend on skip_tiles.  Blocks take their q tiles from the last to the
+// first, so that the longest causal blocks are scheduled first.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,7 +66,7 @@ __global__ void __launch_bounds__(THREADS)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                 T* __restrict__ o, float* __restrict__ lse,
-                int h, int s, float scale, int bias_mode) {
+                int h, int s, float scale, int bias_mode, int causal, int skip_tiles) {
     constexpr int KP = D + 1;       // padded k row (bank spread)
     constexpr int PP = BK + 1;      // padded p row
     constexpr int NK = BK / 4;      // keys per thread per tile
@@ -72,7 +83,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const int tid = threadIdx.x;
     const int r = tid >> 2;
     const int sub = tid & 3;
-    const int qi = blockIdx.y * BQ + r;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+    const int qi = q0 + r;
     const bool q_in = qi < s;
 
     const size_t base = (size_t)bh * s * D;
@@ -91,7 +103,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
     for (int i = 0; i < NC; ++i) acc[i] = 0.f;
 
-    for (int k0 = 0; k0 < s; k0 += BK) {
+    const int k_end = (causal && !bias_mode && skip_tiles) ? min(s, q0 + BQ) : s;
+    for (int k0 = 0; k0 < k_end; k0 += BK) {
         for (int idx = tid; idx < BK * D; idx += THREADS) {
             const int j = idx / D, c = idx % D;
             const int kj = k0 + j;
@@ -120,7 +133,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
                 for (int c = 0; c < D; ++c) dot = fmaf(qr[c], Ks[j * KP + c], dot);
                 logit = dot * scale;
-                const bool allowed = qid == kid_s[j];
+                const bool allowed = qid == kid_s[j] && (!causal || k0 + j <= qi);
                 if (bias_mode) {
                     logit += allowed ? 1.f : 0.f;
                 } else if (!allowed) {
@@ -172,7 +185,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* q_ids,
                    const int* kv_ids, void* o, float* lse, int b, int h, int s,
-                   float scale, int bias_mode, cudaStream_t stream) {
+                   float scale, int bias_mode, int causal, int skip_tiles, cudaStream_t stream) {
     constexpr size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
         attn_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -180,24 +193,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* q_ids
     dim3 grid(b * h, (s + BQ - 1) / BQ);
     attn_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        q_ids, kv_ids, static_cast<T*>(o), lse, h, s, scale, bias_mode);
+        q_ids, kv_ids, static_cast<T*>(o), lse, h, s, scale, bias_mode, causal, skip_tiles);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; causal and skip_tiles as in the header.
+// Returns a cudaError_t (0 on success).
 extern "C" int attn_fwd(const void* q, const void* k, const void* v, const int* q_ids,
                         const int* kv_ids, void* o, float* lse, int b, int h, int s, int d,
-                        float scale, int bias_mode, int dtype, void* stream) {
+                        float scale, int bias_mode, int causal, int skip_tiles, int dtype,
+                        void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (b * h == 0 || s == 0) return cudaSuccess;
     if (dtype == 1) {
-        if (d == 64) return launch<__nv_bfloat16, 64>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, st);
-        if (d == 32) return launch<__nv_bfloat16, 32>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, st);
+        if (d == 64) return launch<__nv_bfloat16, 64>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles, st);
+        if (d == 32) return launch<__nv_bfloat16, 32>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles, st);
     } else if (dtype == 0) {
-        if (d == 64) return launch<float, 64>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, st);
-        if (d == 32) return launch<float, 32>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, st);
+        if (d == 64) return launch<float, 64>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles, st);
+        if (d == 32) return launch<float, 32>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles, st);
     }
     return cudaErrorInvalidValue;
 }

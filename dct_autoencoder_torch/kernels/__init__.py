@@ -11,6 +11,9 @@ COUNTERS = {
     "attention": (attention, "LAUNCHES"),
     "attention_dq": (attention, "LAUNCHES_DQ"),
     "attention_dkv": (attention, "LAUNCHES_DKV"),
+    "attention_causal": (attention, "LAUNCHES_CAUSAL"),
+    "attention_dq_causal": (attention, "LAUNCHES_DQ_CAUSAL"),
+    "attention_dkv_causal": (attention, "LAUNCHES_DKV_CAUSAL"),
     "dct_patchify": (dct_patchify, "LAUNCHES"),
     "idct_unpatchify": (idct_unpatchify, "LAUNCHES"),
 }

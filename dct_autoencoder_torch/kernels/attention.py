@@ -17,8 +17,19 @@ cores in fp32 and are bound by their rate (see the sources' headers).
 and carries the gradient through a ``torch.autograd.Function`` whenever an
 input requires it.  For a CPU tensor each wrapper runs its plain version
 (``attention_fwd_plain``, ``attention_bwd_plain``); for a CUDA tensor it
-launches the kernel or raises.  ``LAUNCHES``, ``LAUNCHES_DQ`` and
-``LAUNCHES_DKV`` count kernel launches.
+launches the kernel or raises.
+
+``causal=True`` (``_causal_allowed`` in the JAX module; the autoregressive
+token model trains through it) ANDs k_pos <= q_pos, the row indices, into
+the segment mask inside the same three kernels.  In 'bias' mode that only
+decides who gets the +1.  In 'block' mode the kernels skip the key tiles
+above the diagonal, which changes no bit of the result (see the sources'
+headers); ``skip_tiles=False`` on the ``*_cuda`` wrappers runs every tile,
+for timing the difference.
+
+``LAUNCHES``, ``LAUNCHES_DQ`` and ``LAUNCHES_DKV`` count the non-causal
+kernel launches, ``LAUNCHES_CAUSAL``, ``LAUNCHES_DQ_CAUSAL`` and
+``LAUNCHES_DKV_CAUSAL`` the causal ones.
 """
 from __future__ import annotations
 
@@ -32,6 +43,9 @@ NEG_INF = -1e9
 LAUNCHES = 0
 LAUNCHES_DQ = 0
 LAUNCHES_DKV = 0
+LAUNCHES_CAUSAL = 0
+LAUNCHES_DQ_CAUSAL = 0
+LAUNCHES_DKV_CAUSAL = 0
 
 
 def segment_ids(image_ids: torch.Tensor, key_pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,10 +56,13 @@ def segment_ids(image_ids: torch.Tensor, key_pad_mask: torch.Tensor) -> Tuple[to
     return q_ids.contiguous(), kv_ids.contiguous()
 
 
-def _masked_logits(q, k, q_ids, kv_ids, scale: float, mode: str) -> torch.Tensor:
+def _masked_logits(q, k, q_ids, kv_ids, scale: float, mode: str, causal: bool = False) -> torch.Tensor:
     """(b, h, s, s) fp32 logits with the segment mask applied as the kernels apply it."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     allowed = (q_ids[:, None, :, None] == kv_ids[:, None, None, :])
+    if causal:
+        pos = torch.arange(q.shape[2], device=q.device)
+        allowed = allowed & (pos[None, :] <= pos[:, None])
     if mode == "bias":
         return logits + allowed.float()
     return torch.where(allowed, logits, torch.full_like(logits, NEG_INF))
@@ -75,9 +92,9 @@ def _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode: str, rows=None) -> None
         raise ValueError("attention kernel takes contiguous tensors")
 
 
-def attention_fwd_plain(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block"):
+def attention_fwd_plain(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block", causal: bool = False):
     """Eager PyTorch version of the kernel: returns (o, lse)."""
-    logits = _masked_logits(q, k, q_ids, kv_ids, scale, mode)
+    logits = _masked_logits(q, k, q_ids, kv_ids, scale, mode, causal)
     m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=NEG_INF * 0.5)
     p = torch.exp(logits - m)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-9)
@@ -86,9 +103,11 @@ def attention_fwd_plain(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block
     return o.to(q.dtype), lse
 
 
-def attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block"):
+def attention_fwd_cuda(
+    q, k, v, q_ids, kv_ids, scale: float, mode: str = "block", causal: bool = False, skip_tiles: bool = True
+):
     """Launch csrc/attention_fwd.cu: returns (o, lse)."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_CAUSAL
     from . import _build
 
     _check_kernel_inputs(q, {"k": k, "v": v}, q_ids, kv_ids, mode)
@@ -98,35 +117,40 @@ def attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block"
     lib = _build.load("attention_fwd")
     fn = lib.attn_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p
     ]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ids.data_ptr(), kv_ids.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, s, d, float(scale),
-        1 if mode == "bias" else 0, 1 if q.dtype == torch.bfloat16 else 0,
+        int(mode == "bias"), int(causal), int(skip_tiles), int(q.dtype == torch.bfloat16),
         _build.stream_ptr(q.device),
     )
     _build.check(err, "attention_fwd")
-    LAUNCHES += 1
+    if causal:
+        LAUNCHES_CAUSAL += 1
+    else:
+        LAUNCHES += 1
     return o, lse
 
 
-def attention_fwd(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block"):
+def attention_fwd(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block", causal: bool = False):
     """(o, lse) from the kernel for CUDA tensors, the plain version on the CPU."""
     if q.device.type == "cuda":
-        return attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode)
+        return attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal)
     if q.device.type != "cpu":
         raise ValueError(f"attention runs on CUDA or the CPU, not {q.device}")
-    return attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode)
+    return attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, causal)
 
 
-def attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block"):
+def attention_bwd_plain(
+    q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block", causal: bool = False
+):
     """Eager PyTorch version of the two backward kernels: returns (dq, dk, dv).
 
     Recomputes p from the saved lse, fp32 inside, results in the input types.
     """
-    logits = _masked_logits(q, k, q_ids, kv_ids, scale, mode)
+    logits = _masked_logits(q, k, q_ids, kv_ids, scale, mode, causal)
     p = torch.exp(logits - lse[..., None])  # rows of padded queries are 0 in 'block' mode
     do32 = do.float()
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
@@ -138,19 +162,22 @@ def attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: 
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# both backward entry points: 10 pointers, b h s d, scale, mode, dtype, stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
+# both backward entry points: 10 pointers, b h s d, scale, mode, causal, skip_tiles, dtype, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p
 ]
 
 
-def attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block"):
+def attention_dq_cuda(
+    q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block", causal: bool = False,
+    skip_tiles: bool = True,
+):
     """Launch attn_dq_kernel of csrc/attention_bwd.cu: returns (dq, delta).
 
     delta = rowsum(do * o) (b, h, s) fp32 is computed in the kernel's
     prologue; ``attention_dkv_cuda`` takes it.
     """
-    global LAUNCHES_DQ
+    global LAUNCHES_DQ, LAUNCHES_DQ_CAUSAL
     from . import _build
 
     _check_kernel_inputs(q, {"k": k, "v": v, "o": o, "do": do}, q_ids, kv_ids, mode, {"lse": lse})
@@ -163,17 +190,23 @@ def attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: st
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-        b, h, s, d, float(scale), 1 if mode == "bias" else 0, 1 if q.dtype == torch.bfloat16 else 0,
-        _build.stream_ptr(q.device),
+        b, h, s, d, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
     )
     _build.check(err, "attention_bwd dq")
-    LAUNCHES_DQ += 1
+    if causal:
+        LAUNCHES_DQ_CAUSAL += 1
+    else:
+        LAUNCHES_DQ += 1
     return dq, delta
 
 
-def attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale: float, mode: str = "block"):
+def attention_dkv_cuda(
+    q, k, v, q_ids, kv_ids, lse, delta, do, scale: float, mode: str = "block", causal: bool = False,
+    skip_tiles: bool = True,
+):
     """Launch attn_dkv_kernel of csrc/attention_bwd.cu: returns (dk, dv)."""
-    global LAUNCHES_DKV
+    global LAUNCHES_DKV, LAUNCHES_DKV_CAUSAL
     from . import _build
 
     _check_kernel_inputs(q, {"k": k, "v": v, "do": do}, q_ids, kv_ids, mode, {"lse": lse, "delta": delta})
@@ -185,41 +218,46 @@ def attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale: float, mod
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, s, d, float(scale), 1 if mode == "bias" else 0, 1 if q.dtype == torch.bfloat16 else 0,
-        _build.stream_ptr(q.device),
+        b, h, s, d, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
     )
     _build.check(err, "attention_bwd dkv")
-    LAUNCHES_DKV += 1
+    if causal:
+        LAUNCHES_DKV_CAUSAL += 1
+    else:
+        LAUNCHES_DKV += 1
     return dk, dv
 
 
-def attention_bwd(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block"):
+def attention_bwd(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block", causal: bool = False):
     """(dq, dk, dv) from the two kernels for CUDA tensors, the plain version on the CPU."""
     if q.device.type == "cuda":
-        dq, delta = attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode)
-        dk, dv = attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode)
+        dq, delta = attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal)
+        dk, dv = attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, causal)
         return dq, dk, dv
     if q.device.type != "cpu":
         raise ValueError(f"attention runs on CUDA or the CPU, not {q.device}")
-    return attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode)
+    return attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal)
 
 
 class _PackedAttention(torch.autograd.Function):
     """o = attention(q, k, v) with the backward kernels as its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_ids, kv_ids, scale, mode):
-        o, lse = attention_fwd(q, k, v, q_ids, kv_ids, scale, mode)
+    def forward(ctx, q, k, v, q_ids, kv_ids, scale, mode, causal):
+        o, lse = attention_fwd(q, k, v, q_ids, kv_ids, scale, mode, causal)
         ctx.save_for_backward(q, k, v, q_ids, kv_ids, o, lse)
-        ctx.scale, ctx.mode = scale, mode
+        ctx.scale, ctx.mode, ctx.causal = scale, mode, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, q_ids, kv_ids, o, lse = ctx.saved_tensors
         # autograd often hands over a transposed view (the head merge)
-        dq, dk, dv = attention_bwd(q, k, v, q_ids, kv_ids, o, lse, do.contiguous(), ctx.scale, ctx.mode)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = attention_bwd(
+            q, k, v, q_ids, kv_ids, o, lse, do.contiguous(), ctx.scale, ctx.mode, ctx.causal
+        )
+        return dq, dk, dv, None, None, None, None, None
 
 
 def packed_flash_attention(
@@ -236,13 +274,12 @@ def packed_flash_attention(
 
     Tokens attend only within their image (mode='block') or get the
     reference's +1 logit bias inside it (mode='bias').  Padded queries give
-    zeros in 'block' mode.  causal=True is not ported yet.
+    zeros in 'block' mode.  causal=True adds k_pos <= q_pos (positions are
+    the row indices) to what is allowed.
     """
-    if causal:
-        raise NotImplementedError("causal packed attention is not ported yet")
     q_ids, kv_ids = segment_ids(image_ids, key_pad_mask)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _PackedAttention.apply(q, k, v, q_ids, kv_ids, scale, mode)
-    o, _ = attention_fwd(q, k, v, q_ids, kv_ids, scale, mode)
+        return _PackedAttention.apply(q, k, v, q_ids, kv_ids, scale, mode, causal)
+    o, _ = attention_fwd(q, k, v, q_ids, kv_ids, scale, mode, causal)
     return o

@@ -11,6 +11,12 @@ kernel, a 1-d ``weight`` a LayerNorm scale); it also carries a dict of
 gradients keyed like the state_dict.  In both directions every key must be
 consumed and every parameter filled, with matching shapes; anything else
 raises.
+
+The same two functions carry the autoregressive token model
+(``ar_params.npz``, models/ar.py) when given an ``ARConfig``: its embedding
+tables (``code_embed`` (C, z, h), the three position tables, ``bos``) keep
+their names and layouts, since none of them is called ``kernel`` or
+``weight``, and its bias-free ``head`` is a Dense like any other.
 """
 from __future__ import annotations
 
@@ -20,7 +26,6 @@ from typing import Dict, Mapping, Union
 import numpy as np
 import torch
 
-from .config import DCTAutoencoderConfig
 
 _LAYER = re.compile(r"^layers_(\d+)$")
 
@@ -35,17 +40,19 @@ def _port_key(jax_key: str) -> str:
     return ".".join(parts)
 
 
-def expected_shapes(config: DCTAutoencoderConfig) -> Dict[str, torch.Size]:
-    """The port's parameter names and shapes for `config` (no allocation)."""
+def expected_shapes(config) -> Dict[str, torch.Size]:
+    """The port's parameter names and shapes for `config`, a tokenizer's
+    DCTAutoencoderConfig or an ARConfig (no allocation)."""
+    from .ar import ARConfig, ARTokenModel
     from .autoencoder import DCTAutoencoderModule
 
     with torch.device("meta"):
-        module = DCTAutoencoderModule(config)
+        module = ARTokenModel(config) if isinstance(config, ARConfig) else DCTAutoencoderModule(config)
     return {k: v.shape for k, v in module.state_dict().items()}
 
 
 def state_dict_from_jax_npz(
-    npz_or_dict: Union[str, Mapping[str, np.ndarray]], config: DCTAutoencoderConfig
+    npz_or_dict: Union[str, Mapping[str, np.ndarray]], config
 ) -> Dict[str, torch.Tensor]:
     """Map flat JAX parameter paths onto the port's fp32 state_dict."""
     if isinstance(npz_or_dict, str):
@@ -90,7 +97,7 @@ def _jax_key(port_key: str, ndim: int) -> str:
 
 
 def jax_arrays_from_state_dict(
-    state_dict: Mapping[str, torch.Tensor], config: DCTAutoencoderConfig
+    state_dict: Mapping[str, torch.Tensor], config
 ) -> Dict[str, np.ndarray]:
     """Map the port's state_dict (or gradients under the same names) onto the
     JAX package's flat parameter paths, as fp32 numpy arrays."""

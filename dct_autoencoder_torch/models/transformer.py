@@ -17,17 +17,26 @@ Training adds MLP dropout when ``cfg.dropout > 0`` (the draw takes an
 explicit ``torch.Generator``) and per-layer recomputation when
 ``cfg.remat`` is set.  Attention dropout exists in the JAX package only on
 its XLA attention path, never under the kernel, and is not applied here.
+
+``causal=True`` (the autoregressive token model, models/ar.py) goes down to
+the attention kernels' causal mode.  Token-at-a-time decoding has its own
+path, ``decode_step``: the keys and values of one new token are written into
+a ``KVCache`` at its index and the token attends to the filled prefix.  In
+the JAX package that path is an einsum outside any Pallas kernel, so here it
+is plain PyTorch.  The cache is explicit state that the caller owns, and its
+index is a device tensor, so a decode step does no host read and can be
+captured in a CUDA graph and replayed.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.attention import packed_flash_attention
+from ..kernels.attention import NEG_INF, packed_flash_attention
 from .config import TransformerConfig
 
 
@@ -69,6 +78,23 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias, self.eps).to(x.dtype)
 
 
+class KVCache:
+    """Per-layer keys and values (b, h, size, d) of the tokens decoded so far,
+    and the index the next token is written at (a 0-d int64 device tensor)."""
+
+    def __init__(self, cfg: TransformerConfig, batch: int, size: int, dtype: torch.dtype, device):
+        h = cfg.num_attention_heads
+        shape = (batch, h, size, cfg.hidden_size // h)
+        self.k: List[torch.Tensor] = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_hidden_layers)]
+        self.v: List[torch.Tensor] = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_hidden_layers)]
+        self.idx = torch.zeros((), dtype=torch.long, device=device)
+
+    def reset(self) -> None:
+        """Empty the cache in place (the buffers keep their addresses)."""
+        for t in (*self.k, *self.v, self.idx):
+            t.zero_()
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, dtype: torch.dtype):
         super().__init__()
@@ -80,12 +106,38 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = Dense(d, d, dtype=dtype)
         self.out_proj = Dense(d, d, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, image_ids: torch.Tensor, key_pad_mask: torch.Tensor, mode: str) -> torch.Tensor:
-        b, s, d = x.shape
+    def _qkv(self, x: torch.Tensor):
+        b, s, _ = x.shape
         split = lambda t: t.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
-        q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
-        out = packed_flash_attention(q, k, v, image_ids, key_pad_mask, self.head_dim**-0.5, mode=mode)
+        return split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
+
+    def forward(
+        self, x: torch.Tensor, image_ids: torch.Tensor, key_pad_mask: torch.Tensor, mode: str, causal: bool = False
+    ) -> torch.Tensor:
+        b, s, d = x.shape
+        q, k, v = self._qkv(x)
+        out = packed_flash_attention(
+            q, k, v, image_ids, key_pad_mask, self.head_dim**-0.5, mode=mode, causal=causal
+        )
         return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
+
+    def decode_step(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """One token (b, 1, d) against the cache: k and v are written at `idx`
+        in place; logits over the whole cache in fp32, keys after `idx` at
+        -1e9, softmax in fp32 and cast to the compute type."""
+        b, s, d = x.shape
+        if s != 1:
+            raise ValueError("KV-cached decode consumes one token at a time")
+        q, k, v = self._qkv(x)
+        at = idx.reshape(1)
+        cache_k.index_copy_(2, at, k)
+        cache_v.index_copy_(2, at, v)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), cache_k.float()) * self.head_dim**-0.5
+        filled = torch.arange(cache_k.shape[2], device=x.device) <= idx
+        logits = torch.where(filled, logits, torch.full_like(logits, NEG_INF))
+        weights = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.matmul(weights, cache_v)
+        return self.out_proj(out.transpose(1, 2).reshape(b, 1, d))
 
 
 class EncoderLayer(nn.Module):
@@ -99,12 +151,19 @@ class EncoderLayer(nn.Module):
         self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
         self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size, dtype=dtype)
 
-    def forward(self, x, image_ids, key_pad_mask, mode, training: bool = False, generator=None):
-        x = x + self.self_attn(self.layer_norm1(x), image_ids, key_pad_mask, mode)
+    def _mlp(self, x, training: bool = False, generator=None):
         y = self.act(self.fc1(self.layer_norm2(x)))
         if training and self.dropout > 0.0:
             y = dropout(y, self.dropout, generator)
         return x + self.fc2(y)
+
+    def forward(self, x, image_ids, key_pad_mask, mode, training: bool = False, generator=None, causal: bool = False):
+        x = x + self.self_attn(self.layer_norm1(x), image_ids, key_pad_mask, mode, causal)
+        return self._mlp(x, training, generator)
+
+    def decode_step(self, x, cache_k, cache_v, idx):
+        x = x + self.self_attn.decode_step(self.layer_norm1(x), cache_k, cache_v, idx)
+        return self._mlp(x)
 
 
 class TransformerEncoder(nn.Module):
@@ -115,7 +174,10 @@ class TransformerEncoder(nn.Module):
         self.remat = cfg.remat
         self.layers = nn.ModuleList(EncoderLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, x, image_ids, key_pad_mask, mode: str = "block", training: bool = False, generator=None):
+    def forward(
+        self, x, image_ids, key_pad_mask, mode: str = "block", training: bool = False, generator=None,
+        causal: bool = False,
+    ):
         remat = self.remat and torch.is_grad_enabled()
         if remat and training and generator is not None and self.layers and self.layers[0].dropout > 0.0:
             # a recomputed layer must redraw the same mask; checkpoint restores
@@ -123,7 +185,17 @@ class TransformerEncoder(nn.Module):
             raise ValueError("remat with dropout draws from the default generator: pass generator=None")
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer, x, image_ids, key_pad_mask, mode, training, generator, use_reentrant=False)
+                x = checkpoint(
+                    layer, x, image_ids, key_pad_mask, mode, training, generator, causal, use_reentrant=False
+                )
             else:
-                x = layer(x, image_ids, key_pad_mask, mode, training, generator)
+                x = layer(x, image_ids, key_pad_mask, mode, training, generator, causal)
+        return x
+
+    def decode_step(self, x: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """One token (b, 1, d) through every layer against `cache`, whose index
+        then moves on by one.  No dropout: decoding is inference."""
+        for layer, cache_k, cache_v in zip(self.layers, cache.k, cache.v):
+            x = layer.decode_step(x, cache_k, cache_v, cache.idx)
+        cache.idx += 1
         return x

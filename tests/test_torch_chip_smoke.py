@@ -46,11 +46,65 @@ def test_kernel_table_names_every_counter_and_source():
     counters = [row[4] for row in chip_smoke.KERNEL_TABLE]
     assert sorted(counters) == sorted(tk.launch_counts())
     assert set(chip_smoke.SERVING_KERNELS) <= set(counters)
-    for _, _, source, replaces, _, _ in chip_smoke.KERNEL_TABLE:
+    for key, name, source, replaces, counter, path in chip_smoke.KERNEL_TABLE:
         assert os.path.isfile(os.path.join(REPO, source)), source
-        path, line = replaces.split(":")
-        with open(os.path.join(REPO, path)) as f:
-            assert "_kernel(" in f.readlines()[int(line) - 1], replaces
+        file, line = replaces.split(":")
+        with open(os.path.join(REPO, file)) as f:
+            text = f.readlines()[int(line) - 1]
+        # a causal entry replaces the mask that the three TPU kernels share
+        assert ("def _causal_allowed(" if counter.endswith("_causal") else "_kernel(") in text, replaces
+        assert counter.endswith("_causal") == name.endswith("_causal") == (path == "ar_train")
+    # the causal mode of each attention kernel is an entry of its own, in the same source
+    rows = {row[4]: row for row in chip_smoke.KERNEL_TABLE}
+    assert tuple(c for c in counters if c.endswith("_causal")) == chip_smoke.CAUSAL_KERNELS
+    for counter in chip_smoke.CAUSAL_KERNELS:
+        assert rows[counter][2] == rows[counter[: -len("_causal")]][2]
+
+
+@pytest.mark.parametrize("mode", ["block", "bias"])
+def test_library_mask_and_pairs_follow_the_plain_mask(mode):
+    """The mask handed to scaled_dot_product_attention allows what the plain
+    version allows, and the bound counts exactly those pairs."""
+    from dct_autoencoder_torch.kernels import attention as tatt
+
+    g = torch.Generator().manual_seed(0)
+    ids = torch.sort(torch.randint(0, 3, (2, 40), generator=g), dim=1).values.int()
+    pad = torch.arange(40)[None] >= torch.tensor([33, 40])[:, None]
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    pos = torch.arange(40)
+    allowed = (q_ids[:, None, :, None] == kv_ids[:, None, None, :]) & (pos[None, :] <= pos[:, None])
+    mask, pairs = chip_smoke._sdpa_mask_and_pairs(q_ids, kv_ids, mode, torch.float32, causal=True)
+    if mode == "block":
+        assert pairs == int(allowed.sum()) and mask.dtype == torch.bool
+        valid = ~pad
+        assert torch.equal(mask[:, 0][valid], allowed[:, 0][valid])
+        assert bool(mask.any(dim=-1).all())  # no empty row, padded queries included
+        q, k, v = (torch.randn(2, 2, 40, 8, generator=g) for _ in range(3))
+        want, _ = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, 0.5, mode, causal=True)
+        got = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.5)
+        torch.testing.assert_close(got.transpose(1, 2)[valid], want.transpose(1, 2)[valid], atol=1e-5, rtol=1e-5)
+    else:
+        assert pairs == allowed.numel() and torch.equal(mask, allowed.float())
+    _, non_causal_pairs = chip_smoke._sdpa_mask_and_pairs(q_ids, kv_ids, "block", torch.float32)
+    assert non_causal_pairs > int(allowed.sum())
+
+
+def test_packed_ar_rows_hold_several_images_and_padding():
+    cfg = chip_smoke.ar_33m_config()
+    (codes, chans, poss, pad, ids), n_images = chip_smoke.packed_ar_rows(cfg, 4, 1024, seed=0, device="cpu")
+    assert codes.shape == (4, 1024, 8) and poss.shape == (4, 1024, 2) and n_images > 4
+    assert int(codes.max()) < 1024 and int(chans.max()) < 3 and int(poss.max()) < 32
+    for r in range(4):
+        valid = ~pad[r]
+        n = int(valid.sum())
+        assert 0 < n < 1024 and bool(valid[:n].all())  # a padded tail
+        assert bool((ids[r, 1:n] >= ids[r, : n - 1]).all()) and int(ids[r, n - 1]) >= 1
+    # the decoder the repo's AR benchmark uses: 33.6 M parameters
+    from dct_autoencoder_torch.models.ar import ARTokenModel
+
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in ARTokenModel(cfg).parameters())
+    assert 33.5e6 < n_params < 33.7e6
 
 
 @pytest.mark.parametrize(

@@ -8,7 +8,9 @@ JAX, so it runs on a machine with the card and without JAX:
 Tolerances: attention atol 2e-2 in bf16 and 1e-5 in fp32 on o, 1e-4 on lse;
 padded queries exactly 0 in 'block' mode.  The attention backward (dq, dk,
 dv) atol 3e-2 in bf16 (one bf16 rounding of values up to ~4 at the store)
-and 1e-5 in fp32; dq of padded queries exactly 0 in 'block' mode.  DCT and
+and 1e-5 in fp32; dq of padded queries exactly 0 in 'block' mode.  The causal
+mode of the three kernels is held to the same limits, and with and without
+its tile skipping to the same bits.  DCT and
 IDCT max|diff| <= 1e-5 x max|value| (true fp32 on both sides, sums in
 another order).
 """
@@ -120,10 +122,97 @@ def test_attention_backward_refuses_bad_input_on_cuda(cuda):
         tatt.attention_bwd(half(q), half(k), half(v), q_ids, kv_ids, half(o), lse, half(q), 1.0)
 
 
-def test_attention_causal_raises_on_cuda(cuda):
-    q, k, v, ids, pad = _attn_inputs(1, 1, 8, 32, torch.float32, cuda)
-    with pytest.raises(NotImplementedError):
-        tatt.packed_flash_attention(q, k, v, ids, pad, 1.0, causal=True)
+CAUSAL_CASES = [
+    (2, 16, 1024, 64, torch.bfloat16, "block"),
+    (2, 8, 384, 32, torch.float32, "block"),
+    (2, 8, 384, 32, torch.float32, "bias"),
+    (2, 8, 384, 64, torch.bfloat16, "bias"),
+    (1, 8, 173, 32, torch.float32, "block"),
+    (3, 8, 173, 64, torch.float32, "bias"),
+    (1, 8, 1, 32, torch.float32, "block"),
+]
+
+
+@pytest.mark.parametrize("b,h,s,d,dtype,mode", CAUSAL_CASES)
+def test_causal_attention_kernel_matches_plain(cuda, b, h, s, d, dtype, mode):
+    """The forward kernel's causal mode, across tiles, in both modes and at a ragged length."""
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, dtype, cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    tk.reset_launch_counts()
+    o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, d**-0.5, mode, causal=True)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert counts.pop("attention_causal") == 1 and set(counts.values()) == {0}
+    o_ref, lse_ref = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, d**-0.5, mode, causal=True)
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-6)
+    if mode == "block" and pad.any():
+        assert (o.transpose(1, 2)[pad] == 0).all()
+    # skipping the key tiles above the diagonal changes no bit
+    o_all, lse_all = tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, d**-0.5, mode, causal=True, skip_tiles=False)
+    assert torch.equal(o, o_all) and torch.equal(lse, lse_all)
+
+
+@pytest.mark.parametrize("b,h,s,d,dtype,mode", CAUSAL_CASES)
+def test_causal_attention_backward_kernels_match_plain(cuda, b, h, s, d, dtype, mode):
+    """The dq and dk/dv kernels' causal mode against the plain backward."""
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, dtype, cuda)
+    do = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(1)).to(dtype).to(cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, d**-0.5, mode, causal=True)
+    tk.reset_launch_counts()
+    got = tatt.attention_bwd(q, k, v, q_ids, kv_ids, o, lse, do, d**-0.5, mode, causal=True)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert counts.pop("attention_dq_causal") == 1 and counts.pop("attention_dkv_causal") == 1
+    assert set(counts.values()) == {0}
+    want = tatt.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, d**-0.5, mode, causal=True)
+    atol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+    if mode == "block" and pad.any():
+        assert (got[0].transpose(1, 2)[pad] == 0).all()
+    dq_all, delta = tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, d**-0.5, mode, True, skip_tiles=False)
+    dk_all, dv_all = tatt.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, d**-0.5, mode, True, skip_tiles=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, (dq_all, dk_all, dv_all)))
+
+
+@pytest.mark.parametrize("mode", ["block", "bias"])
+def test_causal_attention_gradients_match_cpu(cuda, mode):
+    """fp32 gradients through the autograd.Function with causal=True on the card
+    against the plain path on the CPU; no future leakage in 'block' mode."""
+    b, h, s, d = 2, 4, 173, 32
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.float32, "cpu", seed=2)
+    grads, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        qq, kk, vv = (t.clone().to(dev).requires_grad_(True) for t in (q, k, v))
+        o = tatt.packed_flash_attention(qq, kk, vv, ids.to(dev), pad.to(dev), d**-0.5, mode, causal=True)
+        (o.transpose(1, 2).reshape(b, s, h * d) ** 2).sum().backward()
+        grads[dev], outs[dev] = [t.grad.cpu() for t in (qq, kk, vv)], o.detach().cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=1e-5, rtol=1e-5)
+    for a, c in zip(grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(c, a, atol=1e-5, rtol=1e-5)
+    if mode == "block":
+        cut = 100
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, cut:] += 3.0
+        v2[:, :, cut:] += 100.0
+        moved = tatt.packed_flash_attention(
+            q.to(cuda), k2.to(cuda), v2.to(cuda), ids.to(cuda), pad.to(cuda), d**-0.5, mode, causal=True
+        ).cpu()
+        torch.testing.assert_close(moved[:, :, :cut], outs["cuda"][:, :, :cut], atol=1e-5, rtol=0)
+
+
+def test_attention_refuses_head_dim_16_on_cuda(cuda):
+    """Head dim 16 (the JAX tests' tiny AR model) has no kernel: the card raises, causal or not."""
+    q, k, v, ids, pad = _attn_inputs(1, 4, 24, 16, torch.float32, cuda)
+    for causal in (False, True):
+        with pytest.raises(ValueError, match="head dim"):
+            tatt.packed_flash_attention(q, k, v, ids, pad, 0.25, causal=causal)
+        with pytest.raises(ValueError, match="head dim"):
+            tatt.packed_flash_attention(q.requires_grad_(True), k, v, ids, pad, 0.25, causal=causal)
+        q = q.detach()
 
 
 @pytest.mark.parametrize("b,h,w,ch,cw,p", [(2, 43, 61, 40, 56, 8), (2, 448, 448, 448, 448, 14), (1, 700, 1000, 700, 994, 14)])

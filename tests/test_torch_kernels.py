@@ -89,9 +89,12 @@ def test_attention_block_structure():
 
 
 def test_attention_causal_not_ported():
+    """causal=True is computed, not refused (tests/test_torch_attention_causal.py
+    holds it against JAX): the first row of an image sees only itself."""
     q, k, v, ids, pad = _t(*make_inputs(b=1, h=1, s=8, d=32))
-    with pytest.raises(NotImplementedError):
-        tatt.packed_flash_attention(q, k, v, ids, pad, 1.0, causal=True)
+    out = tatt.packed_flash_attention(q, k, v, ids, pad, 1.0, causal=True)
+    torch.testing.assert_close(out[0, 0, 0], v[0, 0, 0])
+    assert not torch.equal(out, tatt.packed_flash_attention(q, k, v, ids, pad, 1.0))
 
 
 def _planes_from_tokens(tokens, ch, cw, p):
