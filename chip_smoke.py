@@ -5,7 +5,9 @@
 Builds the five hand-written CUDA kernels from dct_autoencoder_torch/csrc
 (nvcc, sm_90a), holds each, and the causal mode of the three attention
 kernels, against its plain PyTorch version at the shapes the main paths give
-it, and then drives the paths themselves:
+it (the bfloat16 attention backward kernels, which multiply on the tensor
+cores, also against their CUDA-core versions, `impl="simt"`, timed beside
+them), and then drives the paths themselves:
   * the serving round trip with the trained checkpoint in
     docs/calibrated_run_r3b/model (and the same batch through the port on
     the CPU in fp32), and a lossless no-model round trip;
@@ -27,6 +29,8 @@ Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The line before the last lists the kernels with their
 launches on the main paths, errors, times and bounds; the last line is
 {"ok": true, "device": {...}}.
+
+`--kernels-only` stops after the kernels' phase (no result line).
 
 Needs a CUDA device, and exits non-zero without one.  Imports no JAX.
 """
@@ -51,9 +55,16 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 ATTN_ATOL_BF16 = 2e-2
-# backward: dq, dk, dv reach ~4, where half a bf16 ulp is 1.6e-2; the kernels keep
-# p and ds in fp32 and round once at the store, the plain version is fp32 inside
+# backward: dq, dk, dv reach ~4, where half a bf16 ulp is 1.6e-2.  The tensor-core
+# kernels and the plain version both round p and ds to bf16 before the second
+# products, sum in fp32 and round once at the store.  The CUDA-core kernels
+# (impl="simt") keep p and ds in fp32, so against them the sums differ by ~1e-3
+# before the store and the two roundings can fall to different sides: one whole
+# ulp of the value, which from |g| = 4 on is 3.1e-2.  `simt_tol` is therefore the
+# larger of this limit and one bf16 ulp of the largest gradient of the case.
 ATTN_BWD_ATOL_BF16 = 3e-2
+# launches between two CUDA events when a kernel faster than the host's launch is timed
+TIMED_LAUNCHES = 10
 DCT_REL_TOL = 1e-5
 MIN_CODE_AGREEMENT = 0.95
 MAX_PSNR_DELTA_DB = 0.5
@@ -80,8 +91,11 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, reps: int = 25) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after two warm-up calls."""
+def time_ms(fn, reps: int = 25, inner: int = 1) -> float:
+    """Median of `reps` CUDA-event timings of fn(), after two warm-up calls.
+    With inner > 1 each timing spans `inner` calls and is divided by it: the
+    queue stays full, so a call shorter than the host's launch is not timed
+    by the host."""
     fn()
     fn()
     torch.cuda.synchronize()
@@ -89,11 +103,17 @@ def time_ms(fn, reps: int = 25) -> float:
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values (8 significant bits) at magnitude x."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -190,13 +210,43 @@ def _attention_case(b, h, s, d, dtype, mode, gen):
     return {
         "shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode,
         "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": tol,
-        "ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+        "ms": time_ms(kernel, inner=TIMED_LAUNCHES), "plain_ms": time_ms(plain),
+        "library_ms": time_ms(library, inner=TIMED_LAUNCHES),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
+def _bwd_against_simt(A, q, d, got, dq_simt, dkv_simt, what):
+    """For bfloat16: the tensor-core kernels' results `got` = (dq, dk, dv)
+    against the CUDA-core kernels on the same inputs, the CUDA-core kernels'
+    times, and what the compiler made of both instantiations.  For float32
+    (one implementation): only the kernel info."""
+    info = lambda kernel, impl: A.attention_bwd_kernel_info(kernel, impl, q.dtype, d)
+    if q.dtype != torch.bfloat16:
+        rows = {name: {"impl": "simt", "simt_ms": None, "kernel_info": info(name, "simt")} for name in ("dq", "dkv")}
+        return rows["dq"], rows["dkv"]
+    dq_s, delta_s = dq_simt()
+    dk_s, dv_s = dkv_simt(delta_s)
+    torch.cuda.synchronize()
+    diffs, top = {}, 0.0
+    for name, new, old in (("dq", got[0], dq_s), ("dk", got[1], dk_s), ("dv", got[2], dv_s)):
+        diffs[name] = (new.float() - old.float()).abs().max().item()
+        top = max(top, old.float().abs().max().item())
+    tol = max(ATTN_BWD_ATOL_BF16, bf16_ulp(top))
+    for name, diff in diffs.items():
+        check(diff <= tol, f"{what}: {name} of impl mma and impl simt differ by {diff} > {tol}")
+    common = {"impl": "mma", "simt_tol": tol, "max_abs_grad": top}
+    return (
+        {**common, "simt_max_abs_diff": diffs["dq"], "simt_ms": time_ms(dq_simt, reps=10),
+         "kernel_info": info("dq", "mma"), "simt_kernel_info": info("dq", "simt")},
+        {**common, "simt_max_abs_diff": max(diffs["dk"], diffs["dv"]), "simt_ms": time_ms(lambda: dkv_simt(delta_s), reps=10),
+         "kernel_info": info("dkv", "mma"), "simt_kernel_info": info("dkv", "simt")},
+    )
+
+
 def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
-    """The dq and dk/dv kernels against attention_bwd_plain; o and lse come from the forward kernel."""
+    """The dq and dk/dv kernels against attention_bwd_plain (and, in bfloat16,
+    against their CUDA-core versions); o and lse come from the forward kernel."""
     import torch.nn.functional as F
 
     from dct_autoencoder_torch.kernels import attention as A
@@ -223,6 +273,13 @@ def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
     if mode == "block" and pad.any():
         pad_max = dq.transpose(1, 2)[pad].abs().max().item()
         check(pad_max == 0.0, f"attention backward block mode: dq of padded queries not 0 ({pad_max})")
+    again = (*dq_kernel(), *dkv_kernel())
+    check(all(torch.equal(x, y) for x, y in zip((dq, delta, dk, dv), again)),
+          f"attention backward {mode} {(b, h, s, d)}: two launches on the same inputs differ")
+    del again
+    dq_simt = lambda: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, impl="simt")
+    dkv_simt = lambda dl: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, dl, do, scale, mode, impl="simt")
+    dq_row, dkv_row = _bwd_against_simt(A, q, d, (dq, dk, dv), dq_simt, dkv_simt, f"attention backward {mode} {(b, h, s, d)}")
 
     sdpa_mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype)
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -237,7 +294,7 @@ def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
     dq_bound = bound(6 * n * elt + 2 * vec + ids_bytes, 6 * h * d * pairs, dtype)
     # dk/dv: q, k, v, do, lse, delta read, dk and dv written; four products
     dkv_bound = bound(6 * n * elt + 2 * vec + ids_bytes, 8 * h * d * pairs, dtype)
-    plain_ms, library_ms = time_ms(plain, reps=10), time_ms(library)
+    plain_ms, library_ms = time_ms(plain, reps=10), time_ms(library, inner=TIMED_LAUNCHES)
     common = {
         "shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "tol": tol,
         "plain_ms": plain_ms, "plain_computes": "dq, dk and dv", "library_ms": library_ms,
@@ -245,12 +302,12 @@ def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
     }
     return {
         "attention_dq": {
-            **common, "max_abs_err": errs["dq"], "delta_max_abs_err": delta_err, "ms": time_ms(dq_kernel),
-            "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+            **common, "max_abs_err": errs["dq"], "delta_max_abs_err": delta_err,
+            "ms": time_ms(dq_kernel, inner=TIMED_LAUNCHES), "bound_ms": dq_bound[0], "bound_by": dq_bound[1], **dq_row,
         },
         "attention_dkv": {
-            **common, "max_abs_err": max(errs["dk"], errs["dv"]), "ms": time_ms(dkv_kernel),
-            "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+            **common, "max_abs_err": max(errs["dk"], errs["dv"]),
+            "ms": time_ms(dkv_kernel, inner=TIMED_LAUNCHES), "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1], **dkv_row,
         },
     }
 
@@ -309,6 +366,12 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
         check(leak <= 1e-5, f"{what}: outputs before {cut} moved by {leak} with later keys")
         check((o2[:, :, cut:].float() - o[:, :, cut:].float()).abs().max().item() > 1, f"{what}: later outputs did not move")
         del o_all, lse_all, dq_all, delta_all, dk_all, dv_all, k2, v2, o2
+    again = (*dq_k(), *dkv_k())
+    check(all(torch.equal(x, y) for x, y in zip((dq, delta, dk, dv), again)), f"{what}: two launches on the same inputs differ")
+    del again
+    dq_simt = lambda: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, True, impl="simt")
+    dkv_simt = lambda dl: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, dl, do, scale, mode, True, impl="simt")
+    dq_row, dkv_row = _bwd_against_simt(A, q, d, (dq, dk, dv), dq_simt, dkv_simt, what)
 
     mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype, causal=True)
     lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
@@ -324,7 +387,8 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
         "attention_dkv_causal": bound(6 * n * elt + 2 * vec + ids_bytes, 8 * h * d * pairs, dtype),
     }
     plain_fwd_ms, plain_bwd_ms = time_ms(fwd_plain, reps=5), time_ms(bwd_plain, reps=5)
-    lib_fwd_ms, lib_bwd_ms = time_ms(lib_fwd, reps=reps), time_ms(lib_bwd, reps=reps)
+    lib_fwd_ms = time_ms(lib_fwd, reps=reps, inner=TIMED_LAUNCHES)
+    lib_bwd_ms = time_ms(lib_bwd, reps=reps, inner=TIMED_LAUNCHES)
     common = {
         "shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "causal": True,
         "allowed_pairs_share": pairs / (b * s * s),
@@ -337,14 +401,16 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
         "attention_causal": {**common, "tol": tol_f, "max_abs_err": errs["o"], "lse_max_abs_err": lse_err,
                              "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms},
         "attention_dq_causal": {**common, "tol": tol_b, "max_abs_err": errs["dq"], "plain_ms": plain_bwd_ms,
-                                "library_ms": lib_bwd_ms, **bwd_notes},
+                                "library_ms": lib_bwd_ms, **bwd_notes, **dq_row},
         "attention_dkv_causal": {**common, "tol": tol_b, "max_abs_err": max(errs["dk"], errs["dv"]),
-                                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms, **bwd_notes},
+                                 "plain_ms": plain_bwd_ms, "library_ms": lib_bwd_ms, **bwd_notes, **dkv_row},
     }
     for name, kernel in (("attention_causal", fwd), ("attention_dq_causal", dq_k), ("attention_dkv_causal", dkv_k)):
-        rows[name]["ms"] = time_ms(kernel, reps=reps)
+        rows[name]["ms"] = time_ms(kernel, reps=reps, inner=TIMED_LAUNCHES)
         # 'bias' mode may skip nothing: there is one time
-        rows[name]["ms_every_tile"] = time_ms(lambda: kernel(False), reps=reps) if mode == "block" else None
+        rows[name]["ms_every_tile"] = (
+            time_ms(lambda: kernel(False), reps=reps, inner=TIMED_LAUNCHES) if mode == "block" else None
+        )
         rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
     return rows
 
@@ -408,6 +474,7 @@ def phase_kernels():
         _attention_bwd_case(64, 16, 256, 64, torch.bfloat16, "bias", gen),
         _attention_bwd_case(64, 8, 256, 32, torch.bfloat16, "block", gen),
         _attention_bwd_case(1, 8, 173, 32, torch.float32, "block", gen),
+        _attention_bwd_case(3, 8, 173, 64, torch.bfloat16, "bias", gen),  # a ragged end in the tensor-core kernels
     ]
     causal = [
         _attention_causal_case(8, 8, 1024, 64, torch.bfloat16, "block", gen),  # the AR train step's shape
@@ -417,6 +484,7 @@ def phase_kernels():
         _attention_causal_case(2, 8, 384, 32, torch.float32, "block", gen),
         _attention_causal_case(2, 8, 384, 32, torch.float32, "bias", gen),
         _attention_causal_case(1, 8, 173, 32, torch.float32, "block", gen),
+        _attention_causal_case(1, 8, 173, 32, torch.bfloat16, "block", gen),  # ragged, causal, tensor cores
     ]
     torch.cuda.empty_cache()
     cases = {
@@ -570,10 +638,13 @@ def profile_device(forward, reps=3, top=12):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     check(busy > 0, "the profiler saw no device time")
+    as_dict = lambda r: {"kernel": r[0][:120], "ms_per_call": r[1], "launches_per_call": r[2]}
     return {
         "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy,
         "device_idle_share": max(0.0, 1 - busy / wall_ms),
-        "top_kernels": [{"kernel": k[:120], "ms_per_call": ms, "launches_per_call": n} for k, ms, n in rows[:top]],
+        "top_kernels": [as_dict(r) for r in rows[:top]],
+        # the hand-written attention kernels, wherever they rank
+        "attention_kernels": [as_dict(r) for r in rows if "attn_" in r[0]],
     }
 
 
@@ -641,7 +712,7 @@ def phase_train_r3b(steps=20, learning_rate=3e-4):
     )
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = K.launch_counts()
+    launches = {**K.launch_counts(), "bwd_impl": K.bwd_impl_launch_counts()}
     check(state.step == steps and len(logs) == steps, f"{state.step} steps, {len(logs)} log lines for {steps}")
     for name in ("attention", "attention_dq", "attention_dkv"):
         check(launches[name] == n_layers * steps, f"{launches[name]} {name} launches for {n_layers} layers x {steps} steps")
@@ -717,7 +788,7 @@ def phase_train_full_width(profile: bool, train_steps=4, timed_steps=5):
         result = rows
         break
     check(result is not None, "the patch14-L train step fits at no row count down to 16")
-    launches = K.launch_counts()
+    launches = {**K.launch_counts(), "bwd_impl": K.bwd_impl_launch_counts()}
     for name in ("attention", "attention_dq", "attention_dkv"):
         check(launches[name] == n_layers * train_steps, f"{launches[name]} {name} launches for {n_layers} layers x {train_steps} steps")
     check(len(logs) == train_steps and all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in logs),
@@ -850,6 +921,7 @@ def phase_ar_train_full_width(profile: bool, warmup_steps=3, timed_steps=10):
     ms = (time.perf_counter() - t0) * 1e3 / timed_steps
     timed_launches = {k: v for k, v in K.launch_counts().items() if k.startswith("attention")}
     per_step = {k: v / timed_steps for k, v in timed_launches.items()}
+    timed_launches["bwd_impl"] = K.bwd_impl_launch_counts()
     check(all(per_step[k] == n_layers for k in CAUSAL_KERNELS), f"causal launches per step {per_step} for {n_layers} layers")
     check(all(v == 0 for k, v in per_step.items() if k not in CAUSAL_KERNELS), f"a non-causal kernel ran in the AR step: {per_step}")
     losses += [float(x) for x in timed]
@@ -860,6 +932,7 @@ def phase_ar_train_full_width(profile: bool, warmup_steps=3, timed_steps=10):
         "images": n_images, "tokens": tokens, "params": n_params, "loss_first": losses[0], "loss_last": losses[-1],
         "ln_codebook_size": math.log(cfg.codebook_size), "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches_per_step": per_step,
+        "bwd_impl_launches": timed_launches["bwd_impl"],
     })
     if profile:
         emit({"phase": "profile_ar_train_step", **profile_device(lambda: step(warmup_steps + timed_steps), reps=2, top=24)})
@@ -1032,6 +1105,9 @@ KERNEL_TABLE = [
      "dct_autoencoder_tpu/kernels/idct_unpatchify.py:47", "idct_unpatchify", "serving"),
 ]
 SERVING_KERNELS = ("attention", "dct_patchify", "idct_unpatchify")
+BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attention_dkv_causal")
+# the training paths that compute in bfloat16: their backward runs on the tensor cores
+BF16_TRAIN_PATHS = ("train_r3b", "train_patch14l", "ar_train")
 
 
 def main() -> int:
@@ -1040,6 +1116,8 @@ def main() -> int:
         return 2
     smi = phase_environment()
     cases = phase_kernels()
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
     profile = "--profile" in sys.argv[1:]
     launches = {"serving": phase_serving()}
     phase_full_width(profile)
@@ -1052,10 +1130,17 @@ def main() -> int:
     launches["ar_example"] = phase_ar_example_r3b()
     phase_ar_sampling(ar_model)
 
+    for path in BF16_TRAIN_PATHS:
+        by_impl, backward = launches[path]["bwd_impl"], sum(launches[path][c] for c in BWD_KERNELS)
+        check(by_impl["simt"] == 0 and by_impl["mma"] == backward > 0,
+              f"the {path} path launched {by_impl} backward kernels by impl for {backward} backward launches")
+
     kernels = []
     for key, name, source, replaces, counter, path in KERNEL_TABLE:
         head = cases[key][0]  # the main path's shape
         check(launches[path][counter] > 0, f"{name} was not launched on the {path} path")
+        if counter in BWD_KERNELS:
+            check(head["impl"] == "mma", f"{name}: the main path's shape was held with impl {head['impl']}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[path][counter], "launches_on": path,
@@ -1064,6 +1149,7 @@ def main() -> int:
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "ms_every_tile": head.get("ms_every_tile"), "shape": head["shape"], "card": smi,
+            "impl": head.get("impl"), "simt_ms": head.get("simt_ms"), "kernel_info": head.get("kernel_info"),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})

@@ -8,15 +8,15 @@
 // at -1; lse is the forward's row log-sum-exp (b, h, s) in float32.  Two
 // kernels, one per TPU kernel, no atomics, so the result is deterministic:
 //
-//   attn_dq_kernel   one block per (b*h, 64-row q tile): p = exp(logits - lse),
-//                    dp = do.v^T, ds = p * (dp - delta) * scale, dq = ds.k
-//   attn_dkv_kernel  one block per (b*h, 64-row k tile): the same p and ds,
-//                    transposed: dv = p^T.do, dk = ds^T.q
+//   dq     one block per (b*h, 64-row q tile): p = exp(logits - lse),
+//          dp = do.v^T, ds = p * (dp - delta) * scale, dq = ds.k
+//   dk/dv  one block per (b*h, 64-row k tile): the same p and ds,
+//          transposed: dv = p^T.do, dk = ds^T.q
 //
 // delta = rowsum(do * o) in float32: the JAX package computes it outside its
-// kernels; here it is folded into the prologue of attn_dq_kernel, which
+// kernels; here it is folded into the prologue of the dq kernel, which
 // holds the do rows anyway, and written to a (b, h, s) float32 buffer that
-// attn_dkv_kernel reads.  So dq must be launched before dk/dv on the same
+// the dk/dv kernel reads.  So dq must be launched before dk/dv on the same
 // stream (the wrapper does).
 //
 // The mask is recomputed exactly as the forward applies it, so that p sums
@@ -33,36 +33,72 @@
 // dq kernel stops at its diagonal tile and the dk/dv kernel starts at it:
 // a skipped (query, key) pair has logit -1e9, and exp(-1e9 - lse) is 0 in
 // float32 both for a valid row (a causal row always holds its own key, so
-// its lse is an ordinary number) and for a fully masked one, so the sums
-// do not depend on skip_tiles.  In 'bias' mode nothing is skipped.
+// its lse is an ordinary number) and for a fully masked one, and an fp32
+// accumulator plus a product with an exact 0 is unchanged, so the sums do
+// not depend on skip_tiles.  In 'bias' mode nothing is skipped.
 //
-// Rounding: the Pallas kernels cast p and ds to the operand type before the
-// second product; these kernels multiply in float32 on the CUDA cores, keep
-// p and ds in float32, accumulate in float32 and round once at the store.
+// Two implementations of each kernel (the `impl` argument of the entry
+// points):
 //
-// Bound on the H100: at the main-path shape (64 rows, 16 heads, s = 256,
-// d = 64, bf16) the two kernels together read q, k, v, do twice and o once
-// and write dq, dk, dv: ~400 MB, ~0.12 ms of memory time, and seven tile
-// products per (q tile, k tile) pair where the forward has two.  As fp32
-// FMAs on the CUDA cores (67 TFLOP/s peak) that is arithmetic-bound at a few
-// milliseconds; a tensor-core (mma.sync / wgmma) version is later work.
+// impl 1, "mma", bfloat16 only: attn_dq_mma_kernel and attn_dkv_mma_kernel
+// multiply on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+// accumulators; the building blocks are in attn_mma.cuh).
+//   Bound on the H100: at the main-path shape (64 rows, 16 heads, s = 256,
+//   d = 64, bf16) each kernel reads six (b, h, s, d) tensors' worth and
+//   writes one or two: ~200 MB, 0.061 ms of memory time; the products of the
+//   allowed pairs alone would take a few microseconds at the tensor cores'
+//   peak.  So the bound is bytes.  What holds the kernels above it is inside
+//   the SM: a warp that owns 16 rows feeds two mma from every ldmatrix.x4, so
+//   shared memory (128 bytes a clock) can keep the tensor cores at most half
+//   busy; the mask, the exp and the ds run on the CUDA cores between the
+//   products; and at s = 256 a block streams only four tiles, so its
+//   prologue (the own rows, read from device memory) is a large share of its
+//   life.  The opposite stripe is read once per own tile: 4 x at s = 256,
+//   from L2.
+//   Design: 128 threads, four warps, each owning 16 rows of the block's own
+//   64-row tile as A fragments in registers for the whole block (q and do for
+//   dq; k and v for dk/dv, which computes the transposed products
+//   S^T = K.Q^T and dP^T = V.dO^T so that P^T and dS^T come out in
+//   accumulator layout).  The opposite side streams as bf16 tiles through a
+//   two-stage cp.async ring (16-byte copies, rows past the end zero-filled,
+//   chunks swizzled so that ldmatrix meets no bank conflict); the tile that
+//   was B of the first products is B of the second ones read with
+//   ldmatrix.trans.  p and ds are computed in fp32 from the fp32
+//   accumulators in fragment coordinates (each thread knows its two rows'
+//   ids, lse and delta and reads the streamed side's from shared memory),
+//   rounded to bf16 and fed back as A fragments without touching shared
+//   memory.  The 64 streamed columns are taken in two passes of 32 so that
+//   the S and dP accumulators are 16 + 16 registers, not 32 + 32.  Blocks
+//   that share a k/v (or q/do) stripe are neighbours in the grid so that the
+//   stripe is read from L2; with causal skipping the grid is ordered longest
+//   block first instead.
+//   Rounding: as the Pallas kernels do (ds.astype(q.dtype),
+//   p_t.astype(do.dtype), ds_t.astype(q.dtype)), p and ds are rounded to
+//   bf16 before the second product; sums are fp32; results are rounded once
+//   at the store.  exp is 2^x by ex2.approx on a log2 e-prescaled argument
+//   (see pair_prob).
 //
-// Design: as in the forward, a Hopper block cannot hold the whole opposite
-// stripe the Pallas cells keep in VMEM, so both sides are tiled 64 x 64 and
-// the opposite side streams through shared memory.  Four threads share one
-// row of the block's own side, which stays in registers (q and do rows for
-// dq; k and v rows for dk/dv); each takes 16 rows of the streamed tile for
-// the logits and d/4 columns of the accumulators.
+// impl 0, "simt": attn_dq_kernel and attn_dkv_kernel multiply in float32 on
+// the CUDA cores, keep p and ds in float32 and round once at the store.
+// float32 inputs always take them (true fp32; TF32 would not hold 1e-5).
+// Their bfloat16 instantiations stay for timing the old design against the
+// new one on one card.  They are arithmetic-bound at a few milliseconds
+// (67 TFLOP/s peak).  Design: both sides tiled 64 x 64, the opposite side
+// streams through shared memory widened to fp32; four threads share one row
+// of the block's own side, which stays in registers; each takes 16 rows of
+// the streamed tile for the logits and d/4 columns of the accumulators.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "attn_mma.cuh"
+
 namespace {
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int THREADS = 256;  // 4 threads per row of the block's own side
+constexpr int SIMT_THREADS = 256;  // 4 threads per row of the block's own side
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -72,15 +108,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
     return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float masked_logit(float dot, float scale, bool allowed, int bias_mode) {
-    float logit = dot * scale;
-    if (bias_mode) {
-        logit += allowed ? 1.f : 0.f;
-    } else if (!allowed) {
-        logit = -1e9f;
-    }
-    return logit;
-}
+using attn_mma::masked_logit;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -93,7 +121,7 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SIMT_THREADS)
 attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ o, const T* __restrict__ dout,
                const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
@@ -153,7 +181,7 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
     const int k_end = (causal && !bias_mode && skip_tiles) ? min(s, q0 + BQ) : s;
     for (int k0 = 0; k0 < k_end; k0 += BK) {
-        for (int idx = tid; idx < BK * D; idx += THREADS) {
+        for (int idx = tid; idx < BK * D; idx += SIMT_THREADS) {
             const int j = idx / D, c = idx % D;
             const int kj = k0 + j;
             float kv = 0.f, vv = 0.f;
@@ -205,7 +233,7 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SIMT_THREADS)
 attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout,
                 const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
@@ -256,7 +284,7 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
     const int q_begin = (causal && !bias_mode && skip_tiles) ? blockIdx.y * BK : 0;
     for (int q0 = q_begin; q0 < s; q0 += BQ) {
-        for (int idx = tid; idx < BQ * D; idx += THREADS) {
+        for (int idx = tid; idx < BQ * D; idx += SIMT_THREADS) {
             const int j = idx / D, c = idx % D;
             const int qj = q0 + j;
             float qv = 0.f, ov = 0.f;
@@ -318,75 +346,497 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
 }
 
+// ---------------------------------------------------------------- tensor cores
+
+using namespace attn_mma;
+using bf16 = __nv_bfloat16;
+
+constexpr int PASS = 32;           // streamed columns per pass: two passes over a 64-row tile
+constexpr int MMA_MIN_BLOCKS = 3;  // blocks per SM the register allocation aims at (<= 168 a thread)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// p = exp(masked logit - lse) of one (query, key) pair, taken as
+// 2^(dot * scale * log2 e - lse * log2 e) with one FMA and one ex2.approx
+// (relative error ~2e-6 at |logit - lse| < 30, far under the bf16 rounding
+// of p that follows).  A disallowed pair in 'block' mode is 0 outright:
+// lse >= -5e8 + log 1e-9 always, so exp(-1e9 - lse) is 0 in float32 and the
+// CUDA-core kernels get the same 0 from expf.  Past a ragged end p is 0 in
+// both modes, on both sides: `in` is false there on one side, and the other
+// side's neg_lse_log2e is minus infinity.
+__device__ __forceinline__ float pair_prob(float dot, float scale_log2e, float neg_lse_log2e, bool allowed,
+                                           bool in, int bias_mode) {
+    const float x = fmaf(dot, scale_log2e, neg_lse_log2e);
+    float arg = x, p;
+    if (bias_mode) arg = x + (allowed ? LOG2E : 0.f);
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(arg));
+    if (!bias_mode && !allowed) p = 0.f;
+    return in ? p : 0.f;
+}
+
+// The grid is one-dimensional.  Blocks that share a streamed stripe are
+// neighbours (tile index fastest), unless `longest_first`: then the tile index
+// is slowest, taken from the end where `from_end`, so that the blocks with the
+// most tiles to stream are scheduled first.
+__device__ __forceinline__ void block_coords(int n_tiles, int longest_first, bool from_end, int& bh, int& tile) {
+    const int bid = blockIdx.x;
+    if (longest_first) {
+        const int nbh = gridDim.x / n_tiles;
+        bh = bid % nbh;
+        tile = from_end ? n_tiles - 1 - bid / nbh : bid / nbh;
+    } else {
+        tile = bid % n_tiles;
+        bh = bid / n_tiles;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, MMA_MIN_BLOCKS)
+attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                   const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                   const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
+                   const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta,
+                   int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles) {
+    constexpr int KS = D / 16;  // 16-deep steps over the head dim
+    constexpr int NO = D / 8;   // 8-column tiles of the dq accumulator
+
+    __shared__ __align__(128) bf16 Ks[STAGES][TILE * D];
+    __shared__ __align__(128) bf16 Vs[STAGES][TILE * D];
+    __shared__ __align__(16) int kid_s[STAGES][TILE];
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const bool skip = causal && !bias_mode && skip_tiles;
+    int bh, tile;
+    block_coords(n_tiles, skip, true, bh, tile);
+    const int b = bh / h;
+    const int q0 = tile * TILE;
+    const size_t base = (size_t)bh * s * D;
+    const bf16* kb = k + base;
+    const bf16* vb = v + base;
+    const int* kidb = kv_ids + (size_t)b * s;
+
+    const int k_end = skip ? min(s, q0 + TILE) : s;  // stop at the diagonal tile
+    const int n_kt = (k_end + TILE - 1) / TILE;
+
+    auto load_stage = [&](int stage, int k0) {
+        load_tile_async<D>(Ks[stage], kb, k0, s, tid);
+        load_tile_async<D>(Vs[stage], vb, k0, s, tid);
+        if (tid < TILE) load_row_async(kid_s[stage], kidb, k0, s, tid);
+    };
+    load_stage(0, 0);
+    cp_async_commit();
+
+    // the block's own rows: this thread holds rows r_lo and r_hi of q and do
+    const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+    const bool in_lo = r_lo < s, in_hi = r_hi < s;
+    uint32_t qa[KS][4], da[KS][4];
+    load_a_global<D>(qa, q + base, r_lo, r_hi, s, t);
+    load_a_global<D>(da, dout + base, r_lo, r_hi, s, t);
+
+    // delta = rowsum(do * o): the row's four threads hold d/4 columns each
+    float delta_lo = 0.f, delta_hi = 0.f;
+    {
+        uint32_t oa[KS][4];
+        load_a_global<D>(oa, o + base, r_lo, r_hi, s, t);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float2 x = unpack_bf16(da[kk][i]), y = unpack_bf16(oa[kk][i]);
+                float& acc = (i & 1) ? delta_hi : delta_lo;
+                acc = fmaf(x.x, y.x, acc);
+                acc = fmaf(x.y, y.y, acc);
+            }
+        }
+        delta_lo += __shfl_xor_sync(0xffffffffu, delta_lo, 1);
+        delta_lo += __shfl_xor_sync(0xffffffffu, delta_lo, 2);
+        delta_hi += __shfl_xor_sync(0xffffffffu, delta_hi, 1);
+        delta_hi += __shfl_xor_sync(0xffffffffu, delta_hi, 2);
+        if (t == 0 && in_lo) delta[(size_t)bh * s + r_lo] = delta_lo;
+        if (t == 0 && in_hi) delta[(size_t)bh * s + r_hi] = delta_hi;
+    }
+    const float scale_log2e = scale * LOG2E;
+    // -lse * log2 e; minus infinity for a row past the end, whose p is then 0
+    const float nlse_lo = in_lo ? -lse[(size_t)bh * s + r_lo] * LOG2E : -INFINITY;
+    const float nlse_hi = in_hi ? -lse[(size_t)bh * s + r_hi] * LOG2E : -INFINITY;
+    const int qid_lo = in_lo ? q_ids[(size_t)b * s + r_lo] : -3;
+    const int qid_hi = in_hi ? q_ids[(size_t)b * s + r_hi] : -3;
+
+    float acc[NO][4];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    for (int it = 0; it < n_kt; ++it) {
+        if (it + 1 < n_kt) load_stage((it + 1) & 1, (it + 1) * TILE);
+        cp_async_commit();
+        cp_async_wait<1>();  // everything but the newest group: tile `it` has arrived
+        __syncthreads();
+        const bf16* Kt = Ks[it & 1];
+        const bf16* Vt = Vs[it & 1];
+        const int* kid_t = kid_s[it & 1];
+        const int k0 = it * TILE;
+
+#pragma unroll
+        for (int c0 = 0; c0 < TILE; c0 += PASS) {
+            // S = Q.K^T and dP = dO.V^T for this thread's rows and keys c0 .. c0+31
+            float sa[PASS / 8][4], pa[PASS / 8][4];
+#pragma unroll
+            for (int j = 0; j < PASS / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+                for (int np = 0; np < PASS / 16; ++np) {
+                    uint32_t bk[4], bv[4];
+                    load_b_rows<D>(bk, Kt, c0 + np * 16, kk, lane);
+                    load_b_rows<D>(bv, Vt, c0 + np * 16, kk, lane);
+                    mma_bf16(sa[2 * np], qa[kk], bk[0], bk[1]);
+                    mma_bf16(sa[2 * np + 1], qa[kk], bk[2], bk[3]);
+                    mma_bf16(pa[2 * np], da[kk], bv[0], bv[1]);
+                    mma_bf16(pa[2 * np + 1], da[kk], bv[2], bv[3]);
+                }
+            }
+            // ds in fragment coordinates, in place of S
+#pragma unroll
+            for (int j = 0; j < PASS / 8; ++j) {
+                const int col = c0 + 8 * j + 2 * t;
+                const int2 kid = *reinterpret_cast<const int2*>(kid_t + col);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const bool hi = e >= 2;
+                    const int k_pos = k0 + col + (e & 1);
+                    const bool allowed = pair_allowed(hi ? qid_hi : qid_lo, (e & 1) ? kid.y : kid.x,
+                                                      hi ? r_hi : r_lo, k_pos, causal);
+                    const float p = pair_prob(sa[j][e], scale_log2e, hi ? nlse_hi : nlse_lo, allowed, k_pos < s, bias_mode);
+                    sa[j][e] = p * (pa[j][e] - (hi ? delta_hi : delta_lo)) * scale;
+                }
+            }
+            // dq += dS.K over these 32 keys
+#pragma unroll
+            for (int ks = 0; ks < PASS / 16; ++ks) {
+                uint32_t dsa[4];
+                pack_a_from_c(dsa, sa[2 * ks], sa[2 * ks + 1]);
+#pragma unroll
+                for (int np = 0; np < NO / 2; ++np) {
+                    uint32_t bk[4];
+                    load_b_cols<D>(bk, Kt, c0 + ks * 16, np * 16, lane);
+                    mma_bf16(acc[2 * np], dsa, bk[0], bk[1]);
+                    mma_bf16(acc[2 * np + 1], dsa, bk[2], bk[3]);
+                }
+            }
+        }
+        __syncthreads();  // the stage is free for the load after next
+    }
+
+    bf16* dq_lo = dq + base + (size_t)r_lo * D;
+    bf16* dq_hi = dq + base + (size_t)r_hi * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (in_lo) *reinterpret_cast<__nv_bfloat162*>(dq_lo + col) = __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+        if (in_hi) *reinterpret_cast<__nv_bfloat162*>(dq_hi + col) = __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, MMA_MIN_BLOCKS)
+attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                    const bf16* __restrict__ dout,
+                    const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles) {
+    constexpr int KS = D / 16;
+    constexpr int NO = D / 8;
+
+    __shared__ __align__(128) bf16 Qs[STAGES][TILE * D];
+    __shared__ __align__(128) bf16 Os[STAGES][TILE * D];  // do
+    __shared__ __align__(16) float lse_s[STAGES][TILE];
+    __shared__ __align__(16) float delta_s[STAGES][TILE];
+    __shared__ __align__(16) int qid_s[STAGES][TILE];
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const bool skip = causal && !bias_mode && skip_tiles;
+    int bh, tile;
+    block_coords(n_tiles, skip, false, bh, tile);
+    const int b = bh / h;
+    const int kt0 = tile * TILE;
+    const size_t base = (size_t)bh * s * D;
+    const bf16* qb = q + base;
+    const bf16* dob = dout + base;
+    const float* lseb = lse + (size_t)bh * s;
+    const float* deltab = delta + (size_t)bh * s;
+    const int* qidb = q_ids + (size_t)b * s;
+
+    const int qt_begin = skip ? tile : 0;  // start at the diagonal tile
+    const int n_qt = n_tiles - qt_begin;
+
+    auto load_stage = [&](int stage, int q0) {
+        load_tile_async<D>(Qs[stage], qb, q0, s, tid);
+        load_tile_async<D>(Os[stage], dob, q0, s, tid);
+        if (tid < TILE) {
+            load_row_async(lse_s[stage], lseb, q0, s, tid);
+            load_row_async(delta_s[stage], deltab, q0, s, tid);
+            load_row_async(qid_s[stage], qidb, q0, s, tid);
+        }
+    };
+    load_stage(0, qt_begin * TILE);
+    cp_async_commit();
+
+    // the block's own rows: this thread holds keys r_lo and r_hi of k and v
+    const int r_lo = kt0 + warp * 16 + g, r_hi = r_lo + 8;
+    const bool in_lo = r_lo < s, in_hi = r_hi < s;
+    uint32_t ka[KS][4], va[KS][4];
+    load_a_global<D>(ka, k + base, r_lo, r_hi, s, t);
+    load_a_global<D>(va, v + base, r_lo, r_hi, s, t);
+    const int kid_lo = in_lo ? kv_ids[(size_t)b * s + r_lo] : -3;
+    const int kid_hi = in_hi ? kv_ids[(size_t)b * s + r_hi] : -3;
+    const float scale_log2e = scale * LOG2E;
+
+    float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+    for (int it = 0; it < n_qt; ++it) {
+        if (it + 1 < n_qt) load_stage((it + 1) & 1, (qt_begin + it + 1) * TILE);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const bf16* Qt = Qs[it & 1];
+        const bf16* Ot = Os[it & 1];
+        const float* lse_t = lse_s[it & 1];
+        const float* delta_t = delta_s[it & 1];
+        const int* qid_t = qid_s[it & 1];
+        const int q0 = (qt_begin + it) * TILE;
+
+#pragma unroll
+        for (int c0 = 0; c0 < TILE; c0 += PASS) {
+            // S^T = K.Q^T and dP^T = V.dO^T: rows are this thread's keys, columns queries c0 .. c0+31
+            float sa[PASS / 8][4], pa[PASS / 8][4];
+#pragma unroll
+            for (int j = 0; j < PASS / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+                for (int np = 0; np < PASS / 16; ++np) {
+                    uint32_t bq[4], bo[4];
+                    load_b_rows<D>(bq, Qt, c0 + np * 16, kk, lane);
+                    load_b_rows<D>(bo, Ot, c0 + np * 16, kk, lane);
+                    mma_bf16(sa[2 * np], ka[kk], bq[0], bq[1]);
+                    mma_bf16(sa[2 * np + 1], ka[kk], bq[2], bq[3]);
+                    mma_bf16(pa[2 * np], va[kk], bo[0], bo[1]);
+                    mma_bf16(pa[2 * np + 1], va[kk], bo[2], bo[3]);
+                }
+            }
+            // p^T in place of S^T, ds^T in place of dP^T; lse, delta and q ids go by column
+#pragma unroll
+            for (int j = 0; j < PASS / 8; ++j) {
+                const int col = c0 + 8 * j + 2 * t;
+                float2 nl = *reinterpret_cast<const float2*>(lse_t + col);
+                nl.x = q0 + col < s ? -nl.x * LOG2E : -INFINITY;  // a query past the end: p = 0
+                nl.y = q0 + col + 1 < s ? -nl.y * LOG2E : -INFINITY;
+                const float2 dl = *reinterpret_cast<const float2*>(delta_t + col);
+                const int2 qid = *reinterpret_cast<const int2*>(qid_t + col);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const bool hi = e >= 2;
+                    const int q_pos = q0 + col + (e & 1);
+                    const bool allowed = pair_allowed((e & 1) ? qid.y : qid.x, hi ? kid_hi : kid_lo,
+                                                      q_pos, hi ? r_hi : r_lo, causal);
+                    // a key row past the end needs no mask: the rows of a product do not mix,
+                    // and its rows of dk and dv are not stored
+                    const float p = pair_prob(sa[j][e], scale_log2e, (e & 1) ? nl.y : nl.x, allowed, true, bias_mode);
+                    sa[j][e] = p;
+                    pa[j][e] = p * (pa[j][e] - ((e & 1) ? dl.y : dl.x)) * scale;
+                }
+            }
+            // dv += P^T.dO and dk += dS^T.Q over these 32 queries
+#pragma unroll
+            for (int ks = 0; ks < PASS / 16; ++ks) {
+                uint32_t pta[4], dsa[4];
+                pack_a_from_c(pta, sa[2 * ks], sa[2 * ks + 1]);
+                pack_a_from_c(dsa, pa[2 * ks], pa[2 * ks + 1]);
+#pragma unroll
+                for (int np = 0; np < NO / 2; ++np) {
+                    uint32_t bo[4], bq[4];
+                    load_b_cols<D>(bo, Ot, c0 + ks * 16, np * 16, lane);
+                    load_b_cols<D>(bq, Qt, c0 + ks * 16, np * 16, lane);
+                    mma_bf16(dv_acc[2 * np], pta, bo[0], bo[1]);
+                    mma_bf16(dv_acc[2 * np + 1], pta, bo[2], bo[3]);
+                    mma_bf16(dk_acc[2 * np], dsa, bq[0], bq[1]);
+                    mma_bf16(dk_acc[2 * np + 1], dsa, bq[2], bq[3]);
+                }
+            }
+        }
+        __syncthreads();
+    }
+
+    const size_t lo = base + (size_t)r_lo * D, hi = base + (size_t)r_hi * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (in_lo) {
+            *reinterpret_cast<__nv_bfloat162*>(dk + lo + col) = __floats2bfloat162_rn(dk_acc[j][0], dk_acc[j][1]);
+            *reinterpret_cast<__nv_bfloat162*>(dv + lo + col) = __floats2bfloat162_rn(dv_acc[j][0], dv_acc[j][1]);
+        }
+        if (in_hi) {
+            *reinterpret_cast<__nv_bfloat162*>(dk + hi + col) = __floats2bfloat162_rn(dk_acc[j][2], dk_acc[j][3]);
+            *reinterpret_cast<__nv_bfloat162*>(dv + hi + col) = __floats2bfloat162_rn(dv_acc[j][2], dv_acc[j][3]);
+        }
+    }
+}
+
+// ---------------------------------------------------------------- launches
+
+struct BwdArgs {
+    const void *q, *k, *v, *o, *dout;
+    const int *q_ids, *kv_ids;
+    const float* lse;
+    float* delta;  // written by dq, read by dk/dv
+    void *dq, *dk, *dv;
+    int b, h, s;
+    float scale;
+    int bias_mode, causal, skip_tiles;
+    cudaStream_t stream;
+};
+
 template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                      const int* q_ids, const int* kv_ids, const float* lse, void* dq, float* delta,
-                      int b, int h, int s, float scale, int bias_mode, int causal, int skip_tiles,
-                      cudaStream_t stream) {
+cudaError_t launch_dq(const BwdArgs& a) {
     constexpr size_t smem = dq_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
         attn_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(b * h, (s + BQ - 1) / BQ);
-    attn_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(o), static_cast<const T*>(dout), q_ids, kv_ids, lse,
-        static_cast<T*>(dq), delta, h, s, scale, bias_mode, causal, skip_tiles);
+    dim3 grid(a.b * a.h, (a.s + BQ - 1) / BQ);
+    attn_dq_kernel<T, D><<<grid, SIMT_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.q_ids, a.kv_ids, a.lse,
+        static_cast<T*>(a.dq), a.delta, a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles);
     return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const int* q_ids, const int* kv_ids, const float* lse, const float* delta,
-                       void* dk, void* dv, int b, int h, int s, float scale, int bias_mode,
-                       int causal, int skip_tiles, cudaStream_t stream) {
+cudaError_t launch_dkv(const BwdArgs& a) {
     constexpr size_t smem = dkv_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
         attn_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(b * h, (s + BK - 1) / BK);
-    attn_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), q_ids, kv_ids, lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), h, s, scale, bias_mode, causal, skip_tiles);
+    dim3 grid(a.b * a.h, (a.s + BK - 1) / BK);
+    attn_dkv_kernel<T, D><<<grid, SIMT_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), a.q_ids, a.kv_ids, a.lse, a.delta,
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles);
     return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const BwdArgs& a) {
+    const int n_tiles = (a.s + TILE - 1) / TILE;
+    attn_dq_mma_kernel<D><<<a.b * a.h * n_tiles, THREADS, 0, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.q_ids, a.kv_ids, a.lse,
+        static_cast<bf16*>(a.dq), a.delta, a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal, a.skip_tiles);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const BwdArgs& a) {
+    const int n_tiles = (a.s + TILE - 1) / TILE;
+    attn_dkv_mma_kernel<D><<<a.b * a.h * n_tiles, THREADS, 0, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const bf16*>(a.dout), a.q_ids, a.kv_ids, a.lse, a.delta,
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal,
+        a.skip_tiles);
+    return cudaGetLastError();
+}
+
+// registers a thread, local (spill) bytes a thread, resident blocks an SM, shared bytes a block
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int threads, size_t dynamic_smem, int* out) {
+    cudaError_t err = cudaSuccess;
+    if (dynamic_smem > 0) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic_smem);
+        if (err != cudaSuccess) return err;
+    }
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dynamic_smem);
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = (int)attr.localSizeBytes;
+    out[2] = blocks;
+    out[3] = (int)(attr.sharedSizeBytes + dynamic_smem);
+    return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t simt_info(int dkv, int* out) {
+    if (dkv) return kernel_info(attn_dkv_kernel<T, D>, SIMT_THREADS, dkv_smem_bytes<D>(), out);
+    return kernel_info(attn_dq_kernel<T, D>, SIMT_THREADS, dq_smem_bytes<D>(), out);
+}
+
+template <int D>
+cudaError_t mma_info(int dkv, int* out) {
+    if (dkv) return kernel_info(attn_dkv_mma_kernel<D>, THREADS, 0, out);
+    return kernel_info(attn_dq_mma_kernel<D>, THREADS, 0, out);
+}
+
+// impl 1 takes bfloat16 only; float32 has the CUDA-core kernels alone
+bool known(int impl, int dtype, int d) {
+    return (d == 32 || d == 64) && (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; causal and skip_tiles as in the header.
-// Both return a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; impl: 0 = CUDA cores ("simt"), 1 = tensor
+// cores ("mma", bfloat16 only); causal and skip_tiles as in the header.
+// All return a cudaError_t (0 on success).
 
 // dq (b, h, s, d) in the input type, and delta (b, h, s) float32 as a by-product.
 extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const int* q_ids, const int* kv_ids,
                            const float* lse, void* dq, float* delta, int b, int h, int s, int d,
-                           float scale, int bias_mode, int causal, int skip_tiles, int dtype, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+                           float scale, int bias_mode, int causal, int skip_tiles, int dtype, int impl,
+                           void* stream) {
+    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
     if (b * h == 0 || s == 0) return cudaSuccess;
-    if (dtype == 1) {
-        if (d == 64) return launch_dq<__nv_bfloat16, 64>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-        if (d == 32) return launch_dq<__nv_bfloat16, 32>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-    } else if (dtype == 0) {
-        if (d == 64) return launch_dq<float, 64>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-        if (d == 32) return launch_dq<float, 32>(q, k, v, o, dout, q_ids, kv_ids, lse, dq, delta, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-    }
-    return cudaErrorInvalidValue;
+    const BwdArgs a{q, k, v, o, dout, q_ids, kv_ids, lse, delta, dq, nullptr, nullptr,
+                    b, h, s, scale, bias_mode, causal, skip_tiles, static_cast<cudaStream_t>(stream)};
+    if (impl == 1) return d == 64 ? launch_dq_mma<64>(a) : launch_dq_mma<32>(a);
+    if (dtype == 1) return d == 64 ? launch_dq<__nv_bfloat16, 64>(a) : launch_dq<__nv_bfloat16, 32>(a);
+    return d == 64 ? launch_dq<float, 64>(a) : launch_dq<float, 32>(a);
 }
 
 // dk, dv (b, h, s, d) in the input type; delta is the buffer attn_bwd_dq filled.
 extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const int* q_ids, const int* kv_ids, const float* lse,
-                            const float* delta, void* dk, void* dv, int b, int h, int s, int d,
-                            float scale, int bias_mode, int causal, int skip_tiles, int dtype, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+                            float* delta, void* dk, void* dv, int b, int h, int s, int d,
+                            float scale, int bias_mode, int causal, int skip_tiles, int dtype, int impl,
+                            void* stream) {
+    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
     if (b * h == 0 || s == 0) return cudaSuccess;
-    if (dtype == 1) {
-        if (d == 64) return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-        if (d == 32) return launch_dkv<__nv_bfloat16, 32>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-    } else if (dtype == 0) {
-        if (d == 64) return launch_dkv<float, 64>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-        if (d == 32) return launch_dkv<float, 32>(q, k, v, dout, q_ids, kv_ids, lse, delta, dk, dv, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-    }
-    return cudaErrorInvalidValue;
+    const BwdArgs a{q, k, v, nullptr, dout, q_ids, kv_ids, lse, delta, nullptr, dk, dv,
+                    b, h, s, scale, bias_mode, causal, skip_tiles, static_cast<cudaStream_t>(stream)};
+    if (impl == 1) return d == 64 ? launch_dkv_mma<64>(a) : launch_dkv_mma<32>(a);
+    if (dtype == 1) return d == 64 ? launch_dkv<__nv_bfloat16, 64>(a) : launch_dkv<__nv_bfloat16, 32>(a);
+    return d == 64 ? launch_dkv<float, 64>(a) : launch_dkv<float, 32>(a);
+}
+
+// What the compiler and the card make of one instantiation (dkv: 0 = dq,
+// 1 = dk/dv): out[0] registers a thread, out[1] local-memory (spill) bytes a
+// thread, out[2] blocks that fit on one SM, out[3] shared-memory bytes a block.
+extern "C" int attn_bwd_kernel_info(int dkv, int impl, int dtype, int d, int* out) {
+    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
+    if (impl == 1) return d == 64 ? mma_info<64>(dkv, out) : mma_info<32>(dkv, out);
+    if (dtype == 1) return d == 64 ? simt_info<__nv_bfloat16, 64>(dkv, out) : simt_info<__nv_bfloat16, 32>(dkv, out);
+    return d == 64 ? simt_info<float, 64>(dkv, out) : simt_info<float, 32>(dkv, out);
 }

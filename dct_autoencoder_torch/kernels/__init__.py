@@ -22,7 +22,14 @@ COUNTERS = {
 def reset_launch_counts() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    for impl in attention.LAUNCHES_BWD_IMPL:
+        attention.LAUNCHES_BWD_IMPL[impl] = 0
 
 
 def launch_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def bwd_impl_launch_counts() -> dict:
+    """Launches of the two attention backward kernels by implementation ("mma", "simt")."""
+    return dict(attention.LAUNCHES_BWD_IMPL)

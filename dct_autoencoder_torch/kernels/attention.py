@@ -9,9 +9,16 @@ a Hopper block cannot hold the whole k/v stripe the Pallas kernel keeps in
 VMEM.  The backward kernels are csrc/attention_bwd.cu: one block per q tile
 for dq, one per k tile for dk/dv, each recomputing p = exp(logits - lse)
 from the saved row log-sum-exp.  The mask is derived from per-token ids
-inside the kernels.  On the H100 the tensor-core bound of these calls is
-memory (the q/k/v/o/do bytes); these first versions multiply on the CUDA
-cores in fp32 and are bound by their rate (see the sources' headers).
+inside the kernels.  On the H100 the bound of these calls is memory (the
+q/k/v/o/do bytes).  The forward kernel still multiplies on the CUDA cores in
+fp32 and is bound by their rate.  The backward kernels have two
+implementations (see the source's header): for bfloat16 the products run on
+the tensor cores (``mma.sync``, bf16 operands, fp32 accumulators; p and ds
+rounded to bf16 before the second product, as the Pallas kernels round
+them); float32 keeps the CUDA-core kernels, which are true fp32.
+``impl="simt"`` on ``attention_dq_cuda`` / ``attention_dkv_cuda`` runs the
+CUDA-core kernels on bfloat16 too, for timing the old design beside the new
+one on one card; nothing on a model's path passes it.
 
 ``packed_flash_attention`` keeps the JAX layout (b, h, s, d) and contract,
 and carries the gradient through a ``torch.autograd.Function`` whenever an
@@ -29,12 +36,13 @@ for timing the difference.
 
 ``LAUNCHES``, ``LAUNCHES_DQ`` and ``LAUNCHES_DKV`` count the non-causal
 kernel launches, ``LAUNCHES_CAUSAL``, ``LAUNCHES_DQ_CAUSAL`` and
-``LAUNCHES_DKV_CAUSAL`` the causal ones.
+``LAUNCHES_DKV_CAUSAL`` the causal ones.  ``LAUNCHES_BWD_IMPL`` counts the
+launches of both backward kernels by implementation ("mma", "simt").
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -46,6 +54,9 @@ LAUNCHES_DKV = 0
 LAUNCHES_CAUSAL = 0
 LAUNCHES_DQ_CAUSAL = 0
 LAUNCHES_DKV_CAUSAL = 0
+LAUNCHES_BWD_IMPL = {"mma": 0, "simt": 0}
+
+BWD_IMPLS = ("simt", "mma")  # the index is the `impl` argument of the C entry points
 
 
 def segment_ids(image_ids: torch.Tensor, key_pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -148,42 +159,70 @@ def attention_bwd_plain(
 ):
     """Eager PyTorch version of the two backward kernels: returns (dq, dk, dv).
 
-    Recomputes p from the saved lse, fp32 inside, results in the input types.
+    Recomputes p from the saved lse in fp32.  p and ds are rounded to the
+    input type before the second products (``ds.astype(q.dtype)`` and
+    ``p_t.astype(do.dtype)`` in the Pallas kernels; nothing happens to
+    float32), sums are fp32, results are in the input types.
     """
     logits = _masked_logits(q, k, q_ids, kv_ids, scale, mode, causal)
     p = torch.exp(logits - lse[..., None])  # rows of padded queries are 0 in 'block' mode
     do32 = do.float()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do32)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, v.float())
     delta = (do32 * o.float()).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta) * scale
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# both backward entry points: 10 pointers, b h s d, scale, mode, causal, skip_tiles, dtype, stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
+# both backward entry points: 10 pointers, b h s d, scale, mode, causal, skip_tiles, dtype, impl, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 5 + [
     ctypes.c_void_p
 ]
 
 
+def _bwd_impl(impl: Optional[str], dtype: torch.dtype) -> str:
+    """The implementation a backward launch takes: tensor cores ("mma") for
+    bfloat16 unless "simt" is asked for, the CUDA-core kernels for float32."""
+    if impl is None:
+        return "mma" if dtype == torch.bfloat16 else "simt"
+    if impl not in BWD_IMPLS:
+        raise ValueError(f"unknown attention backward impl {impl!r}: one of {BWD_IMPLS}")
+    if impl == "mma" and dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core backward kernels take bfloat16, got {dtype}")
+    return impl
+
+
+def _check_mma_alignment(tensors: Dict[str, torch.Tensor]) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte boundary for the tensor-core kernels")
+
+
 def attention_dq_cuda(
     q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block", causal: bool = False,
-    skip_tiles: bool = True,
+    skip_tiles: bool = True, impl: Optional[str] = None,
 ):
-    """Launch attn_dq_kernel of csrc/attention_bwd.cu: returns (dq, delta).
+    """Launch the dq kernel of csrc/attention_bwd.cu: returns (dq, delta).
 
     delta = rowsum(do * o) (b, h, s) fp32 is computed in the kernel's
-    prologue; ``attention_dkv_cuda`` takes it.
+    prologue; ``attention_dkv_cuda`` takes it.  ``impl``: None takes the
+    tensor-core kernel for bfloat16 and the CUDA-core kernel for float32;
+    "simt" asks for the CUDA-core kernel on bfloat16 too; "mma" with float32
+    raises TypeError.
     """
     global LAUNCHES_DQ, LAUNCHES_DQ_CAUSAL
     from . import _build
 
-    _check_kernel_inputs(q, {"k": k, "v": v, "o": o, "do": do}, q_ids, kv_ids, mode, {"lse": lse})
+    impl = _bwd_impl(impl, q.dtype)
+    like_q = {"k": k, "v": v, "o": o, "do": do}
+    _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode, {"lse": lse})
     b, h, s, d = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if impl == "mma":
+        _check_mma_alignment({"q": q, **like_q, "dq": dq})
     fn = _build.load("attention_bwd").attn_bwd_dq
     fn.restype = ctypes.c_int
     fn.argtypes = _BWD_ARGTYPES
@@ -191,27 +230,32 @@ def attention_dq_cuda(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
         b, h, s, d, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
+        int(q.dtype == torch.bfloat16), BWD_IMPLS.index(impl), _build.stream_ptr(q.device),
     )
-    _build.check(err, "attention_bwd dq")
+    _build.check(err, f"attention_bwd dq ({impl})")
     if causal:
         LAUNCHES_DQ_CAUSAL += 1
     else:
         LAUNCHES_DQ += 1
+    LAUNCHES_BWD_IMPL[impl] += 1
     return dq, delta
 
 
 def attention_dkv_cuda(
     q, k, v, q_ids, kv_ids, lse, delta, do, scale: float, mode: str = "block", causal: bool = False,
-    skip_tiles: bool = True,
+    skip_tiles: bool = True, impl: Optional[str] = None,
 ):
-    """Launch attn_dkv_kernel of csrc/attention_bwd.cu: returns (dk, dv)."""
+    """Launch the dk/dv kernel of csrc/attention_bwd.cu: returns (dk, dv).  ``impl`` as in ``attention_dq_cuda``."""
     global LAUNCHES_DKV, LAUNCHES_DKV_CAUSAL
     from . import _build
 
-    _check_kernel_inputs(q, {"k": k, "v": v, "do": do}, q_ids, kv_ids, mode, {"lse": lse, "delta": delta})
+    impl = _bwd_impl(impl, q.dtype)
+    like_q = {"k": k, "v": v, "do": do}
+    _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode, {"lse": lse, "delta": delta})
     b, h, s, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if impl == "mma":
+        _check_mma_alignment({"q": q, **like_q, "dk": dk, "dv": dv})
     fn = _build.load("attention_bwd").attn_bwd_dkv
     fn.restype = ctypes.c_int
     fn.argtypes = _BWD_ARGTYPES
@@ -219,14 +263,35 @@ def attention_dkv_cuda(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, s, d, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
+        int(q.dtype == torch.bfloat16), BWD_IMPLS.index(impl), _build.stream_ptr(q.device),
     )
-    _build.check(err, "attention_bwd dkv")
+    _build.check(err, f"attention_bwd dkv ({impl})")
     if causal:
         LAUNCHES_DKV_CAUSAL += 1
     else:
         LAUNCHES_DKV += 1
+    LAUNCHES_BWD_IMPL[impl] += 1
     return dk, dv
+
+
+def attention_bwd_kernel_info(kernel: str, impl: str, dtype: torch.dtype, d: int) -> Dict[str, int]:
+    """What the compiler and the card make of one instantiation of a backward
+    kernel ("dq" or "dkv"): registers and local-memory (spill) bytes a thread
+    (``cudaFuncGetAttributes``), the blocks that fit on one SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the shared-memory
+    bytes a block.  Needs the card."""
+    from . import _build
+
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"unknown backward kernel {kernel!r}")
+    impl = _bwd_impl(impl, dtype)
+    fn = _build.load("attention_bwd").attn_bwd_kernel_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    err = fn(int(kernel == "dkv"), BWD_IMPLS.index(impl), int(dtype == torch.bfloat16), d, ctypes.addressof(out))
+    _build.check(err, f"attention_bwd {kernel} ({impl}) info")
+    return dict(zip(("num_regs", "local_size_bytes", "blocks_per_sm", "shared_size_bytes"), out))
 
 
 def attention_bwd(q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block", causal: bool = False):

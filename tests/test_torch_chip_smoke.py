@@ -59,6 +59,11 @@ def test_kernel_table_names_every_counter_and_source():
     assert tuple(c for c in counters if c.endswith("_causal")) == chip_smoke.CAUSAL_KERNELS
     for counter in chip_smoke.CAUSAL_KERNELS:
         assert rows[counter][2] == rows[counter[: -len("_causal")]][2]
+    # the backward kernels, whose launches are also counted by implementation
+    assert set(chip_smoke.BWD_KERNELS) == {c for c in counters if "_dq" in c or "_dkv" in c}
+    assert all(rows[c][2].endswith("attention_bwd.cu") for c in chip_smoke.BWD_KERNELS)
+    assert set(tk.bwd_impl_launch_counts()) == {"mma", "simt"}
+    assert {rows[c][5] for c in chip_smoke.BWD_KERNELS} <= set(chip_smoke.BF16_TRAIN_PATHS)
 
 
 @pytest.mark.parametrize("mode", ["block", "bias"])
@@ -118,6 +123,15 @@ def test_packed_ar_rows_hold_several_images_and_padding():
 def test_bound_is_the_larger_of_bytes_and_operations(nbytes, flops, dtype, want):
     ms, by = chip_smoke.bound(nbytes, flops, dtype)
     assert by == want[1] and ms == pytest.approx(want[0])
+
+
+@pytest.mark.parametrize("x,want", [(0.75, 2.0**-8), (1.0, 2.0**-7), (3.9, 2.0**-6), (4.0, 2.0**-5), (5.5, 0.03125), (0.0, 0.0)])
+def test_bf16_ulp_is_the_spacing_of_bfloat16(x, want):
+    assert chip_smoke.bf16_ulp(x) == want
+    if x > 0:
+        t = torch.tensor(x, dtype=torch.bfloat16)
+        up = torch.nextafter(t, torch.tensor(float("inf"), dtype=torch.bfloat16))
+        assert float(up) - float(t) == want
 
 
 def test_code_agreement_counts_missing_tokens_as_disagreeing():

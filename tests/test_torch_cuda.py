@@ -10,10 +10,17 @@ padded queries exactly 0 in 'block' mode.  The attention backward (dq, dk,
 dv) atol 3e-2 in bf16 (one bf16 rounding of values up to ~4 at the store)
 and 1e-5 in fp32; dq of padded queries exactly 0 in 'block' mode.  The causal
 mode of the three kernels is held to the same limits, and with and without
-its tile skipping to the same bits.  DCT and
+its tile skipping to the same bits.  In bf16 the backward kernels multiply on
+the tensor cores and round p and ds to bf16, as the plain version does; they
+are also held against the CUDA-core kernels (`impl="simt"`, p and ds in
+fp32), to the larger of 3e-2 and one bf16 ulp of the largest gradient (two
+results rounded once each can land one ulp apart, which from |g| = 4 on is
+3.1e-2), and two launches on the same inputs to the same bits.  DCT and
 IDCT max|diff| <= 1e-5 x max|value| (true fp32 on both sides, sums in
 another order).
 """
+import math
+
 import pytest
 import torch
 
@@ -202,6 +209,87 @@ def test_causal_attention_gradients_match_cpu(cuda, mode):
             q.to(cuda), k2.to(cuda), v2.to(cuda), ids.to(cuda), pad.to(cuda), d**-0.5, mode, causal=True
         ).cpu()
         torch.testing.assert_close(moved[:, :, :cut], outs["cuda"][:, :, :cut], atol=1e-5, rtol=0)
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+@pytest.mark.parametrize("s", [64, 173, 256, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mode", ["block", "bias"])
+@pytest.mark.parametrize("d", [32, 64])
+def test_tensor_core_backward_kernels(cuda, d, mode, causal, s):
+    """The bf16 dq and dk/dv kernels (impl mma) against the plain version and
+    against impl simt; deterministic; tile skipping changes no bit; delta and
+    the dq of padded queries as the contract says."""
+    b, h = 2, 4
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.bfloat16, cuda, seed=s + d)
+    do = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(1)).bfloat16().to(cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    scale = d**-0.5
+    o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, scale, mode, causal)
+
+    def run(impl=None, skip_tiles=True):
+        dq, delta = tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, skip_tiles, impl)
+        dk, dv = tatt.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, causal, skip_tiles, impl)
+        return dq, dk, dv, delta
+
+    tk.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert tk.bwd_impl_launch_counts() == {"mma": 2, "simt": 0}
+    want = tatt.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=3e-2, rtol=0)
+    torch.testing.assert_close(got[3], (do.float() * o.float()).sum(-1), atol=1e-3, rtol=0)
+    if mode == "block" and pad.any():
+        assert (got[0].transpose(1, 2)[pad] == 0).all()
+    old = run("simt")
+    assert tk.bwd_impl_launch_counts() == {"mma": 2, "simt": 2}
+    atol = max(3e-2, _bf16_ulp(max(t.float().abs().max().item() for t in old[:3])))
+    for g, w in zip(got[:3], old[:3]):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+    assert all(torch.equal(x, y) for x, y in zip(got, run()))
+    assert all(torch.equal(x, y) for x, y in zip(got, run(skip_tiles=False)))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mode", ["block", "bias"])
+def test_bf16_attention_gradients_match_cpu(cuda, mode, causal):
+    """bf16 gradients through the autograd.Function on the card (forward kernel,
+    tensor-core backward kernels) against the plain path on the CPU, with the
+    head merge's transposed grad_output: a few bf16 ulps of the largest gradient
+    (the forward kernel keeps p in fp32 and sums in another order)."""
+    b, h, s, d = 2, 4, 173, 64
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.bfloat16, "cpu", seed=2)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        qq, kk, vv = (t.clone().to(dev).requires_grad_(True) for t in (q, k, v))
+        tk.reset_launch_counts()
+        o = tatt.packed_flash_attention(qq, kk, vv, ids.to(dev), pad.to(dev), d**-0.5, mode, causal)
+        valid = (~pad).to(dev)[:, :, None]
+        ((o.transpose(1, 2).reshape(b, s, h * d).float() * valid) ** 2).sum().backward()
+        grads[dev] = [t.grad.float().cpu() for t in (qq, kk, vv)]
+        assert tk.bwd_impl_launch_counts() == ({"mma": 2, "simt": 0} if dev == "cuda" else {"mma": 0, "simt": 0})
+    for a, c in zip(grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(c, a, atol=4 * _bf16_ulp(a.abs().max().item()), rtol=0)
+
+
+def test_backward_impl_argument_on_cuda(cuda):
+    """fp32 takes the CUDA-core kernels whatever is left out; asking for mma with fp32 raises."""
+    q, k, v, ids, pad = _attn_inputs(1, 2, 64, 32, torch.float32, cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, 1.0)
+    tk.reset_launch_counts()
+    tatt.attention_bwd(q, k, v, q_ids, kv_ids, o, lse, q, 1.0)
+    assert tk.bwd_impl_launch_counts() == {"mma": 0, "simt": 2}
+    with pytest.raises(TypeError):
+        tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, q, 1.0, impl="mma")
+    for kernel in ("dq", "dkv"):
+        info = tatt.attention_bwd_kernel_info(kernel, "mma", torch.bfloat16, 64)
+        assert info["num_regs"] > 0 and info["blocks_per_sm"] >= 1
 
 
 def test_attention_refuses_head_dim_16_on_cuda(cuda):
