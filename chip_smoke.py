@@ -5,9 +5,9 @@
 Builds the five hand-written CUDA kernels from dct_autoencoder_torch/csrc
 (nvcc, sm_90a), holds each, and the causal mode of the three attention
 kernels, against its plain PyTorch version at the shapes the main paths give
-it (the bfloat16 attention backward kernels, which multiply on the tensor
-cores, also against their CUDA-core versions, `impl="simt"`, timed beside
-them), and then drives the paths themselves:
+it (the bfloat16 attention kernels, forward and backward, which multiply on
+the tensor cores, also against their CUDA-core versions, `impl="simt"`,
+timed beside them), and then drives the paths themselves:
   * the serving round trip with the trained checkpoint in
     docs/calibrated_run_r3b/model (and the same batch through the port on
     the CPU in fp32), and a lossless no-model round trip;
@@ -54,6 +54,9 @@ PATCH14_L = os.path.join(HERE, "conf", "patch14-l.json")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
+# forward: o against the plain version, which rounds p to bf16 before P.V as the
+# tensor-core kernel does; against impl="simt" (p kept in fp32) the limit is the
+# larger of this and one bf16 ulp of max |o| (`simt_tol`), as for the backward
 ATTN_ATOL_BF16 = 2e-2
 # backward: dq, dk, dv reach ~4, where half a bf16 ulp is 1.6e-2.  The tensor-core
 # kernels and the plain version both round p and ds to bf16 before the second
@@ -114,6 +117,12 @@ def time_ms(fn, reps: int = 25, inner: int = 1) -> float:
 def bf16_ulp(x: float) -> float:
     """The spacing of bfloat16 values (8 significant bits) at magnitude x."""
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def simt_tol(limit: float, largest: float) -> float:
+    """The limit between a tensor-core kernel and its CUDA-core version: two bf16
+    results that were each rounded once can land one ulp of the value apart."""
+    return max(limit, bf16_ulp(largest))
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -194,11 +203,15 @@ def _attention_case(b, h, s, d, dtype, mode, gen):
     err = (o.float() - o_ref.float()).abs().max().item()
     lse_err = (lse - lse_ref).abs().max().item()
     tol = ATTN_ATOL_BF16 if dtype == torch.bfloat16 else 1e-5
-    check(err <= tol, f"attention {mode} {(b, h, s, d)}: max|diff| {err} > {tol}")
+    what = f"attention {mode} {(b, h, s, d)}"
+    check(err <= tol, f"{what}: max|diff| {err} > {tol}")
     check(torch.isfinite(o).all().item(), "attention output not finite")
     if mode == "block":
         pad_max = o.transpose(1, 2)[pad].abs().max().item() if pad.any() else 0.0
         check(pad_max == 0.0, f"attention block mode: padded queries not 0 ({pad_max})")
+    check(all(torch.equal(x, y) for x, y in zip((o, lse), kernel())), f"{what}: two launches on the same inputs differ")
+    simt = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, impl="simt")
+    simt_row = _fwd_against_simt(A, q, d, o, simt, what)
 
     sdpa_mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype)
     library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask, scale=scale)
@@ -212,7 +225,26 @@ def _attention_case(b, h, s, d, dtype, mode, gen):
         "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": tol,
         "ms": time_ms(kernel, inner=TIMED_LAUNCHES), "plain_ms": time_ms(plain),
         "library_ms": time_ms(library, inner=TIMED_LAUNCHES),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, **simt_row,
+    }
+
+
+def _fwd_against_simt(A, q, d, o, simt, what):
+    """For bfloat16: the tensor-core forward's o against the CUDA-core kernel's
+    on the same inputs, the CUDA-core kernel's time, and what the compiler made
+    of both instantiations.  For float32 (one implementation): the kernel info."""
+    info = lambda impl: A.attention_kernel_info("fwd", impl, q.dtype, d)
+    if q.dtype != torch.bfloat16:
+        return {"impl": "simt", "simt_ms": None, "kernel_info": info("simt")}
+    o_simt, _ = simt()
+    torch.cuda.synchronize()
+    diff = (o.float() - o_simt.float()).abs().max().item()
+    top = o_simt.float().abs().max().item()
+    tol = simt_tol(ATTN_ATOL_BF16, top)
+    check(diff <= tol, f"{what}: o of impl mma and impl simt differ by {diff} > {tol}")
+    return {
+        "impl": "mma", "simt_tol": tol, "max_abs_o": top, "simt_max_abs_diff": diff,
+        "simt_ms": time_ms(simt, reps=10), "kernel_info": info("mma"), "simt_kernel_info": info("simt"),
     }
 
 
@@ -221,7 +253,7 @@ def _bwd_against_simt(A, q, d, got, dq_simt, dkv_simt, what):
     against the CUDA-core kernels on the same inputs, the CUDA-core kernels'
     times, and what the compiler made of both instantiations.  For float32
     (one implementation): only the kernel info."""
-    info = lambda kernel, impl: A.attention_bwd_kernel_info(kernel, impl, q.dtype, d)
+    info = lambda kernel, impl: A.attention_kernel_info(kernel, impl, q.dtype, d)
     if q.dtype != torch.bfloat16:
         rows = {name: {"impl": "simt", "simt_ms": None, "kernel_info": info(name, "simt")} for name in ("dq", "dkv")}
         return rows["dq"], rows["dkv"]
@@ -232,7 +264,7 @@ def _bwd_against_simt(A, q, d, got, dq_simt, dkv_simt, what):
     for name, new, old in (("dq", got[0], dq_s), ("dk", got[1], dk_s), ("dv", got[2], dv_s)):
         diffs[name] = (new.float() - old.float()).abs().max().item()
         top = max(top, old.float().abs().max().item())
-    tol = max(ATTN_BWD_ATOL_BF16, bf16_ulp(top))
+    tol = simt_tol(ATTN_BWD_ATOL_BF16, top)
     for name, diff in diffs.items():
         check(diff <= tol, f"{what}: {name} of impl mma and impl simt differ by {diff} > {tol}")
     common = {"impl": "mma", "simt_tol": tol, "max_abs_grad": top}
@@ -341,6 +373,8 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
     check(errs["o"] <= tol_f, f"{what}: o max|diff| {errs['o']} > {tol_f}")
     lse_err = (lse - lse_ref).abs().max().item()
     check(lse_err <= 1e-4, f"{what}: lse max|diff| {lse_err}")
+    check(all(torch.equal(x, y) for x, y in zip((o, lse), fwd())), f"{what}: two forward launches differ")
+    fwd_row = _fwd_against_simt(A, q, d, o, lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, True, impl="simt"), what)
     for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
         errs[name] = (got.float() - refs[name].float()).abs().max().item()
         check(torch.isfinite(got).all().item(), f"{what}: {name} not finite")
@@ -399,7 +433,7 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
     }
     rows = {
         "attention_causal": {**common, "tol": tol_f, "max_abs_err": errs["o"], "lse_max_abs_err": lse_err,
-                             "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms},
+                             "plain_ms": plain_fwd_ms, "library_ms": lib_fwd_ms, **fwd_row},
         "attention_dq_causal": {**common, "tol": tol_b, "max_abs_err": errs["dq"], "plain_ms": plain_bwd_ms,
                                 "library_ms": lib_bwd_ms, **bwd_notes, **dq_row},
         "attention_dkv_causal": {**common, "tol": tol_b, "max_abs_err": max(errs["dk"], errs["dv"]),
@@ -554,7 +588,7 @@ def phase_serving():
     recon = pipe.decode(records)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = K.launch_counts()
+    launches = path_launches()
     check(all(launches[k] > 0 for k in SERVING_KERNELS), f"a kernel was not launched on the serving path: {launches}")
     check(launches["attention_dq"] == launches["attention_dkv"] == 0, f"serving ran a backward kernel: {launches}")
     check(len(recon) == len(ims) and all(r.shape == im.shape and np.isfinite(r).all() for r, im in zip(recon, ims)),
@@ -663,7 +697,8 @@ def phase_full_width(profile: bool):
     K.reset_launch_counts()
     out = model.forward(nb)
     torch.cuda.synchronize()
-    attn_launches = K.launch_counts()["attention"]
+    launches = path_launches()
+    attn_launches = launches["attention"]
     n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
     check(attn_launches == n_layers, f"{attn_launches} attention launches for {n_layers} layers")
     codes = out["codes"]
@@ -680,6 +715,7 @@ def phase_full_width(profile: bool):
     })
     if profile:
         emit({"phase": "profile_patch14l", **profile_device(lambda: model.forward(nb))})
+    return launches
 
 
 # ---------------------------------------------------------------- phase 5
@@ -712,7 +748,7 @@ def phase_train_r3b(steps=20, learning_rate=3e-4):
     )
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {**K.launch_counts(), "bwd_impl": K.bwd_impl_launch_counts()}
+    launches = path_launches()
     check(state.step == steps and len(logs) == steps, f"{state.step} steps, {len(logs)} log lines for {steps}")
     for name in ("attention", "attention_dq", "attention_dkv"):
         check(launches[name] == n_layers * steps, f"{launches[name]} {name} launches for {n_layers} layers x {steps} steps")
@@ -788,7 +824,7 @@ def phase_train_full_width(profile: bool, train_steps=4, timed_steps=5):
         result = rows
         break
     check(result is not None, "the patch14-L train step fits at no row count down to 16")
-    launches = {**K.launch_counts(), "bwd_impl": K.bwd_impl_launch_counts()}
+    launches = path_launches()
     for name in ("attention", "attention_dq", "attention_dkv"):
         check(launches[name] == n_layers * train_steps, f"{launches[name]} {name} launches for {n_layers} layers x {train_steps} steps")
     check(len(logs) == train_steps and all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in logs),
@@ -919,9 +955,8 @@ def phase_ar_train_full_width(profile: bool, warmup_steps=3, timed_steps=10):
     timed = [step(warmup_steps + i) for i in range(timed_steps)]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / timed_steps
-    timed_launches = {k: v for k, v in K.launch_counts().items() if k.startswith("attention")}
-    per_step = {k: v / timed_steps for k, v in timed_launches.items()}
-    timed_launches["bwd_impl"] = K.bwd_impl_launch_counts()
+    timed_launches = path_launches()
+    per_step = {k: v / timed_steps for k, v in timed_launches.items() if k.startswith("attention")}
     check(all(per_step[k] == n_layers for k in CAUSAL_KERNELS), f"causal launches per step {per_step} for {n_layers} layers")
     check(all(v == 0 for k, v in per_step.items() if k not in CAUSAL_KERNELS), f"a non-causal kernel ran in the AR step: {per_step}")
     losses += [float(x) for x in timed]
@@ -932,7 +967,7 @@ def phase_ar_train_full_width(profile: bool, warmup_steps=3, timed_steps=10):
         "images": n_images, "tokens": tokens, "params": n_params, "loss_first": losses[0], "loss_last": losses[-1],
         "ln_codebook_size": math.log(cfg.codebook_size), "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches_per_step": per_step,
-        "bwd_impl_launches": timed_launches["bwd_impl"],
+        "fwd_impl_launches": timed_launches["fwd_impl"], "bwd_impl_launches": timed_launches["bwd_impl"],
     })
     if profile:
         emit({"phase": "profile_ar_train_step", **profile_device(lambda: step(warmup_steps + timed_steps), reps=2, top=24)})
@@ -969,7 +1004,7 @@ def phase_ar_example_r3b(steps=200):
         result = EX.train_ar(pipe, images, steps=steps, batch_size=batch_size, max_len=max_len, out=out, seed=seed, log=logs.append)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = K.launch_counts()
+        launches = path_launches()
         check(sorted(os.listdir(out)) == ["ar_metrics.jsonl", "ar_model"], f"the example wrote {os.listdir(out)}")
         loaded = AR.load_ar_model(os.path.join(out, "ar_model"))  # on the card
     model, losses, records = result["model"], result["losses"], result["records"]
@@ -1105,9 +1140,34 @@ KERNEL_TABLE = [
      "dct_autoencoder_tpu/kernels/idct_unpatchify.py:47", "idct_unpatchify", "serving"),
 ]
 SERVING_KERNELS = ("attention", "dct_patchify", "idct_unpatchify")
+FWD_KERNELS = ("attention", "attention_causal")
 BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attention_dkv_causal")
-# the training paths that compute in bfloat16: their backward runs on the tensor cores
-BF16_TRAIN_PATHS = ("train_r3b", "train_patch14l", "ar_train")
+# path -> (impl of its non-causal attention launches, impl of its causal ones):
+# bfloat16 runs on the tensor cores; the AR example tokenizes in bfloat16 and
+# trains its AR model in float32, on the CUDA-core kernels
+PATH_IMPLS = {
+    "serving": ("mma", "mma"), "full_width": ("mma", "mma"), "train_r3b": ("mma", "mma"),
+    "train_patch14l": ("mma", "mma"), "ar_train": ("mma", "mma"), "ar_example": ("mma", "simt"),
+}
+
+
+def path_launches() -> dict:
+    """The launch counts of every kernel, and of the attention kernels by implementation."""
+    from dct_autoencoder_torch import kernels as K
+
+    return {**K.launch_counts(), "fwd_impl": K.fwd_impl_launch_counts(), "bwd_impl": K.bwd_impl_launch_counts()}
+
+
+def check_impl_launches(launches: dict, impl: str, causal_impl: str) -> None:
+    """Every attention launch of one path, forward and backward, was counted
+    under `impl`, or under `causal_impl` for a causal one."""
+    for kind, kernels in (("fwd", FWD_KERNELS), ("bwd", BWD_KERNELS)):
+        want = {name: 0 for name in launches[f"{kind}_impl"]}
+        for k in kernels:
+            want[causal_impl if k.endswith("_causal") else impl] += launches[k]
+        got = launches[f"{kind}_impl"]
+        check(got == want, f"{kind} attention launches counted by impl as {got}, not {want}")
+    check(sum(launches[k] for k in FWD_KERNELS) > 0, "the path launched no attention forward kernel")
 
 
 def main() -> int:
@@ -1120,7 +1180,7 @@ def main() -> int:
         return 0
     profile = "--profile" in sys.argv[1:]
     launches = {"serving": phase_serving()}
-    phase_full_width(profile)
+    launches["full_width"] = phase_full_width(profile)
     torch.cuda.empty_cache()
     launches["train_r3b"] = phase_train_r3b()
     torch.cuda.empty_cache()
@@ -1130,16 +1190,14 @@ def main() -> int:
     launches["ar_example"] = phase_ar_example_r3b()
     phase_ar_sampling(ar_model)
 
-    for path in BF16_TRAIN_PATHS:
-        by_impl, backward = launches[path]["bwd_impl"], sum(launches[path][c] for c in BWD_KERNELS)
-        check(by_impl["simt"] == 0 and by_impl["mma"] == backward > 0,
-              f"the {path} path launched {by_impl} backward kernels by impl for {backward} backward launches")
+    for path, impls in PATH_IMPLS.items():
+        check_impl_launches(launches[path], *impls)
 
     kernels = []
     for key, name, source, replaces, counter, path in KERNEL_TABLE:
         head = cases[key][0]  # the main path's shape
         check(launches[path][counter] > 0, f"{name} was not launched on the {path} path")
-        if counter in BWD_KERNELS:
+        if counter in FWD_KERNELS + BWD_KERNELS:
             check(head["impl"] == "mma", f"{name}: the main path's shape was held with impl {head['impl']}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

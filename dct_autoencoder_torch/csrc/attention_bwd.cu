@@ -353,7 +353,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int PASS = 32;           // streamed columns per pass: two passes over a 64-row tile
 constexpr int MMA_MIN_BLOCKS = 3;  // blocks per SM the register allocation aims at (<= 168 a thread)
-constexpr float LOG2E = 1.4426950408889634f;
 
 // p = exp(masked logit - lse) of one (query, key) pair, taken as
 // 2^(dot * scale * log2 e - lse * log2 e) with one FMA and one ex2.approx
@@ -371,22 +370,6 @@ __device__ __forceinline__ float pair_prob(float dot, float scale_log2e, float n
     asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(arg));
     if (!bias_mode && !allowed) p = 0.f;
     return in ? p : 0.f;
-}
-
-// The grid is one-dimensional.  Blocks that share a streamed stripe are
-// neighbours (tile index fastest), unless `longest_first`: then the tile index
-// is slowest, taken from the end where `from_end`, so that the blocks with the
-// most tiles to stream are scheduled first.
-__device__ __forceinline__ void block_coords(int n_tiles, int longest_first, bool from_end, int& bh, int& tile) {
-    const int bid = blockIdx.x;
-    if (longest_first) {
-        const int nbh = gridDim.x / n_tiles;
-        bh = bid % nbh;
-        tile = from_end ? n_tiles - 1 - bid / nbh : bid / nbh;
-    } else {
-        tile = bid % n_tiles;
-        bh = bid / n_tiles;
-    }
 }
 
 template <int D>
@@ -755,27 +738,6 @@ cudaError_t launch_dkv_mma(const BwdArgs& a) {
         static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal,
         a.skip_tiles);
     return cudaGetLastError();
-}
-
-// registers a thread, local (spill) bytes a thread, resident blocks an SM, shared bytes a block
-template <typename Kernel>
-cudaError_t kernel_info(Kernel kernel, int threads, size_t dynamic_smem, int* out) {
-    cudaError_t err = cudaSuccess;
-    if (dynamic_smem > 0) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic_smem);
-        if (err != cudaSuccess) return err;
-    }
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return err;
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dynamic_smem);
-    if (err != cudaSuccess) return err;
-    out[0] = attr.numRegs;
-    out[1] = (int)attr.localSizeBytes;
-    out[2] = blocks;
-    out[3] = (int)(attr.sharedSizeBytes + dynamic_smem);
-    return cudaSuccess;
 }
 
 template <typename T, int D>

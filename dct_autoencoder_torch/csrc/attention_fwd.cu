@@ -6,47 +6,97 @@
 // padded queries at -2 and padded keys at -1, so the (s, s) mask is derived
 // in the kernel and never stored.  mode 'block' sets a disallowed logit to
 // -1e9; mode 'bias' adds +1 to an allowed logit.  Outputs o (b, h, s, d) in
-// the input type and the row log-sum-exp lse (b, h, s) in float32.
+// the input type and the row log-sum-exp lse (b, h, s) in float32, in
+// natural-log units (the backward kernels recompute p from it).
 //
-// Bound on the H100: at the main-path shape (64 rows, 16 heads, s=256, d=64)
-// the call moves ~134 MB of q/k/v/o and does ~17 GFLOP of products, so the
-// tensor-core bound is memory (~40 us); this first version does its products
-// as fp32 FMAs on the CUDA cores (67 TFLOP/s peak), which makes it
-// arithmetic-bound at a few hundred microseconds.  A wgmma/TMA version is
-// later work.
-//
-// Design: the Pallas kernel keeps the whole k/v stripe in VMEM; a Hopper
-// block cannot, so each block takes one (b*h, 64-row q tile) and streams
-// 64-row k/v tiles through shared memory with an online softmax in fp32.
-// Four threads share one query row (16 keys and d/4 output columns each)
-// and combine their row max and row sum with warp shuffles.  The running
-// max starts at -5e8, which reproduces the reference clamp
+// Both implementations below share one online softmax: the Pallas kernel
+// keeps the whole k/v stripe in VMEM; a Hopper block cannot, so each block
+// takes one (b*h, q tile) and streams 64-row k/v tiles through shared memory,
+// carrying the row max m, the row sum l and the output accumulator in fp32.
+// The running max starts at -5e8, which reproduces the reference clamp
 // m = max(m, -5e8) exactly: a row whose keys are all masked keeps m = -5e8,
 // gets p = exp(-1e9 + 5e8) = 0 everywhere, and ends with o = 0 and
 // lse = -5e8 + log(1e-9), as in the reference; a fully masked tile met
 // before a row's valid keys contributes nothing and is rescaled away.
-// Keys past the end of a ragged last tile are excluded (p = 0).
+// Keys past the end of a ragged last tile get -inf, so p = 0.  l sums the
+// unrounded fp32 p; lse = m + log(max(l, 1e-9)).
 //
 // causal != 0 (dct_autoencoder_tpu/kernels/attention.py::_causal_allowed)
 // ANDs k_pos <= q_pos into `allowed`; positions are the row indices the
 // kernel already holds, so there is no new operand.  In 'bias' mode that
 // only decides who gets the +1: future keys still take part in the softmax,
-// as in the Pallas kernel.  In 'block' mode with skip_tiles != 0 a block
-// stops at its own diagonal tile: every later tile would be all -1e9, and
-// such a tile leaves m, l and acc bit for bit as they were (alpha =
-// exp(0) = 1, p = exp(-1e9 - m) = 0 for every m >= -5e8), so o and lse do
-// not depend on skip_tiles.  Blocks take their q tiles from the last to the
-// first, so that the longest causal blocks are scheduled first.
+// as in the Pallas kernel, and nothing is skipped.  In 'block' mode with
+// skip_tiles != 0 a block stops at its own diagonal tile: every later tile
+// would be all -1e9, and such a tile leaves m, l and the accumulator bit for
+// bit as they were (alpha = exp(0) = 1, p = exp(-1e9 - m) = 0 for every
+// m >= -5e8), so o and lse do not depend on skip_tiles.  Blocks take their q
+// tiles from the last to the first, so that the longest causal blocks are
+// scheduled first.
+//
+// Two implementations (the `impl` argument of the entry point):
+//
+// impl 1, "mma", bfloat16 only: attn_fwd_mma_kernel multiplies on the tensor
+// cores (mma.sync m16n8k16, bf16 operands, fp32 accumulators; the building
+// blocks are in attn_mma.cuh, shared with the backward kernels).
+//   Bound on the H100: at the main-path shape (64 rows, 16 heads, s = 256,
+//   d = 64) the call reads q, k, v and writes o, ~134 MB: 0.040 ms of
+//   memory time; the 17 GFLOP of products over all pairs would take 0.017 ms
+//   at the tensor cores' peak, and in 'block' mode only the allowed pairs
+//   are counted, so the bound is bytes.  What holds the kernel above it is
+//   inside the SM: one ldmatrix.x4 feeds two mma (a warp owns 16 rows), so
+//   shared memory can keep the tensor cores at most half busy; the mask, the
+//   max, the exp (ex2 runs at a sixteenth of the FMA rate) and the row sums
+//   run on the CUDA cores between the two products of every tile; and at
+//   s = 256 a block streams four tiles, so its prologue (its q rows, read from
+//   device memory) and its epilogue are a large share of its life.
+//   Design: 128 threads, four warps, each owning 16 query rows as A fragments
+//   in registers for the whole block.  K and V tiles (64 x d bf16) and the
+//   tile's kv ids stream through a two-stage cp.async ring (16-byte copies,
+//   rows past the end zero-filled, chunks swizzled so that ldmatrix meets no
+//   bank conflict).  S = Q.K^T comes out in accumulator layout; each thread
+//   holds two rows and 16 of the tile's 64 columns, applies the mask on
+//   fragment coordinates, and the row max goes over the quad that shares a
+//   row (two shuffles).  p = 2^(logit * log2 e - m * log2 e) is one FMA and
+//   one ex2.approx; the accumulator and l are rescaled by alpha = 2^((m_old -
+//   m_new) log2 e).  p is rounded to bf16, packed as the A fragment of
+//   O += P.V (V read with ldmatrix.trans) and never touches shared memory.
+//   l is summed per thread and reduced over the quad once, at the end.
+//   Blocks that share a k/v stripe are neighbours in the grid so that the
+//   stripe is read from L2; with causal skipping the grid is ordered longest
+//   block first instead.  Tried and dropped (PERF.md): 32 rows a warp, so
+//   that each ldmatrix feeds four mma (254 registers, two blocks an SM, no
+//   faster), a 128-row tile of eight warps, and a cap of 128 registers.
+//   Rounding: as the Pallas kernel does (p.astype(v.dtype)), p is rounded to
+//   bf16 before P.V; l, m and lse stay fp32, o is rounded once at the store.
+//   The online softmax rounds p relative to the running max where Pallas
+//   rounds it relative to the row's final max, so a p of a tile met before
+//   the row's max can round to another bf16 value, and o can differ from the
+//   Pallas kernel's (and from attention_fwd_plain) by one bf16 ulp now and
+//   then.  That is inside the tolerance; no bit of the masking changes.
+//
+// impl 0, "simt": attn_fwd_kernel multiplies in float32 on the CUDA cores,
+// keeps p in float32 and rounds once at the store.  float32 inputs always
+// take it (true fp32; TF32 would not hold 1e-5).  Its bfloat16 instantiation
+// stays for timing the old design against the new one on one card.  It is
+// arithmetic-bound: ~17 GFLOP of fp32 FMAs at the main-path shape against
+// 67 TFLOP/s, with two blocks an SM at d = 64 (128 registers a thread, 50 KB
+// of shared memory).
+// Design: four threads share one query row (16 keys and d/4 output columns
+// each) and combine their row max and row sum with warp shuffles; k and v
+// tiles are widened to fp32 in shared memory; p goes through shared memory
+// for the second product.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "attn_mma.cuh"
+
 namespace {
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
-constexpr int THREADS = 256;  // 4 threads per query row
+constexpr int SIMT_THREADS = 256;  // 4 threads per query row
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -62,7 +112,7 @@ constexpr size_t smem_bytes() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SIMT_THREADS)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                 T* __restrict__ o, float* __restrict__ lse,
@@ -105,7 +155,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
     const int k_end = (causal && !bias_mode && skip_tiles) ? min(s, q0 + BQ) : s;
     for (int k0 = 0; k0 < k_end; k0 += BK) {
-        for (int idx = tid; idx < BK * D; idx += THREADS) {
+        for (int idx = tid; idx < BK * D; idx += SIMT_THREADS) {
             const int j = idx / D, c = idx % D;
             const int kj = k0 + j;
             float kv = 0.f, vv = 0.f;
@@ -182,37 +232,258 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
 }
 
+// ---------------------------------------------------------------- tensor cores
+
+using namespace attn_mma;
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_MIN_BLOCKS = 3;  // blocks per SM the register allocation aims at (<= 168 a thread)
+
+// The online softmax of one warp's 16 rows for one streamed tile: `sa` holds
+// S = Q.K^T (this thread's rows r_lo and r_lo + 8, 16 of the tile's columns)
+// and leaves with p; m, l (this thread's share of the row sums) and the o
+// accumulator are brought up to date.
+template <int NS, int NO>
+__device__ __forceinline__ void softmax_tile(float (&sa)[NS][4], float (&m)[2], float (&l)[2], float (&acc)[NO][4],
+                                             const int (&qid)[2], int r_lo, const int* kid_t, int k0, int s,
+                                             float scale, int bias_mode, int causal, int t) {
+    // the masked logits in place of S, and the tile's row max over the quad
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+        const int col = 8 * j + 2 * t;
+        const int2 kid = *reinterpret_cast<const int2*>(kid_t + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int hi = e >> 1;
+            const int k_pos = k0 + col + (e & 1);
+            const bool allowed = pair_allowed(qid[hi], (e & 1) ? kid.y : kid.x, r_lo + 8 * hi, k_pos, causal);
+            const float logit = k_pos < s ? masked_logit(sa[j][e], scale, allowed, bias_mode) : -INFINITY;
+            sa[j][e] = logit;
+            mx[hi] = fmaxf(mx[hi], logit);
+        }
+    }
+    float neg_m[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+        mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 1));
+        mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
+        const float m_new = fmaxf(m[hi], mx[hi]);
+        // alpha is exactly 1 where the max did not move (a tile with nothing allowed)
+        float alpha = 1.f;
+        if (m_new != m[hi]) asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(alpha) : "f"((m[hi] - m_new) * LOG2E));
+        m[hi] = m_new;
+        neg_m[hi] = -m_new * LOG2E;
+        l[hi] *= alpha;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+            acc[j][2 * hi] *= alpha;
+            acc[j][2 * hi + 1] *= alpha;
+        }
+    }
+    // p = exp(logit - m) as 2^(logit log2 e - m log2 e), in place of the logits
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float p;
+            asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(fmaf(sa[j][e], LOG2E, neg_m[e >> 1])));
+            sa[j][e] = p;
+            l[e >> 1] += p;
+        }
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, MMA_MIN_BLOCKS)
+attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                    const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
+                    bf16* __restrict__ o, float* __restrict__ lse,
+                    int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles) {
+    constexpr int KS = D / 16;    // 16-deep steps over the head dim (S = Q.K^T)
+    constexpr int NS = TILE / 8;  // 8-column tiles of S over the streamed tile's keys
+    constexpr int NO = D / 8;     // 8-column tiles of the o accumulator
+
+    __shared__ __align__(128) bf16 Ks[STAGES][TILE * D];
+    __shared__ __align__(128) bf16 Vs[STAGES][TILE * D];
+    __shared__ __align__(16) int kid_s[STAGES][TILE];
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const bool skip = causal && !bias_mode && skip_tiles;
+    int bh, tile;
+    block_coords(n_tiles, skip, true, bh, tile);
+    const int b = bh / h;
+    const int q0 = tile * TILE;
+    const size_t base = (size_t)bh * s * D;
+    const bf16* kb = k + base;
+    const bf16* vb = v + base;
+    const int* kidb = kv_ids + (size_t)b * s;
+
+    const int k_end = skip ? min(s, q0 + TILE) : s;  // stop at the diagonal tile
+    const int n_kt = (k_end + TILE - 1) / TILE;
+
+    auto load_stage = [&](int stage, int k0) {
+        load_tile_async<D>(Ks[stage], kb, k0, s, tid);
+        load_tile_async<D>(Vs[stage], vb, k0, s, tid);
+        if (tid < TILE) load_row_async(kid_s[stage], kidb, k0, s, tid);
+    };
+    load_stage(0, 0);
+    cp_async_commit();
+
+    // the block's own rows: this thread holds rows r_lo and r_lo + 8 of q
+    const int r_lo = q0 + warp * 16 + g;
+    uint32_t qa[KS][4];
+    load_a_global<D>(qa, q + base, r_lo, r_lo + 8, s, t);
+    int qid[2];
+    float m[2], l[2];  // row max and this thread's share of the row sum
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+        const int r = r_lo + 8 * hi;
+        qid[hi] = r < s ? q_ids[(size_t)b * s + r] : -3;
+        m[hi] = -5e8f;  // the reference's clamp on the row max
+        l[hi] = 0.f;
+    }
+    float acc[NO][4];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    for (int it = 0; it < n_kt; ++it) {
+        if (it + 1 < n_kt) load_stage((it + 1) & 1, (it + 1) * TILE);
+        cp_async_commit();
+        cp_async_wait<1>();  // everything but the newest group: tile `it` has arrived
+        __syncthreads();
+        const bf16* Kt = Ks[it & 1];
+        const bf16* Vt = Vs[it & 1];
+
+        // S = Q.K^T for this thread's two rows and 16 of the tile's 64 keys
+        float sa[NS][4];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sa[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+            for (int np = 0; np < TILE / 16; ++np) {
+                uint32_t bk[4];
+                load_b_rows<D>(bk, Kt, np * 16, kk, lane);
+                mma_bf16(sa[2 * np], qa[kk], bk[0], bk[1]);
+                mma_bf16(sa[2 * np + 1], qa[kk], bk[2], bk[3]);
+            }
+        }
+        softmax_tile(sa, m, l, acc, qid, r_lo, kid_s[it & 1], it * TILE, s, scale, bias_mode, causal, t);
+
+        // O += P.V over the tile's 64 keys, p rounded to bf16 in registers
+#pragma unroll
+        for (int ks = 0; ks < TILE / 16; ++ks) {
+            uint32_t pa[4];
+            pack_a_from_c(pa, sa[2 * ks], sa[2 * ks + 1]);
+#pragma unroll
+            for (int np = 0; np < NO / 2; ++np) {
+                uint32_t bv[4];
+                load_b_cols<D>(bv, Vt, ks * 16, np * 16, lane);
+                mma_bf16(acc[2 * np], pa, bv[0], bv[1]);
+                mma_bf16(acc[2 * np + 1], pa, bv[2], bv[3]);
+            }
+        }
+        __syncthreads();  // the stage is free for the load after next
+    }
+
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+        const int r = r_lo + 8 * hi;
+        // the row sum over the quad that shares the row
+        float sum = l[hi];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const float den = fmaxf(sum, 1e-9f);
+        const float inv = 1.f / den;
+        if (r >= s) continue;
+        bf16* orow = o + base + (size_t)r * D;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+                __floats2bfloat162_rn(acc[j][2 * hi] * inv, acc[j][2 * hi + 1] * inv);
+        }
+        if (t == 0) lse[(size_t)bh * s + r] = m[hi] + logf(den);
+    }
+}
+
+// ---------------------------------------------------------------- launches
+
+struct FwdArgs {
+    const void *q, *k, *v;
+    const int *q_ids, *kv_ids;
+    void* o;
+    float* lse;
+    int b, h, s;
+    float scale;
+    int bias_mode, causal, skip_tiles;
+    cudaStream_t stream;
+};
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* q_ids,
-                   const int* kv_ids, void* o, float* lse, int b, int h, int s,
-                   float scale, int bias_mode, int causal, int skip_tiles, cudaStream_t stream) {
+cudaError_t launch_simt(const FwdArgs& a) {
     constexpr size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
         attn_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(b * h, (s + BQ - 1) / BQ);
-    attn_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        q_ids, kv_ids, static_cast<T*>(o), lse, h, s, scale, bias_mode, causal, skip_tiles);
+    dim3 grid(a.b * a.h, (a.s + BQ - 1) / BQ);
+    attn_fwd_kernel<T, D><<<grid, SIMT_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        a.q_ids, a.kv_ids, static_cast<T*>(a.o), a.lse, a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles);
     return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma(const FwdArgs& a) {
+    const int n_tiles = (a.s + TILE - 1) / TILE;
+    attn_fwd_mma_kernel<D><<<a.b * a.h * n_tiles, THREADS, 0, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        a.q_ids, a.kv_ids, static_cast<bf16*>(a.o), a.lse, a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal,
+        a.skip_tiles);
+    return cudaGetLastError();
+}
+
+// impl 1 takes bfloat16 only; float32 has the CUDA-core kernel alone
+bool known(int impl, int dtype, int d) {
+    return (d == 32 || d == 64) && (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; causal and skip_tiles as in the header.
+// dtype: 0 = float32, 1 = bfloat16; impl: 0 = CUDA cores ("simt"), 1 = tensor
+// cores ("mma", bfloat16 only); causal and skip_tiles as in the header.
 // Returns a cudaError_t (0 on success).
 extern "C" int attn_fwd(const void* q, const void* k, const void* v, const int* q_ids,
                         const int* kv_ids, void* o, float* lse, int b, int h, int s, int d,
-                        float scale, int bias_mode, int causal, int skip_tiles, int dtype,
+                        float scale, int bias_mode, int causal, int skip_tiles, int dtype, int impl,
                         void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
     if (b * h == 0 || s == 0) return cudaSuccess;
-    if (dtype == 1) {
-        if (d == 64) return launch<__nv_bfloat16, 64>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-        if (d == 32) return launch<__nv_bfloat16, 32>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-    } else if (dtype == 0) {
-        if (d == 64) return launch<float, 64>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles, st);
-        if (d == 32) return launch<float, 32>(q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles, st);
+    const FwdArgs a{q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles,
+                    static_cast<cudaStream_t>(stream)};
+    if (impl == 1) return d == 64 ? launch_mma<64>(a) : launch_mma<32>(a);
+    if (dtype == 1) return d == 64 ? launch_simt<__nv_bfloat16, 64>(a) : launch_simt<__nv_bfloat16, 32>(a);
+    return d == 64 ? launch_simt<float, 64>(a) : launch_simt<float, 32>(a);
+}
+
+// What the compiler and the card make of one instantiation: out[0] registers
+// a thread, out[1] local-memory (spill) bytes a thread, out[2] blocks that
+// fit on one SM, out[3] shared-memory bytes a block.
+extern "C" int attn_fwd_kernel_info(int impl, int dtype, int d, int* out) {
+    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
+    if (impl == 1) {
+        return d == 64 ? kernel_info(attn_fwd_mma_kernel<64>, THREADS, 0, out)
+                       : kernel_info(attn_fwd_mma_kernel<32>, THREADS, 0, out);
     }
-    return cudaErrorInvalidValue;
+    if (dtype == 1) {
+        return d == 64 ? kernel_info(attn_fwd_kernel<__nv_bfloat16, 64>, SIMT_THREADS, smem_bytes<64>(), out)
+                       : kernel_info(attn_fwd_kernel<__nv_bfloat16, 32>, SIMT_THREADS, smem_bytes<32>(), out);
+    }
+    return d == 64 ? kernel_info(attn_fwd_kernel<float, 64>, SIMT_THREADS, smem_bytes<64>(), out)
+                   : kernel_info(attn_fwd_kernel<float, 32>, SIMT_THREADS, smem_bytes<32>(), out);
 }

@@ -1,8 +1,8 @@
 // Building blocks of the tensor-core attention kernels for Hopper (sm_90a):
 // mma.sync m16n8k16 in bf16 with fp32 accumulation, ldmatrix, a cp.async ring
 // of swizzled bf16 tiles in shared memory, and the packed-row mask on
-// fragment coordinates.  attention_bwd.cu builds its dq and dk/dv kernels
-// from them.
+// fragment coordinates.  attention_fwd.cu builds its tensor-core forward
+// kernel from them, attention_bwd.cu its dq and dk/dv kernels.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col (g = lane / 4,
 // t = lane % 4; every register holds two bf16, the lower column in the lower
@@ -30,6 +30,7 @@ namespace attn_mma {
 constexpr int TILE = 64;      // rows of a tile, on the block's own side and on the streamed side
 constexpr int THREADS = 128;  // 4 warps; each owns 16 rows of the block's own tile
 constexpr int STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -183,6 +184,47 @@ __device__ __forceinline__ float masked_logit(float dot, float scale, bool allow
 // same image, and with `causal` the key not after the query (global row indices)
 __device__ __forceinline__ bool pair_allowed(int q_id, int kv_id, int q_pos, int k_pos, int causal) {
     return q_id == kv_id && (!causal || k_pos <= q_pos);
+}
+
+// ---- the grid
+
+// The grid is one-dimensional.  Blocks that share a streamed stripe are
+// neighbours (tile index fastest), unless `longest_first`: then the tile index
+// is slowest, taken from the end where `from_end`, so that the blocks with the
+// most tiles to stream are scheduled first.
+__device__ __forceinline__ void block_coords(int n_tiles, int longest_first, bool from_end, int& bh, int& tile) {
+    const int bid = blockIdx.x;
+    if (longest_first) {
+        const int nbh = gridDim.x / n_tiles;
+        bh = bid % nbh;
+        tile = from_end ? n_tiles - 1 - bid / nbh : bid / nbh;
+    } else {
+        tile = bid % n_tiles;
+        bh = bid / n_tiles;
+    }
+}
+
+// What the compiler and the card make of a kernel: out[0] registers a thread,
+// out[1] local (spill) bytes a thread, out[2] resident blocks an SM, out[3]
+// shared bytes a block.
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int threads, size_t dynamic_smem, int* out) {
+    cudaError_t err = cudaSuccess;
+    if (dynamic_smem > 0) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic_smem);
+        if (err != cudaSuccess) return err;
+    }
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dynamic_smem);
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = (int)attr.localSizeBytes;
+    out[2] = blocks;
+    out[3] = (int)(attr.sharedSizeBytes + dynamic_smem);
+    return cudaSuccess;
 }
 
 }  // namespace attn_mma

@@ -22,12 +22,18 @@ COUNTERS = {
 def reset_launch_counts() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
-    for impl in attention.LAUNCHES_BWD_IMPL:
-        attention.LAUNCHES_BWD_IMPL[impl] = 0
+    for counts in (attention.LAUNCHES_FWD_IMPL, attention.LAUNCHES_BWD_IMPL):
+        for impl in counts:
+            counts[impl] = 0
 
 
 def launch_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def fwd_impl_launch_counts() -> dict:
+    """Launches of the attention forward kernel, causal or not, by implementation ("mma", "simt")."""
+    return dict(attention.LAUNCHES_FWD_IMPL)
 
 
 def bwd_impl_launch_counts() -> dict:

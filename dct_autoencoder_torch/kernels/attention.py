@@ -10,15 +10,24 @@ VMEM.  The backward kernels are csrc/attention_bwd.cu: one block per q tile
 for dq, one per k tile for dk/dv, each recomputing p = exp(logits - lse)
 from the saved row log-sum-exp.  The mask is derived from per-token ids
 inside the kernels.  On the H100 the bound of these calls is memory (the
-q/k/v/o/do bytes).  The forward kernel still multiplies on the CUDA cores in
-fp32 and is bound by their rate.  The backward kernels have two
-implementations (see the source's header): for bfloat16 the products run on
-the tensor cores (``mma.sync``, bf16 operands, fp32 accumulators; p and ds
-rounded to bf16 before the second product, as the Pallas kernels round
-them); float32 keeps the CUDA-core kernels, which are true fp32.
-``impl="simt"`` on ``attention_dq_cuda`` / ``attention_dkv_cuda`` runs the
-CUDA-core kernels on bfloat16 too, for timing the old design beside the new
-one on one card; nothing on a model's path passes it.
+q/k/v/o/do bytes).
+
+Each kernel has two implementations (see the sources' headers).  For
+bfloat16 the products run on the tensor cores (``mma.sync``, bf16 operands,
+fp32 accumulators); what holds them above their byte bound is inside the SM
+(one ``ldmatrix`` feeds two ``mma``, and the mask and the exp run on the CUDA
+cores between the products).  p (and in the backward ds) is rounded to bf16
+before the second product, as the Pallas kernels round it
+(``p.astype(v.dtype)``), because the tensor cores take it as a bf16 operand;
+the plain versions round at the same places, so the kernels and the plain
+versions compute the same function.  The forward's online softmax rounds p
+relative to the running row max where the Pallas kernel rounds it relative
+to the row's final max, so o can differ by one bf16 ulp now and then; no bit
+of the masking differs.  float32 keeps the CUDA-core kernels, which are true
+fp32 and bound by the CUDA cores' fp32 rate.  ``impl="simt"`` on the
+``*_cuda`` wrappers runs the CUDA-core kernels on bfloat16 too, for timing
+the old design beside the new one on one card; nothing on a model's path
+passes it.
 
 ``packed_flash_attention`` keeps the JAX layout (b, h, s, d) and contract,
 and carries the gradient through a ``torch.autograd.Function`` whenever an
@@ -36,8 +45,9 @@ for timing the difference.
 
 ``LAUNCHES``, ``LAUNCHES_DQ`` and ``LAUNCHES_DKV`` count the non-causal
 kernel launches, ``LAUNCHES_CAUSAL``, ``LAUNCHES_DQ_CAUSAL`` and
-``LAUNCHES_DKV_CAUSAL`` the causal ones.  ``LAUNCHES_BWD_IMPL`` counts the
-launches of both backward kernels by implementation ("mma", "simt").
+``LAUNCHES_DKV_CAUSAL`` the causal ones.  ``LAUNCHES_FWD_IMPL`` counts the
+forward's launches, causal or not, and ``LAUNCHES_BWD_IMPL`` those of both
+backward kernels, by implementation ("mma", "simt").
 """
 from __future__ import annotations
 
@@ -54,9 +64,10 @@ LAUNCHES_DKV = 0
 LAUNCHES_CAUSAL = 0
 LAUNCHES_DQ_CAUSAL = 0
 LAUNCHES_DKV_CAUSAL = 0
+LAUNCHES_FWD_IMPL = {"mma": 0, "simt": 0}
 LAUNCHES_BWD_IMPL = {"mma": 0, "simt": 0}
 
-BWD_IMPLS = ("simt", "mma")  # the index is the `impl` argument of the C entry points
+IMPLS = ("simt", "mma")  # the index is the `impl` argument of the C entry points
 
 
 def segment_ids(image_ids: torch.Tensor, key_pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -104,44 +115,77 @@ def _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode: str, rows=None) -> None
 
 
 def attention_fwd_plain(q, k, v, q_ids, kv_ids, scale: float, mode: str = "block", causal: bool = False):
-    """Eager PyTorch version of the kernel: returns (o, lse)."""
+    """Eager PyTorch version of the kernel: returns (o, lse).
+
+    p is rounded to the input type before P.V (``p.astype(v.dtype)`` in the
+    Pallas kernel; nothing happens to float32); the denominator and lse come
+    from the unrounded fp32 p, o is rounded once at the end.
+    """
     logits = _masked_logits(q, k, q_ids, kv_ids, scale, mode, causal)
     m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=NEG_INF * 0.5)
     p = torch.exp(logits - m)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-9)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / denom
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()) / denom
     lse = (m + torch.log(denom))[..., 0]
     return o.to(q.dtype), lse
 
 
+def _kernel_impl(impl: Optional[str], dtype: torch.dtype) -> str:
+    """The implementation an attention launch takes (forward and backward
+    alike): tensor cores ("mma") for bfloat16 unless "simt" is asked for, the
+    CUDA-core kernels for float32."""
+    if impl is None:
+        return "mma" if dtype == torch.bfloat16 else "simt"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention kernel impl {impl!r}: one of {IMPLS}")
+    if impl == "mma" and dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core attention kernels take bfloat16, got {dtype}")
+    return impl
+
+
+def _check_mma_alignment(tensors: Dict[str, torch.Tensor]) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte boundary for the tensor-core kernels")
+
+
 def attention_fwd_cuda(
-    q, k, v, q_ids, kv_ids, scale: float, mode: str = "block", causal: bool = False, skip_tiles: bool = True
+    q, k, v, q_ids, kv_ids, scale: float, mode: str = "block", causal: bool = False, skip_tiles: bool = True,
+    impl: Optional[str] = None,
 ):
-    """Launch csrc/attention_fwd.cu: returns (o, lse)."""
+    """Launch csrc/attention_fwd.cu: returns (o, lse).
+
+    ``impl``: None takes the tensor-core kernel for bfloat16 and the
+    CUDA-core kernel for float32; "simt" asks for the CUDA-core kernel on
+    bfloat16 too; "mma" with float32 raises TypeError.
+    """
     global LAUNCHES, LAUNCHES_CAUSAL
     from . import _build
 
+    impl = _kernel_impl(impl, q.dtype)
     _check_kernel_inputs(q, {"k": k, "v": v}, q_ids, kv_ids, mode)
     b, h, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _build.load("attention_fwd")
-    fn = lib.attn_fwd
+    if impl == "mma":
+        _check_mma_alignment({"q": q, "k": k, "v": v, "o": o})
+    fn = _build.load("attention_fwd").attn_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p
     ]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ids.data_ptr(), kv_ids.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, s, d, float(scale),
-        int(mode == "bias"), int(causal), int(skip_tiles), int(q.dtype == torch.bfloat16),
+        int(mode == "bias"), int(causal), int(skip_tiles), int(q.dtype == torch.bfloat16), IMPLS.index(impl),
         _build.stream_ptr(q.device),
     )
-    _build.check(err, "attention_fwd")
+    _build.check(err, f"attention_fwd ({impl})")
     if causal:
         LAUNCHES_CAUSAL += 1
     else:
         LAUNCHES += 1
+    LAUNCHES_FWD_IMPL[impl] += 1
     return o, lse
 
 
@@ -182,24 +226,6 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] +
 ]
 
 
-def _bwd_impl(impl: Optional[str], dtype: torch.dtype) -> str:
-    """The implementation a backward launch takes: tensor cores ("mma") for
-    bfloat16 unless "simt" is asked for, the CUDA-core kernels for float32."""
-    if impl is None:
-        return "mma" if dtype == torch.bfloat16 else "simt"
-    if impl not in BWD_IMPLS:
-        raise ValueError(f"unknown attention backward impl {impl!r}: one of {BWD_IMPLS}")
-    if impl == "mma" and dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core backward kernels take bfloat16, got {dtype}")
-    return impl
-
-
-def _check_mma_alignment(tensors: Dict[str, torch.Tensor]) -> None:
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start at a 16-byte boundary for the tensor-core kernels")
-
-
 def attention_dq_cuda(
     q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block", causal: bool = False,
     skip_tiles: bool = True, impl: Optional[str] = None,
@@ -215,7 +241,7 @@ def attention_dq_cuda(
     global LAUNCHES_DQ, LAUNCHES_DQ_CAUSAL
     from . import _build
 
-    impl = _bwd_impl(impl, q.dtype)
+    impl = _kernel_impl(impl, q.dtype)
     like_q = {"k": k, "v": v, "o": o, "do": do}
     _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode, {"lse": lse})
     b, h, s, d = q.shape
@@ -230,7 +256,7 @@ def attention_dq_cuda(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
         b, h, s, d, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
-        int(q.dtype == torch.bfloat16), BWD_IMPLS.index(impl), _build.stream_ptr(q.device),
+        int(q.dtype == torch.bfloat16), IMPLS.index(impl), _build.stream_ptr(q.device),
     )
     _build.check(err, f"attention_bwd dq ({impl})")
     if causal:
@@ -249,7 +275,7 @@ def attention_dkv_cuda(
     global LAUNCHES_DKV, LAUNCHES_DKV_CAUSAL
     from . import _build
 
-    impl = _bwd_impl(impl, q.dtype)
+    impl = _kernel_impl(impl, q.dtype)
     like_q = {"k": k, "v": v, "do": do}
     _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode, {"lse": lse, "delta": delta})
     b, h, s, d = q.shape
@@ -263,7 +289,7 @@ def attention_dkv_cuda(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, s, d, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
-        int(q.dtype == torch.bfloat16), BWD_IMPLS.index(impl), _build.stream_ptr(q.device),
+        int(q.dtype == torch.bfloat16), IMPLS.index(impl), _build.stream_ptr(q.device),
     )
     _build.check(err, f"attention_bwd dkv ({impl})")
     if causal:
@@ -274,23 +300,27 @@ def attention_dkv_cuda(
     return dk, dv
 
 
-def attention_bwd_kernel_info(kernel: str, impl: str, dtype: torch.dtype, d: int) -> Dict[str, int]:
-    """What the compiler and the card make of one instantiation of a backward
-    kernel ("dq" or "dkv"): registers and local-memory (spill) bytes a thread
-    (``cudaFuncGetAttributes``), the blocks that fit on one SM
+def attention_kernel_info(kernel: str, impl: str, dtype: torch.dtype, d: int) -> Dict[str, int]:
+    """What the compiler and the card make of one instantiation of an attention
+    kernel ("fwd", "dq" or "dkv"): registers and local-memory (spill) bytes a
+    thread (``cudaFuncGetAttributes``), the blocks that fit on one SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the shared-memory
     bytes a block.  Needs the card."""
     from . import _build
 
-    if kernel not in ("dq", "dkv"):
-        raise ValueError(f"unknown backward kernel {kernel!r}")
-    impl = _bwd_impl(impl, dtype)
-    fn = _build.load("attention_bwd").attn_bwd_kernel_info
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"unknown attention kernel {kernel!r}: one of fwd, dq, dkv")
+    impl = _kernel_impl(impl, dtype)
     out = (ctypes.c_int * 4)()
-    err = fn(int(kernel == "dkv"), BWD_IMPLS.index(impl), int(dtype == torch.bfloat16), d, ctypes.addressof(out))
-    _build.check(err, f"attention_bwd {kernel} ({impl}) info")
+    if kernel == "fwd":
+        fn = _build.load("attention_fwd").attn_fwd_kernel_info
+        args = (IMPLS.index(impl), int(dtype == torch.bfloat16), d)
+    else:
+        fn = _build.load("attention_bwd").attn_bwd_kernel_info
+        args = (int(kernel == "dkv"), IMPLS.index(impl), int(dtype == torch.bfloat16), d)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    _build.check(fn(*args, ctypes.addressof(out)), f"attention {kernel} ({impl}) info")
     return dict(zip(("num_regs", "local_size_bytes", "blocks_per_sm", "shared_size_bytes"), out))
 
 

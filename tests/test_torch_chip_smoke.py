@@ -62,8 +62,12 @@ def test_kernel_table_names_every_counter_and_source():
     # the backward kernels, whose launches are also counted by implementation
     assert set(chip_smoke.BWD_KERNELS) == {c for c in counters if "_dq" in c or "_dkv" in c}
     assert all(rows[c][2].endswith("attention_bwd.cu") for c in chip_smoke.BWD_KERNELS)
-    assert set(tk.bwd_impl_launch_counts()) == {"mma", "simt"}
-    assert {rows[c][5] for c in chip_smoke.BWD_KERNELS} <= set(chip_smoke.BF16_TRAIN_PATHS)
+    assert set(tk.bwd_impl_launch_counts()) == set(tk.fwd_impl_launch_counts()) == {"mma", "simt"}
+    # the forward kernels, counted by implementation too
+    assert set(chip_smoke.FWD_KERNELS) == {c for c in counters if c.startswith("attention")} - set(chip_smoke.BWD_KERNELS)
+    assert all(rows[c][2].endswith("attention_fwd.cu") for c in chip_smoke.FWD_KERNELS)
+    # every attention row is read from a path that runs in bfloat16, on the tensor cores
+    assert all(chip_smoke.PATH_IMPLS[rows[c][5]] == ("mma", "mma") for c in chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS)
 
 
 @pytest.mark.parametrize("mode", ["block", "bias"])
@@ -141,3 +145,44 @@ def test_code_agreement_counts_missing_tokens_as_disagreeing():
     assert chip_smoke.code_agreement(a, a) == 1.0
     assert chip_smoke.code_agreement(a, b) == pytest.approx(1 / 6)
     json.dumps(a)  # records are JSON-able, as the script prints them
+
+
+@pytest.mark.parametrize("limit,largest,want", [(2e-2, 1.5, 2e-2), (2e-2, 3.0, 2e-2), (2e-2, 4.0, 2.0**-5), (3e-2, 6.2, 2.0**-5), (3e-2, 0.0, 3e-2)])
+def test_simt_tol_is_the_limit_or_one_ulp_of_the_largest_value(limit, largest, want):
+    assert chip_smoke.simt_tol(limit, largest) == want
+
+
+def _fake_path(fwd=0, causal=0, bwd=0, bwd_causal=0, fwd_impl=None, bwd_impl=None):
+    counts = {name: 0 for name in tk.launch_counts()}
+    counts.update(attention=fwd, attention_causal=causal, attention_dq=bwd, attention_dkv=bwd,
+                  attention_dq_causal=bwd_causal, attention_dkv_causal=bwd_causal)
+    return {**counts, "fwd_impl": fwd_impl, "bwd_impl": bwd_impl}
+
+
+@pytest.mark.parametrize(
+    "launches,impls,ok",
+    [
+        # serving: 40 forward launches on the tensor cores, no backward
+        (_fake_path(40, fwd_impl={"mma": 40, "simt": 0}, bwd_impl={"mma": 0, "simt": 0}), ("mma", "mma"), True),
+        (_fake_path(40, fwd_impl={"mma": 39, "simt": 1}, bwd_impl={"mma": 0, "simt": 0}), ("mma", "mma"), False),
+        # a train step: 16 + 16 + 16
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0}, bwd_impl={"mma": 32, "simt": 0}), ("mma", "mma"), True),
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 0, "simt": 16}, bwd_impl={"mma": 32, "simt": 0}), ("mma", "mma"), False),
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0}, bwd_impl={"mma": 16, "simt": 16}), ("mma", "mma"), False),
+        # the AR train step: causal only
+        (_fake_path(causal=8, bwd_causal=8, fwd_impl={"mma": 8, "simt": 0}, bwd_impl={"mma": 16, "simt": 0}), ("mma", "mma"), True),
+        # the AR example: a bf16 tokenizer and an fp32 AR model
+        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 24, "simt": 800}, bwd_impl={"mma": 0, "simt": 1600}),
+         ("mma", "simt"), True),
+        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 824, "simt": 0}, bwd_impl={"mma": 0, "simt": 1600}),
+         ("mma", "simt"), False),
+        # no forward launch at all
+        (_fake_path(fwd_impl={"mma": 0, "simt": 0}, bwd_impl={"mma": 0, "simt": 0}), ("mma", "mma"), False),
+    ],
+)
+def test_check_impl_launches_holds_every_path_to_its_implementations(launches, impls, ok):
+    if ok:
+        chip_smoke.check_impl_launches(launches, *impls)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_impl_launches(launches, *impls)

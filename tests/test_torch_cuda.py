@@ -6,7 +6,12 @@ JAX, so it runs on a machine with the card and without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: attention atol 2e-2 in bf16 and 1e-5 in fp32 on o, 1e-4 on lse;
-padded queries exactly 0 in 'block' mode.  The attention backward (dq, dk,
+padded queries exactly 0 in 'block' mode, and a fully masked row has lse =
+-5e8 + log(1e-9) exactly.  In bf16 the forward multiplies on the tensor cores
+and rounds p to bf16 before P.V, as the plain version does; it is also held
+against the CUDA-core forward (`impl="simt"`, p in fp32) to the larger of
+2e-2 and one bf16 ulp of max |o|, and two launches, and causal launches with
+and without tile skipping, to the same bits.  The attention backward (dq, dk,
 dv) atol 3e-2 in bf16 (one bf16 rounding of values up to ~4 at the store)
 and 1e-5 in fp32; dq of padded queries exactly 0 in 'block' mode.  The causal
 mode of the three kernels is held to the same limits, and with and without
@@ -261,7 +266,8 @@ def test_bf16_attention_gradients_match_cpu(cuda, mode, causal):
     """bf16 gradients through the autograd.Function on the card (forward kernel,
     tensor-core backward kernels) against the plain path on the CPU, with the
     head merge's transposed grad_output: a few bf16 ulps of the largest gradient
-    (the forward kernel keeps p in fp32 and sums in another order)."""
+    (the forward kernel rounds p against the running max and sums in another
+    order)."""
     b, h, s, d = 2, 4, 173, 64
     q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.bfloat16, "cpu", seed=2)
     grads = {}
@@ -288,8 +294,93 @@ def test_backward_impl_argument_on_cuda(cuda):
     with pytest.raises(TypeError):
         tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, q, 1.0, impl="mma")
     for kernel in ("dq", "dkv"):
-        info = tatt.attention_bwd_kernel_info(kernel, "mma", torch.bfloat16, 64)
+        info = tatt.attention_kernel_info(kernel, "mma", torch.bfloat16, 64)
         assert info["num_regs"] > 0 and info["blocks_per_sm"] >= 1
+
+
+FWD_MMA_CASES = [
+    (4, 16, 256, 64, "block"),
+    (4, 16, 256, 64, "bias"),
+    (4, 8, 256, 32, "block"),
+    (3, 8, 173, 64, "block"),
+    (3, 8, 173, 64, "bias"),
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,h,s,d,mode", FWD_MMA_CASES)
+def test_tensor_core_forward_kernel(cuda, b, h, s, d, mode, causal):
+    """The bf16 forward (impl mma) against the plain version and against impl
+    simt; deterministic; tile skipping changes no bit; counted under mma."""
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.bfloat16, cuda, seed=s + d)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    scale = d**-0.5
+    run = lambda **kw: tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, **kw)
+    tk.reset_launch_counts()
+    o, lse = run()
+    torch.cuda.synchronize()
+    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 0}
+    o_ref, lse_ref = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, causal)
+    assert torch.isfinite(o).all()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-6)
+    if mode == "block" and pad.any():
+        assert (o.transpose(1, 2)[pad] == 0).all()
+    o_simt, lse_simt = run(impl="simt")
+    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 1}
+    atol = max(2e-2, _bf16_ulp(o_simt.float().abs().max().item()))
+    torch.testing.assert_close(o.float(), o_simt.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, lse_simt, atol=1e-4, rtol=1e-6)
+    assert all(torch.equal(x, y) for x, y in zip((o, lse), run()))
+    assert all(torch.equal(x, y) for x, y in zip((o, lse), run(skip_tiles=False)))
+
+
+@pytest.mark.parametrize("impl", ["mma", "simt"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_fully_masked_rows(cuda, impl, causal):
+    """'block' mode: padded queries, and a query whose image has no key
+    (its keys are padding), give o = 0 and lse = -5e8 + log(1e-9), as the
+    reference's clamps give; the other rows are untouched."""
+    b, h, s, d = 2, 4, 150, 64
+    q, k, v, ids, _ = _attn_inputs(b, h, s, d, torch.bfloat16, cuda, seed=9)
+    pad = torch.zeros(b, s, dtype=torch.bool, device=cuda)
+    pad[:, 120:] = True
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    kv_ids[1, 70:90] = 77  # row 1: keys 70..89 belong to no query's image
+    q_ids[1, 100:110] = 55  # and queries 100..109 to an image without keys
+    o, lse = tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, d**-0.5, "block", causal, impl=impl)
+    torch.cuda.synchronize()
+    floor = (torch.tensor(-5e8) + torch.log(torch.tensor(1e-9))).item()
+    masked = pad.clone()
+    masked[1, 100:110] = True
+    assert (o.transpose(1, 2)[masked] == 0).all()
+    assert (lse.transpose(1, 2)[masked] == floor).all()
+    o_ref, lse_ref = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, d**-0.5, "block", causal)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+
+
+def test_forward_impl_argument_and_kernel_info_on_cuda(cuda):
+    """fp32 takes the CUDA-core forward whatever is left out, bf16 the tensor
+    cores; mma with fp32 raises.  The tensor-core forward's registers and
+    blocks per SM (on an NVIDIA H100 80GB HBM3: 168 registers at d = 64 and
+    125 at d = 32, no spill, 3 and 4 blocks an SM)."""
+    q, k, v, ids, pad = _attn_inputs(1, 2, 64, 32, torch.float32, cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    tk.reset_launch_counts()
+    tatt.attention_fwd(q, k, v, q_ids, kv_ids, 1.0)
+    tatt.attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), q_ids, kv_ids, 1.0, causal=True)
+    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 1}
+    assert tk.launch_counts()["attention"] == 1 and tk.launch_counts()["attention_causal"] == 1
+    with pytest.raises(TypeError):
+        tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, 1.0, impl="mma")
+    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 1}
+    for d in (32, 64):
+        mma = tatt.attention_kernel_info("fwd", "mma", torch.bfloat16, d)
+        simt = tatt.attention_kernel_info("fwd", "simt", torch.bfloat16, d)
+        assert 0 < mma["num_regs"] <= 168 and mma["blocks_per_sm"] >= 3 and mma["local_size_bytes"] == 0
+        assert mma["blocks_per_sm"] > simt["blocks_per_sm"]
+    assert tatt.attention_kernel_info("fwd", "simt", torch.float32, 64)["num_regs"] > 0
 
 
 def test_attention_refuses_head_dim_16_on_cuda(cuda):
