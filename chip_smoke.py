@@ -7,10 +7,12 @@ Builds the five hand-written CUDA kernels from dct_autoencoder_torch/csrc
 kernels, against its plain PyTorch version at the shapes the main paths give
 it (the bfloat16 attention kernels, forward and backward, which multiply on
 the tensor cores, also against their CUDA-core versions, `impl="simt"`,
-timed beside them), and then drives the paths themselves:
+timed beside them; the DCT and IDCT kernels, 3xTF32 on the tensor cores,
+also against a float64 plain version), and then drives the paths themselves:
   * the serving round trip with the trained checkpoint in
-    docs/calibrated_run_r3b/model (and the same batch through the port on
-    the CPU in fp32), and a lossless no-model round trip;
+    docs/calibrated_run_r3b/model (its gated int8 sibling, and the same
+    batch through the port on the CPU in fp32), timed warm beside the float
+    model, and a lossless no-model round trip;
   * one forward of a random-init patch14-L model at full width on a 64 x 256
     packed batch;
   * train() for 20 steps on that checkpoint (bf16 compute, fp32 masters) on
@@ -30,7 +32,9 @@ exits non-zero.  The line before the last lists the kernels with their
 launches on the main paths, errors, times and bounds; the last line is
 {"ok": true, "device": {...}}.
 
-`--kernels-only` stops after the kernels' phase (no result line).
+`--kernels-only` stops after the kernels' phase (no result line);
+`--kernels-only=dct` runs only its DCT and IDCT cases: the quick loop while
+one of those sources is being changed (the build's hash follows the source).
 
 Needs a CUDA device, and exits non-zero without one.  Imports no JAX.
 """
@@ -52,7 +56,7 @@ PATCH14_L = os.path.join(HERE, "conf", "patch14-l.json")
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 # forward: o against the plain version, which rounds p to bf16 before P.V as the
 # tensor-core kernel does; against impl="simt" (p kept in fp32) the limit is the
@@ -69,9 +73,14 @@ ATTN_BWD_ATOL_BF16 = 3e-2
 # launches between two CUDA events when a kernel faster than the host's launch is timed
 TIMED_LAUNCHES = 10
 DCT_REL_TOL = 1e-5
+# against float64 on the same fp32 inputs, a DCT kernel's largest error may be
+# this many times the fp32 plain version's (cuBLAS SGEMM), over the whole output
+# and over the high-frequency quarter alone; 3xTF32 keeps ~22 bits and passes,
+# one TF32 product (11 bits) fails by orders of magnitude
+DCT_F64_RATIO = 8.0
 MIN_CODE_AGREEMENT = 0.95
 MAX_PSNR_DELTA_DB = 0.5
-MIN_LOSSLESS_PSNR_DB = 60.0
+MIN_LOSSLESS_PSNR_DB = 100.0
 # bf16 training step on the card against the port's fp32 step on the CPU, same batch
 MAX_TRAIN_LOSS_REL = 0.05
 MAX_TRAIN_GRAD_NORM_REL = 0.30
@@ -449,53 +458,181 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
     return rows
 
 
-def _dct_cases(gen):
+def graph_ms(fn, launches: int = TIMED_LAUNCHES, reps: int = 25) -> float:
+    """Device time of one fn() call: `launches` calls captured in one CUDA
+    graph, the median of `reps` timed replays divided by `launches`.  The
+    host's cost (Python, ctypes, allocation) stays out of the number."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = time_ms(graph.replay, reps=reps) / launches
+    del graph
+    return ms
+
+
+def _planes(tokens, ch, cw, p):
+    """(b, ph*pw, 3, p*p) patch tokens -> (b, 3, ch, cw) planes."""
+    b = tokens.shape[0]
+    return tokens.reshape(b, ch // p, cw // p, 3, p, p).permute(0, 3, 1, 4, 2, 5).reshape(b, 3, ch, cw).contiguous()
+
+
+def _f64_errors(got, ref64, hf):
+    """Largest |got - ref64| over the whole output and where `hf` (a boolean
+    mask broadcast over it) is set."""
+    diff = (got.double() - ref64).abs()
+    return diff.max().item(), diff.masked_select(hf).max().item()
+
+
+def _hold_to_plain_and_f64(what, out, plain, ref64, hf):
+    """Criteria 1 and 2: within DCT_REL_TOL x max|plain| of the fp32 plain
+    version, and against float64 within DCT_F64_RATIO x the plain version's
+    error, whole and in the high-frequency part `hf`.  Returns the numbers."""
+    vmax = plain.abs().max().item()
+    plain64, plain64_hf = _f64_errors(plain, ref64, hf)
+    err = (out - plain).abs().max().item()
+    e64, e64_hf = _f64_errors(out, ref64, hf)
+    check(err <= DCT_REL_TOL * vmax, f"{what}: max|diff| {err} > {DCT_REL_TOL} x {vmax}")
+    check(e64 <= DCT_F64_RATIO * plain64, f"{what}: float64 error {e64} > {DCT_F64_RATIO} x {plain64}")
+    check(e64_hf <= DCT_F64_RATIO * plain64_hf,
+          f"{what}: float64 error {e64_hf} > {DCT_F64_RATIO} x {plain64_hf} in the high frequencies")
+    return {"max_abs_value": vmax, "plain_f64_err": plain64, "plain_f64_err_hf": plain64_hf, "max_abs_err": err,
+            "f64_err": e64, "f64_err_hf": e64_hf, "f64_ratio": e64 / plain64, "f64_ratio_hf": e64_hf / plain64_hf}
+
+
+def _dct_bounds(b, flops, nbytes):
+    """The three bounds of a DCT kernel: the bytes; its products on the tensor
+    cores in 3xTF32 (three TF32 products a multiply-add); the same products in
+    fp32 on the CUDA cores.  `bound_ms` is the larger of the first two."""
+    bytes_ms, _ = bound(nbytes, 0.0, torch.float32)
+    tf32_ms = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    return {
+        "bound_ms": max(bytes_ms, tf32_ms), "bound_by": "operations" if tf32_ms > bytes_ms else "bytes",
+        "bound_bytes_ms": bytes_ms, "bound_tf32x3_ms": tf32_ms,
+        "bound_fp32_cuda_cores_ms": flops / PEAK_FLOPS[torch.float32] * 1e3, "flops": flops, "bytes": nbytes,
+    }
+
+
+def _dct_case(b, h, w, p, crop, gen, timed, profile):
+    """Both DCT kernels on one shape: held to the fp32 plain version and to
+    float64, the round trip, same bits twice; when `timed`, the kernels from
+    a CUDA graph (device time), the wrappers as the extractor calls them, the
+    plain versions."""
     from dct_autoencoder_torch.kernels import dct_patchify as P
     from dct_autoencoder_torch.kernels import idct_unpatchify as I
 
-    out = {"dct": [], "idct": []}
-    for b, h, w, p in [(16, 448, 448, 14), (2, 1000, 700, 14)]:
-        ch, cw = (h // p) * p, (w // p) * p
-        x = torch.rand(b, 3, h, w, generator=gen).cuda()
-        kernel = lambda: P.fused_ipt_dct_patchify_cuda(x, p, ch, cw)
-        plain = lambda: P.fused_ipt_dct_patchify_plain(x, p, ch, cw)
-        y = kernel()
-        torch.cuda.synchronize()
-        y_ref = plain()
-        err, vmax = (y - y_ref).abs().max().item(), y_ref.abs().max().item()
-        check(err <= DCT_REL_TOL * vmax, f"dct_patchify {(b, h, w)}: max|diff| {err} > {DCT_REL_TOL} x {vmax}")
-        flops = b * 3 * (2 * ch * h * w + 2 * ch * w * cw)
-        nbytes = 4 * (b * 3 * h * w + b * 3 * ch * cw + ch * h + cw * w)
-        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-        out["dct"].append({
-            "shape": [b, 3, h, w], "crop": [ch, cw], "max_abs_err": err, "max_abs_value": vmax,
-            "ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        })
+    ch, cw = crop
+    x = torch.rand(b, 3, h, w, generator=gen).cuda()
+    what = f"dct_patchify {(b, 3, h, w)} crop {crop}"
+    dct = lambda: P.fused_ipt_dct_patchify_cuda(x, p, ch, cw)
+    y = dct()
+    torch.cuda.synchronize()
+    y_plain = P.fused_ipt_dct_patchify_plain(x, p, ch, cw)
+    hf = torch.zeros(ch, cw, dtype=torch.bool, device=x.device)
+    hf[ch // 2 :, cw // 2 :] = True
+    plane = _planes(y, ch, cw, p)
+    y64 = _planes(P.fused_ipt_dct_patchify_plain(x, p, ch, cw, torch.float64), ch, cw, p)
+    dct_row = _hold_to_plain_and_f64(what, plane, _planes(y_plain, ch, cw, p), y64, hf)
+    del y64
+    check(torch.equal(y, dct()), f"{what}: two launches on the same inputs differ")
 
-        planes = y_ref.reshape(b, ch // p, cw // p, 3, p, p).permute(0, 3, 1, 4, 2, 5).reshape(b, 3, ch, cw).contiguous()
-        kernel = lambda: I.fused_idct_unpatchify_rgb_cuda(planes, h, w)
-        plain = lambda: I.fused_idct_unpatchify_rgb_plain(planes, h, w)
-        r = kernel()
-        torch.cuda.synchronize()
-        r_ref = plain()
-        err, vmax = (r - r_ref).abs().max().item(), r_ref.abs().max().item()
-        check(err <= DCT_REL_TOL * vmax, f"idct_unpatchify {(b, h, w)}: max|diff| {err} > {DCT_REL_TOL} x {vmax}")
-        if (ch, cw) == (h, w):
-            check((r - x).abs().max().item() < 1e-3, "DCT kernel -> IDCT kernel does not give the image back")
-        flops = b * 3 * (2 * h * ch * cw + 2 * h * cw * w)
-        nbytes = 4 * (b * 3 * ch * cw + b * 3 * h * w + ch * h + cw * w)
-        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-        out["idct"].append({
-            "shape": [b, 3, ch, cw], "out": [h, w], "max_abs_err": err, "max_abs_value": vmax,
-            "ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-        })
+    y_in = _planes(y_plain, ch, cw, p)
+    what_i = f"idct_unpatchify {(b, 3, ch, cw)} -> {(h, w)}"
+    hf_in = y_in * hf  # the high-frequency quarter alone: small pixel values
+    idct = lambda: I.fused_idct_unpatchify_rgb_cuda(y_in, h, w)
+    r = idct()
+    r_hf = I.fused_idct_unpatchify_rgb_cuda(hf_in, h, w)
+    torch.cuda.synchronize()
+    everywhere = torch.ones((), dtype=torch.bool, device=x.device)
+    plain = lambda y, dtype=torch.float32: I.fused_idct_unpatchify_rgb_plain(y, h, w, dtype)
+    idct_row = _hold_to_plain_and_f64(what_i, r, plain(y_in), plain(y_in, torch.float64), everywhere)
+    idct_row["high_frequency_input"] = _hold_to_plain_and_f64(
+        f"{what_i}, high frequencies only", r_hf, plain(hf_in), plain(hf_in, torch.float64), everywhere)
+    check(torch.equal(r, idct()), f"{what_i}: two launches on the same inputs differ")
+    if (ch, cw) == (h, w):
+        err = (I.fused_idct_unpatchify_rgb_cuda(plane, h, w) - x).abs().max().item()
+        check(err < 1e-3, f"DCT kernel -> IDCT kernel does not give the image back: {err}")
+        dct_row["roundtrip_max_abs_err"] = err
+    del y, plane, r, r_hf
+
+    def info(lib):
+        return {f"pass{k}": P.kernel_info(lib, k) for k in (1, 2)}
+
+    flops = b * 3 * (2 * ch * h * w + 2 * ch * w * cw)
+    nbytes = 4 * (b * 3 * h * w + b * 3 * ch * cw + ch * h + cw * w)  # the images, the tokens, the two matrices
+    rows = {
+        "dct": {"shape": [b, 3, h, w], "crop": [ch, cw], "patch": p, "impl": "mma", "timed": timed, **dct_row,
+                "library_ms": None, **_dct_bounds(b, flops, nbytes), "kernel_info": info("dct_patchify")},
+        "idct": {"shape": [b, 3, ch, cw], "out": [h, w], "impl": "mma", "timed": timed, **idct_row,
+                 "library_ms": None, **_dct_bounds(b, b * 3 * (2 * h * ch * cw + 2 * h * cw * w), nbytes),
+                 "kernel_info": info("idct_unpatchify")},
+    }
+    wrappers = {
+        "dct": lambda: P.fused_ipt_dct_patchify(x, p, ch, cw),
+        "idct": lambda: I.fused_idct_unpatchify_rgb(y_in, h, w),
+    }
+    plains = {
+        "dct": lambda: P.fused_ipt_dct_patchify_plain(x, p, ch, cw),
+        "idct": lambda: I.fused_idct_unpatchify_rgb_plain(y_in, h, w),
+    }
+    for name, kernel in (("dct", dct), ("idct", idct)):
+        row = rows[name]
+        if not timed:
+            row.update(ms=None, wrapper_ms=None, plain_ms=None)
+            continue
+        row["ms"] = graph_ms(kernel)
+        row["wrapper_ms"] = time_ms(wrappers[name], inner=TIMED_LAUNCHES)
+        row["plain_ms"] = time_ms(plains[name])
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+        if profile:
+            # device time by kernel of one call: the DCT's IPT pre-pass and the two products
+            row["profile"] = profile_device(kernel, reps=5, top=4)
+    return rows
+
+
+def _dct_cases(gen):
+    out = {"dct": [], "idct": []}
+    # (b, h, w, p, crop, timed): the serving batch first (the kernel table's
+    # row), one served request, ragged edges at an area the TPU kernel refused,
+    # odd widths with ragged K slices
+    for b, h, w, p, crop, timed in [
+        (16, 448, 448, 14, (448, 448), True),
+        (1, 448, 448, 14, (448, 448), True),
+        (2, 1000, 700, 14, (994, 700), True),
+        (3, 333, 447, 8, (320, 432), False),
+        (1, 700, 1000, 14, (700, 994), False),  # IDCT planes 994 wide: 4-byte copies
+    ]:
+        rows = _dct_case(b, h, w, p, crop, gen, timed, profile=(b, h, w) == (16, 448, 448))
+        out["dct"].append(rows["dct"])
+        out["idct"].append(rows["idct"])
+        torch.cuda.empty_cache()
     return out
 
 
-def phase_kernels():
+def kernels_only(argv) -> "str | None":
+    """What `--kernels-only` asks for: None (every phase), "all" (stop after
+    the kernels' phase) or "dct" (only its DCT and IDCT cases, then stop)."""
+    for arg in argv:
+        if arg == "--kernels-only":
+            return "all"
+        if arg.startswith("--kernels-only="):
+            which = arg.split("=", 1)[1]
+            if which not in ("all", "dct"):
+                raise SystemExit(f"--kernels-only takes 'all' or 'dct', not {which!r}")
+            return which
+    return None
+
+
+def phase_kernels(which: str = "all"):
     gen = torch.Generator().manual_seed(0)
+    if which == "dct":
+        cases = _dct_cases(gen)
+        for name, rows in cases.items():
+            for row in rows:
+                emit({"phase": "kernel_vs_plain", "kernel": name, **row})
+        return cases
     attn = [
         _attention_case(64, 16, 256, 64, torch.bfloat16, "block", gen),
         _attention_case(64, 16, 256, 64, torch.bfloat16, "bias", gen),
@@ -572,14 +709,35 @@ def code_agreement(recs_a, recs_b) -> float:
     return same / total
 
 
+def _warm_roundtrip_s(pipes: dict, ims, reps: int = 3) -> dict:
+    """Median wall seconds of one encode + decode of `ims` by each pipeline,
+    once warm; the pipelines take turns."""
+    def once(pipe):
+        pipe.processor.rng = random.Random(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.decode(pipe.encode(ims))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for pipe in pipes.values():
+        once(pipe)
+    times = {name: [] for name in pipes}
+    for _ in range(reps):
+        for name, pipe in pipes.items():
+            times[name].append(once(pipe))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def phase_serving():
     import dct_autoencoder_torch as dt
     from dct_autoencoder_torch import kernels as K
 
     ims = smooth_images(8, 448, seed=0)
 
-    pipe = dt.DCTPipeline.from_pretrained(R3B)  # bf16 on the card
+    pipe = dt.DCTPipeline.from_pretrained(R3B)  # bf16 on the card; the gated int8 sibling, as in JAX
     check(pipe.model.device.type == "cuda", "pipeline did not land on the card")
+    check(pipe.model.config.encoder_config.quantize_int8, "from_pretrained did not follow the int8 gate's record")
     pipe.processor.rng = random.Random(0)
     torch.cuda.synchronize()
     K.reset_launch_counts()
@@ -595,18 +753,25 @@ def phase_serving():
           "reconstructions have the wrong shape or are not finite")
     gpu_psnr = statistics.mean(psnr(r, im) for r, im in zip(recon, ims))
 
-    cpu = dt.DCTPipeline.from_pretrained(R3B, dtype=torch.float32, device="cpu")
+    cpu = dt.DCTPipeline.from_pretrained(R3B, dtype=torch.float32, device="cpu")  # the same int8 sibling
+    check(cpu.model.config.encoder_config.quantize_int8, "the CPU reference did not load the int8 sibling")
     cpu.processor.rng = random.Random(0)
     cpu_records = cpu.encode(ims)
     cpu_psnr = statistics.mean(psnr(r, im) for r, im in zip(cpu.decode(cpu_records), ims))
     agree = code_agreement(records, cpu_records)
     check(agree >= MIN_CODE_AGREEMENT, f"code agreement with the CPU fp32 run {agree} < {MIN_CODE_AGREEMENT}")
     check(abs(gpu_psnr - cpu_psnr) <= MAX_PSNR_DELTA_DB, f"PSNR {gpu_psnr} vs CPU fp32 {cpu_psnr}")
+    # what serving the int8 sibling costs: the float model it was gated against, on the same batch
+    float_pipe = dt.DCTPipeline.from_pretrained(R3B, prefer_int8="never")
+    check(not float_pipe.model.config.encoder_config.quantize_int8, "prefer_int8='never' loaded the int8 sibling")
+    warm_s = _warm_roundtrip_s({"int8": pipe, "float": float_pipe}, ims)
+    del float_pipe
     emit({
         "phase": "serving_roundtrip_r3b", "images": len(ims), "size": 448, "dtype": "bfloat16",
+        "weights": "int8 weight-only sibling (model-int8-wo), as from_pretrained's gate picks",
         "tokens": sum(len(r["codes"]) for r in records), "psnr_db": gpu_psnr, "cpu_fp32_psnr_db": cpu_psnr,
         "psnr_delta_db": gpu_psnr - cpu_psnr, "code_agreement_vs_cpu_fp32": agree,
-        "launches": launches, "wall_s": wall_s,
+        "launches": launches, "wall_s": wall_s, "warm_wall_s": warm_s,
     })
 
     # no model: beta 0 and the full 32 x 32 x 3 grid keep every token
@@ -1175,8 +1340,9 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 2
     smi = phase_environment()
-    cases = phase_kernels()
-    if "--kernels-only" in sys.argv[1:]:
+    only = kernels_only(sys.argv[1:])
+    cases = phase_kernels(only or "all")
+    if only:
         return 0
     profile = "--profile" in sys.argv[1:]
     launches = {"serving": phase_serving()}
@@ -1197,8 +1363,7 @@ def main() -> int:
     for key, name, source, replaces, counter, path in KERNEL_TABLE:
         head = cases[key][0]  # the main path's shape
         check(launches[path][counter] > 0, f"{name} was not launched on the {path} path")
-        if counter in FWD_KERNELS + BWD_KERNELS:
-            check(head["impl"] == "mma", f"{name}: the main path's shape was held with impl {head['impl']}")
+        check(head["impl"] == "mma", f"{name}: the main path's shape was held with impl {head['impl']}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[path][counter], "launches_on": path,
@@ -1208,6 +1373,7 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "ms_every_tile": head.get("ms_every_tile"), "shape": head["shape"], "card": smi,
             "impl": head.get("impl"), "simt_ms": head.get("simt_ms"), "kernel_info": head.get("kernel_info"),
+            **{k: head[k] for k in ("wrapper_ms", "bound_tf32x3_ms", "bound_fp32_cuda_cores_ms", "bound_bytes_ms") if k in head},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})

@@ -5,8 +5,10 @@ Pallas kernel called from fused_idct_unpatchify_rgb).  The kernel is
 csrc/idct_unpatchify.cu: T_c = D_H[:ch]^T Y_c into scratch, then one block
 per (image, pixel tile) computes X_c = T_c D_W[:cw] for all three channels
 and runs IPT -> LMS, the signed power 1/gamma and LMS -> RGB in its
-epilogue.  The zero pad to the output size is folded into the truncated
-DCT matrices.  Bound by the CUDA cores' fp32 rate; no TF32.
+epilogue.  Both products run on the tensor cores in 3xTF32, which keeps
+fp32's precision where one TF32 product would not.  The zero pad to the
+output size is folded into the truncated DCT matrices.  The DCT matrices,
+and their TF32 splits, come from ops/dct.py's caches on the device.
 
 For a CPU tensor ``fused_idct_unpatchify_rgb`` runs the plain version; for a
 CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts calls
@@ -19,21 +21,24 @@ import ctypes
 import torch
 
 from ..ops.colorspace import IPT2LMS, IPT_GAMMA, LMS2RGB
-from ..ops.dct import dct_matrix
-from .dct_patchify import _signed_pow
+from ..ops.dct import dct_matrix_cropped, dct_matrix_tf32
+from .dct_patchify import _signed_pow, round_up4
 
 LAUNCHES = 0
 
 
-def fused_idct_unpatchify_rgb_plain(y: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Eager PyTorch version of the kernel, same contract."""
-    y = y.float()
+def fused_idct_unpatchify_rgb_plain(
+    y: torch.Tensor, out_h: int, out_w: int, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Eager PyTorch version of the kernel, same contract.  ``dtype=torch.float64``
+    computes the same function in float64: the yardstick of the kernels' precision."""
+    y = y.to(dtype)
     ch, cw = y.shape[-2:]
-    dh = dct_matrix(out_h, device=y.device)[:ch]
-    dw = dct_matrix(out_w, device=y.device)[:cw]
+    dh = dct_matrix_cropped(out_h, ch, dtype, y.device)
+    dw = dct_matrix_cropped(out_w, cw, dtype, y.device)
     ipt = dh.T @ y @ dw
-    m1 = torch.as_tensor(IPT2LMS, dtype=torch.float32, device=y.device)
-    m2 = torch.as_tensor(LMS2RGB, dtype=torch.float32, device=y.device)
+    m1 = torch.as_tensor(IPT2LMS, dtype=dtype, device=y.device)
+    m2 = torch.as_tensor(LMS2RGB, dtype=dtype, device=y.device)
     lms = _signed_pow(torch.einsum("ij,bjhw->bihw", m1, ipt), 1.0 / IPT_GAMMA)
     return torch.einsum("ij,bjhw->bihw", m2, lms)
 
@@ -50,22 +55,26 @@ def fused_idct_unpatchify_rgb_cuda(y: torch.Tensor, out_h: int, out_w: int) -> t
     b, _, ch, cw = y.shape
     if not (0 < ch <= out_h and 0 < cw <= out_w):
         raise ValueError(f"plane {ch}x{cw} does not fit the output {out_h}x{out_w}")
-    dh = dct_matrix(out_h, device=y.device)[:ch].contiguous()
-    dw = dct_matrix(out_w, device=y.device)[:cw].contiguous()
-    scratch = torch.empty((b, 3, out_h, cw), dtype=torch.float32, device=y.device)
     out = torch.empty((b, 3, out_h, out_w), dtype=torch.float32, device=y.device)
-    fn = _build.load("idct_unpatchify").idct_unpatchify_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p
-    ]
+    dht_hi, dht_lo = dct_matrix_tf32(out_h, ch, True, y.device)
+    dw_hi, dw_lo = dct_matrix_tf32(out_w, cw, False, y.device)
+    ld = round_up4(cw)
+    scratch = torch.empty((b, 3, out_h, ld), dtype=torch.float32, device=y.device)
     ipt2lms = _build.host_floats(IPT2LMS.astype("float32").reshape(-1))
     lms2rgb = _build.host_floats(LMS2RGB.astype("float32").reshape(-1))
+    fn = _build.load("idct_unpatchify").idct_unpatchify_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    )
     err = fn(
-        y.data_ptr(), dh.data_ptr(), dw.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        y.data_ptr(), dht_hi.data_ptr(), dht_lo.data_ptr(), dht_hi.shape[1],
+        dw_hi.data_ptr(), dw_lo.data_ptr(), dw_hi.shape[1], scratch.data_ptr(), ld, out.data_ptr(),
         b, ch, cw, out_h, out_w,
-        ctypes.cast(ipt2lms, ctypes.c_void_p), ctypes.cast(lms2rgb, ctypes.c_void_p),
-        1.0 / IPT_GAMMA, _build.stream_ptr(y.device),
+        ctypes.cast(ipt2lms, ctypes.c_void_p), ctypes.cast(lms2rgb, ctypes.c_void_p), 1.0 / IPT_GAMMA,
+        _build.stream_ptr(y.device),
     )
     _build.check(err, "idct_unpatchify")
     LAUNCHES += 1

@@ -5,7 +5,10 @@ e.g. ``encoder/layers_0/self_attn/q_proj/kernel``.  The port's module tree
 uses the same names, so the mapping is mechanical:
   * '/' -> '.', and ``layers_N`` -> ``layers.N``;
   * a Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed;
-  * a LayerNorm ``scale`` -> ``weight``.
+  * a LayerNorm ``scale`` -> ``weight``;
+  * the int8 serving form's ``kernel_q`` (int8, (in, out)) and
+    ``kernel_scale`` (fp32) keep their names, layouts and types
+    (models/quant.py holds them in the JAX layout).
 `jax_arrays_from_state_dict` is the reverse map (a 2-d ``weight`` is a Dense
 kernel, a 1-d ``weight`` a LayerNorm scale); it also carries a dict of
 gradients keyed like the state_dict.  In both directions every key must be
@@ -68,7 +71,7 @@ def state_dict_from_jax_npz(
             raise KeyError(f"checkpoint key {jax_key!r} has no counterpart ({key!r}) in the port")
         if key in out:
             raise KeyError(f"two checkpoint keys map to {key!r}")
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        t = torch.from_numpy(np.array(arr, dtype=np.int8 if np.asarray(arr).dtype == np.int8 else np.float32))
         if jax_key.endswith("/kernel"):
             t = t.T.contiguous()
         if t.shape != want[key]:
@@ -100,7 +103,8 @@ def jax_arrays_from_state_dict(
     state_dict: Mapping[str, torch.Tensor], config
 ) -> Dict[str, np.ndarray]:
     """Map the port's state_dict (or gradients under the same names) onto the
-    JAX package's flat parameter paths, as fp32 numpy arrays."""
+    JAX package's flat parameter paths, as fp32 numpy arrays (int8 for the
+    int8 serving form's ``kernel_q``)."""
     want = expected_shapes(config)
     out: Dict[str, np.ndarray] = {}
     for key, t in state_dict.items():
@@ -108,7 +112,7 @@ def jax_arrays_from_state_dict(
             raise KeyError(f"{key!r} is not a parameter of the port's module")
         if t.shape != want[key]:
             raise ValueError(f"{key}: shape {tuple(t.shape)}, the module expects {tuple(want[key])}")
-        arr = t.detach().to(torch.float32).cpu().numpy()
+        arr = t.detach().to(torch.int8 if t.dtype == torch.int8 else torch.float32).cpu().numpy()
         jax_key = _jax_key(key, arr.ndim)
         if jax_key.endswith("/kernel"):
             arr = arr.T

@@ -7,6 +7,10 @@ through kernels/attention.py, which launches the CUDA kernels (forward, and
 backward under autograd) for CUDA tensors and runs their plain versions for
 CPU tensors.
 
+With ``cfg.quantize_int8`` the projections are the weight-only int8
+serving form (models/quant.py), except in the layers that
+``quantize_int8_bf16_layers`` lists, as in the JAX package.
+
 Parameters are fp32 masters whatever the compute type: `Dense` casts its
 weight and bias to the compute type at each use, as flax's
 ``nn.Dense(dtype=...)`` does, so an optimizer updates fp32 values while the
@@ -16,7 +20,9 @@ the same bf16 numbers.
 Training adds MLP dropout when ``cfg.dropout > 0`` (the draw takes an
 explicit ``torch.Generator``) and per-layer recomputation when
 ``cfg.remat`` is set.  Attention dropout exists in the JAX package only on
-its XLA attention path, never under the kernel, and is not applied here.
+its XLA attention path, never under the kernel; the port's attention is the
+kernel, so a training forward with ``attention_dropout > 0`` raises
+NotImplementedError rather than train another function.
 
 ``causal=True`` (the autoregressive token model, models/ar.py) goes down to
 the attention kernels' causal mode.  Token-at-a-time decoding has its own
@@ -29,6 +35,7 @@ captured in a CUDA graph and replayed.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import torch
@@ -38,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import NEG_INF, packed_flash_attention
 from .config import TransformerConfig
+from .quant import dense
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -101,10 +109,10 @@ class MultiHeadAttention(nn.Module):
         d = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
         self.head_dim = d // self.num_heads
-        self.q_proj = Dense(d, d, dtype=dtype)
-        self.k_proj = Dense(d, d, dtype=dtype)
-        self.v_proj = Dense(d, d, dtype=dtype)
-        self.out_proj = Dense(d, d, dtype=dtype)
+        self.q_proj = dense(cfg, d, d, dtype)
+        self.k_proj = dense(cfg, d, d, dtype)
+        self.v_proj = dense(cfg, d, d, dtype)
+        self.out_proj = dense(cfg, d, d, dtype)
 
     def _qkv(self, x: torch.Tensor):
         b, s, _ = x.shape
@@ -145,11 +153,12 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.act = _ACTS[cfg.hidden_act]
         self.dropout = cfg.dropout
+        self.attention_dropout = cfg.attention_dropout
         self.layer_norm1 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
         self.self_attn = MultiHeadAttention(cfg, dtype)
         self.layer_norm2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.fc1 = Dense(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
-        self.fc2 = Dense(cfg.intermediate_size, cfg.hidden_size, dtype=dtype)
+        self.fc1 = dense(cfg, cfg.hidden_size, cfg.intermediate_size, dtype)
+        self.fc2 = dense(cfg, cfg.intermediate_size, cfg.hidden_size, dtype)
 
     def _mlp(self, x, training: bool = False, generator=None):
         y = self.act(self.fc1(self.layer_norm2(x)))
@@ -158,6 +167,10 @@ class EncoderLayer(nn.Module):
         return x + self.fc2(y)
 
     def forward(self, x, image_ids, key_pad_mask, mode, training: bool = False, generator=None, causal: bool = False):
+        if training and self.attention_dropout > 0.0:
+            raise NotImplementedError(
+                f"attention_dropout={self.attention_dropout!r}: attention dropout is not ported yet"
+            )
         x = x + self.self_attn(self.layer_norm1(x), image_ids, key_pad_mask, mode, causal)
         return self._mlp(x, training, generator)
 
@@ -172,7 +185,11 @@ class TransformerEncoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.remat = cfg.remat
-        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers))
+        # int8 serving form: layers listed in quantize_int8_bf16_layers keep float weights
+        layer_cfg = lambda i: (
+            dataclasses.replace(cfg, quantize_int8=False) if i in cfg.quantize_int8_bf16_layers else cfg
+        )
+        self.layers = nn.ModuleList(EncoderLayer(layer_cfg(i), dtype) for i in range(cfg.num_hidden_layers))
 
     def forward(
         self, x, image_ids, key_pad_mask, mode: str = "block", training: bool = False, generator=None,

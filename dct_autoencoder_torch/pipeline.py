@@ -1,6 +1,6 @@
 """Tokenizer pipeline: images <-> LFQ token records in one call.
 
-    pipe = DCTPipeline.from_pretrained("docs/calibrated_run_r3b/model")
+    pipe = DCTPipeline.from_pretrained("docs/calibrated_run_r3b/model")  # its gated int8 sibling
     records = pipe.encode(images)        # JSON-able per-image token records
     recons  = pipe.decode(records)       # RGB arrays at original sizes
 
@@ -11,6 +11,7 @@ package's schema, so either package decodes the other's records.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import List, Optional, Sequence
 
@@ -22,6 +23,25 @@ from .models.config import DCTAutoencoderConfig
 from .models.factory import get_model_and_processor
 from .patches.container import from_dict, to_dict
 from .patches.extractor import DCTAutoencoderFeatureExtractor
+
+
+def _int8_sibling(path: str, record: dict) -> Optional[str]:
+    """The int8 sibling a passing gate record points to, or None.
+
+    The path relative to the checkpoint (`int8_model_rel`) comes first, so a
+    copied tree serves its own sibling.  The absolute pointer (`int8_model`)
+    is taken only when that one does not exist, and only inside the directory
+    that holds the checkpoint, where the gate writes its siblings: a record
+    copied from elsewhere never sends the load outside the copy.  (The JAX
+    package tries the absolute pointer first.)"""
+    rel = record.get("int8_model_rel")
+    if rel and os.path.isdir(os.path.join(path, rel)):
+        return os.path.normpath(os.path.join(path, rel))
+    absolute = record.get("int8_model")
+    if not absolute or not os.path.isdir(absolute):
+        return None
+    home = os.path.dirname(os.path.realpath(path))
+    return absolute if os.path.commonpath([home, os.path.realpath(absolute)]) == home else None
 
 
 class DCTPipeline:
@@ -36,12 +56,42 @@ class DCTPipeline:
         sample_patches_beta: float = 0.02,
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        prefer_int8: str = "auto",
     ) -> "DCTPipeline":
-        """Load the float checkpoint at `path` for serving."""
-        if os.path.exists(os.path.join(path, "int8_serving.json")):
-            print(f"int8 serving form is not ported yet; loading the float weights at {path}")
+        """Load a checkpoint for serving.
+
+        prefer_int8='auto' (the default) follows the int8 gate's record, as the
+        JAX package does: if `int8_serving.json` in the checkpoint directory
+        says the int8 form passed, the gated int8 sibling is loaded instead
+        (see `_int8_sibling` for where it is looked for).  'never' ignores the
+        record; 'always' needs a passing record and raises FileNotFoundError
+        without one."""
+        if prefer_int8 not in ("auto", "never", "always"):
+            raise ValueError(f"prefer_int8 must be 'auto', 'never' or 'always', got {prefer_int8!r}")
+        load_path = path
+        if prefer_int8 != "never":
+            gate_file = os.path.join(path, "int8_serving.json")
+            record = None
+            if os.path.exists(gate_file):
+                with open(gate_file) as f:
+                    record = json.load(f)
+            int8_dir = _int8_sibling(path, record) if record is not None and record.get("pass") else None
+            if int8_dir:
+                load_path = int8_dir
+                crit = (
+                    f"agreement {record['agreement']:.4f} >= {record['threshold']}"
+                    if "threshold" in record
+                    else f"flip ratio {record.get('flip_ratio')} <= {record.get('flip_ratio_max')}, "
+                    f"psnr delta {record.get('psnr_delta')}"
+                )
+                print(f"serving int8 form (gated: {crit}): {load_path}")
+            elif prefer_int8 == "always":
+                raise FileNotFoundError(
+                    f"prefer_int8='always' but no passing int8 gate record at {gate_file} "
+                    "(run tools/quantize_checkpoint --gate)"
+                )
         model, proc = get_model_and_processor(
-            None, dtype=dtype, sample_patches_beta=sample_patches_beta, resume_path=path, device=device
+            None, dtype=dtype, sample_patches_beta=sample_patches_beta, resume_path=load_path, device=device
         )
         return cls(model, proc)
 

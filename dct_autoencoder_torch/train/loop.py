@@ -16,8 +16,9 @@ parameters and the optimizer's moments in place.
 
 Not ported: the pixel loss, VQ mode and its codebook surgery, 8-bit
 optimizer moments, shared-program sweeps, the RSS and stall watchdogs,
-prefetch, image-grid logging and everything multi-device.  `train` raises
-NotImplementedError for an argument that asks for one of them.
+prefetch, image-grid logging, attention dropout and everything
+multi-device.  `train` raises NotImplementedError for an argument (or, for
+attention dropout, a config) that asks for one of them.
 """
 from __future__ import annotations
 
@@ -154,6 +155,7 @@ def make_train_step(
     """
     if use_pixel_loss:
         raise NotImplementedError("the pixel loss (use_pixel_loss) is not ported yet")
+    _refuse_attention_dropout(module.config)
     if dynamic_hparams:
         raise NotImplementedError("dynamic_hparams (shared-program sweeps) is not ported yet")
     if accum_steps < 1:
@@ -263,6 +265,15 @@ def _refuse_unported(**asked) -> None:
             raise NotImplementedError(f"{name}={value!r}: {part} is not ported yet")
 
 
+def _refuse_attention_dropout(config) -> None:
+    """The JAX package drops attention weights in training on its XLA
+    attention path only; the port's attention is the kernel, which has no
+    dropout, so it refuses rather than train another function."""
+    _refuse_unported(
+        attention_dropout=(config.encoder_config.attention_dropout, 0.0, "attention dropout (the encoder's)")
+    )
+
+
 def train(
     model: DCTAutoencoder,
     proc: DCTAutoencoderFeatureExtractor,
@@ -313,6 +324,7 @@ def train(
         stall_timeout_s=(stall_timeout_s, 0.0, "the stall watchdog"),
         log_images_every=(log_images_every, 0, "image-grid logging"),
     )
+    _refuse_attention_dropout(model.config)
     if nan_policy not in ("abort", "restore"):
         raise ValueError(f"nan_policy must be 'abort' or 'restore', got {nan_policy!r}")
     from .checkpoint import has_train_state, load_train_state, save_train_state

@@ -186,3 +186,34 @@ def test_check_impl_launches_holds_every_path_to_its_implementations(launches, i
     else:
         with pytest.raises(AssertionError):
             chip_smoke.check_impl_launches(launches, *impls)
+
+
+@pytest.mark.parametrize(
+    "argv,want",
+    [
+        ([], None),
+        (["--profile"], None),
+        (["--kernels-only"], "all"),
+        (["--kernels-only=dct"], "dct"),
+        (["--profile", "--kernels-only=dct"], "dct"),
+    ],
+)
+def test_kernels_only_reads_which_kernels(argv, want):
+    assert chip_smoke.kernels_only(argv) == want
+
+
+def test_kernels_only_refuses_an_unknown_set():
+    with pytest.raises(SystemExit, match="--kernels-only"):
+        chip_smoke.kernels_only(["--kernels-only=wgmma"])
+
+
+def test_dct_bounds_count_three_tf32_products():
+    """16 x 3 x 448^2: 17.27 GFLOP, 78.7 MB; 3xTF32 bound 0.105 ms, fp32 CUDA cores 0.258 ms, bytes 0.023 ms."""
+    b, h, w = 16, 448, 448
+    flops = b * 3 * (2 * h * h * w + 2 * h * w * w)
+    rows = chip_smoke._dct_bounds(b, flops, 4 * (2 * b * 3 * h * w + 2 * h * w))
+    assert flops == pytest.approx(17.27e9, rel=1e-3)
+    assert rows["bound_tf32x3_ms"] == pytest.approx(0.1047, rel=1e-3) and rows["bound_by"] == "operations"
+    assert rows["bound_ms"] == rows["bound_tf32x3_ms"]
+    assert rows["bound_fp32_cuda_cores_ms"] == pytest.approx(0.2578, rel=1e-3)
+    assert rows["bound_bytes_ms"] == pytest.approx(0.0235, rel=1e-2)

@@ -147,7 +147,7 @@ def test_no_model_roundtrip_is_lossless():
 @pytest.fixture(scope="module")
 def pipelines():
     jpipe = JaxPipeline.from_pretrained(R3B, dtype=jnp.float32, prefer_int8="never")
-    tpipe = dt.DCTPipeline.from_pretrained(R3B, dtype=torch.float32, device="cpu")
+    tpipe = dt.DCTPipeline.from_pretrained(R3B, dtype=torch.float32, device="cpu", prefer_int8="never")
     return jpipe, tpipe
 
 

@@ -627,3 +627,44 @@ def test_reverse_map_round_trips_r3b():
     back = jax_arrays_from_state_dict(state_dict_from_jax_npz(arrays, cfg), cfg)
     assert back.keys() == arrays.keys()
     assert all(np.array_equal(back[k], arrays[k]) for k in arrays)
+
+
+# ---------------------------------------------------------------- attention dropout
+
+
+def _dropout_config(rate: float) -> TorchConfig:
+    """tests/test_model.py::test_dropout_active_in_training's config: MLP dropout 0.5, attention dropout `rate`."""
+    cfg = TorchConfig.from_dict(tiny_config("lfq").to_dict())
+    cfg.encoder_config.dropout = 0.5
+    cfg.encoder_config.attention_dropout = rate
+    return cfg
+
+
+@pytest.mark.parametrize("where", ["make_train_step", "train", "training_forward"])
+def test_attention_dropout_is_refused_by_name(where):
+    """JAX drops attention weights in training on its XLA path; the port's
+    attention is the kernel, so every training path refuses the rate rather
+    than train another function."""
+    model, proc = torch_model_and_processor(_dropout_config(0.3), sample_patches_beta=0.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="attention_dropout"):
+        if where == "make_train_step":
+            tloop.make_train_step(model.module, tloop.make_optimizer())
+        elif where == "train":
+            tloop.train(model, proc, _stream(proc, 1), batch_size=None, max_iters=1)
+        else:
+            batch = next(proc.iter_batches(_stream(proc, 1), batch_size=None))
+            model.module(model.normalize_(batch), training=True, generator=torch.Generator().manual_seed(0))
+
+
+def test_attention_dropout_zero_trains_and_serves_as_before():
+    """With attention_dropout 0 the same config trains (MLP dropout from the
+    generator) and serving ignores dropout, as in JAX."""
+    model, proc = torch_model_and_processor(_dropout_config(0.0), sample_patches_beta=0.0, device="cpu")
+    proc.rng = random.Random(0)
+    logs = []
+    model, state = tloop.train(model, proc, _stream(proc, 3), batch_size=None, max_iters=3, log_every=1, log=logs.append)
+    assert state.step == 3 and all(np.isfinite(m["loss"]) for m in logs)
+    served = _dropout_config(0.3)  # serving (training=False) never reads the rate
+    model, proc = torch_model_and_processor(served, sample_patches_beta=0.0, device="cpu")
+    batch = model.normalize_(next(proc.iter_batches(_stream(proc, 1), batch_size=None)))
+    assert torch.equal(model.forward(batch)["codes"], model.forward(batch)["codes"])
