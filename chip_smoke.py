@@ -26,7 +26,20 @@ also against a float64 plain version), and then drives the paths themselves:
     train, save, load, the KV-cached decode step against the kernel path,
     sample, decode to pixels;
   * the samplers of the 33.6 M model: the captured decode step beside the
-    eager per-token loop, at b = 1 and b = 8.
+    eager per-token loop, at b = 1 and b = 8;
+  * reconstruct_direct of 16 448 x 448 images at the full width of patch14-L
+    beside reconstruct on the same tokens (one IDCT launch against 16), and on
+    the model's int8 forms (weight_only; dynamic, whose products run as
+    torch._int_mm);
+  * the int8 gate (tools/quantize_checkpoint.py, relative mode) on a copy of
+    the trained checkpoint;
+  * the serving daemon (tools/serve.py) on the trained checkpoint's int8
+    sibling with the shape buckets: binary /reconstruct from the load client
+    (tools/bench_serving.py) at concurrency 1 and 8 under max_batch 16 and 1,
+    JSON /encode + /decode, and /generate over the AR example's model.
+The kernels' phase also runs the fp32 attention backward 20 times in each
+mask mode after filling the allocator's free memory with NaN, and requires
+the same bits every time.
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The line before the last lists the kernels with their
 launches on the main paths, errors, times and bounds; the last line is
@@ -38,6 +51,7 @@ one of those sources is being changed (the build's hash follows the source).
 
 Needs a CUDA device, and exits non-zero without one.  Imports no JAX.
 """
+import io
 import json
 import math
 import os
@@ -81,6 +95,10 @@ DCT_F64_RATIO = 8.0
 MIN_CODE_AGREEMENT = 0.95
 MAX_PSNR_DELTA_DB = 0.5
 MIN_LOSSLESS_PSNR_DB = 100.0
+# reconstruct_direct (uint8) against reconstruct on the same tokens: the JAX
+# package's figure for its two paths (its pipeline.py docstring); the uint8
+# rounding alone leaves ~59 dB
+MIN_DIRECT_VS_ROUNDTRIP_PSNR_DB = 40.0
 # bf16 training step on the card against the port's fp32 step on the CPU, same batch
 MAX_TRAIN_LOSS_REL = 0.05
 MAX_TRAIN_GRAD_NORM_REL = 0.30
@@ -353,6 +371,98 @@ def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
     }
 
 
+def _poison_allocator(n_bytes: int = 384 << 20) -> None:
+    """Fill memory that the caching allocator will hand out next with NaN: one
+    large block and many small ones (the allocator keeps blocks of up to 1 MB
+    in a pool of their own), all freed at once.  A kernel that reads memory
+    nothing wrote then gives NaN or a large error, not a rare small one."""
+    small = [torch.full((n,), float("nan"), device="cuda") for n in (1 << 12, 1 << 15, 1 << 18) for _ in range(96)]
+    large = torch.full((n_bytes // 4,), float("nan"), device="cuda")
+    torch.cuda.synchronize()
+    del small, large
+
+
+def attention_grads_f64(q, k, v, ids, pad, scale, mode):
+    """Gradients of sum(o^2) with respect to q, k, v of the kernels' function
+    (segment mask, the row max clamped at -5e8, the denominator at 1e-9),
+    computed in float64 on the CPU: the yardstick both fp32 sides are read against."""
+    from dct_autoencoder_torch.kernels.attention import NEG_INF, segment_ids
+
+    q_ids, kv_ids = segment_ids(ids, pad)
+    qq, kk, vv = (t.detach().double().cpu().requires_grad_(True) for t in (q, k, v))
+    logits = torch.einsum("bhqd,bhkd->bhqk", qq, kk) * scale
+    allowed = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+    logits = logits + allowed.double() if mode == "bias" else torch.where(allowed, logits, torch.full_like(logits, NEG_INF))
+    m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=NEG_INF * 0.5).detach()
+    p = torch.exp(logits - m)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vv) / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-9)
+    (o**2).sum().backward()
+    return [t.grad for t in (qq, kk, vv)]
+
+
+def _attention_bwd_determinism(mode: str, runs: int = 20):
+    """The fp32 backward kernels through packed_flash_attention's autograd at
+    (2, 4, 173, 32) (a ragged last tile, the head merge's transposed
+    grad_output; the inputs of tests/test_torch_cuda.py::test_attention_gradients_match_cpu),
+    `runs` times, each after poisoning the allocator.  Checks: every run gives
+    the same bits, within 1e-5 (+ 1e-5 relative) of the plain versions
+    (attention_fwd_plain, attention_bwd_plain) on the card and of a float64
+    computation.  The plain versions on the CPU are read and reported beside
+    them; a disagreement with them emits the places where it lies, so that
+    an occurrence names the side that moved."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    b, h, s, d = 2, 4, 173, 32
+    scale = d**-0.5
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(b, h, s, d, generator=g) for _ in range(3))
+    ids = torch.sort(torch.randint(0, 4, (b, s), generator=g), dim=1).values.int()
+    lens = torch.randint(max(1, s // 2), s + 1, (b,), generator=g)
+    pad = torch.arange(s)[None] >= lens[:, None]
+
+    def grads(dev):
+        qq, kk, vv = (t.clone().to(dev).requires_grad_(True) for t in (q, k, v))
+        o = A.packed_flash_attention(qq, kk, vv, ids.to(dev), pad.to(dev), scale, mode)
+        (o.transpose(1, 2).reshape(b, s, h * d) ** 2).sum().backward()
+        return [t.grad.cpu() for t in (qq, kk, vv)]
+
+    def plain(dev):
+        qq, kk, vv = (t.to(dev) for t in (q, k, v))
+        q_ids, kv_ids = A.segment_ids(ids.to(dev), pad.to(dev))
+        o, lse = A.attention_fwd_plain(qq, kk, vv, q_ids, kv_ids, scale, mode)
+        return [t.cpu() for t in A.attention_bwd_plain(qq, kk, vv, q_ids, kv_ids, o, lse, 2 * o, scale, mode)]
+
+    outside = lambda got, ref: sum(int(((x - r).abs() > 1e-5 + 1e-5 * r.abs()).sum()) for x, r in zip(got, ref))
+    max_err = lambda got, ref: max((x.double() - r.double()).abs().max().item() for x, r in zip(got, ref))
+    ref = plain("cuda")
+    ref64 = attention_grads_f64(q, k, v, ids, pad, scale, mode)
+    first, differing = None, 0
+    for _ in range(runs):
+        _poison_allocator()
+        got = grads("cuda")
+        if first is None:
+            first = got
+        differing += not all(torch.equal(x, y) for x, y in zip(first, got))
+    cpu_kernel_path = grads("cpu")  # the same autograd path, which runs the plain versions on the CPU
+    row = {"mode": mode, "shape": [b, h, s, d], "runs": runs, "runs_differing": differing,
+           "max_abs_err": max_err(first, ref), "max_abs_err_vs_f64": max_err(first, ref64), "tol": "1e-5 + 1e-5 |ref|",
+           "plain_on_card_vs_f64": max_err(ref, ref64), "cpu_plain_vs_f64": max_err(cpu_kernel_path, ref64),
+           "max_abs_err_vs_cpu_plain": max_err(first, cpu_kernel_path), "max_abs_grad": max(r.abs().max().item() for r in ref64)}
+    if differing or outside(first, ref) or outside(first, ref64) or outside(first, cpu_kernel_path):
+        where = {}
+        for name, x, r in zip(("dq", "dk", "dv"), first, cpu_kernel_path):
+            bad = ((x - r).abs() > 1e-5 + 1e-5 * r.abs()).nonzero()
+            where[name] = {"elements": int(bad.shape[0]), "batch_head_pairs": sorted({(int(i), int(j)) for i, j, _, _ in bad.tolist()}),
+                           "rows": sorted({int(t) for t in bad[:, 2].tolist()})[:40]}
+        emit({"phase": "attention_bwd_fp32_disagreement", **row, "card_vs_cpu_plain_where": where,
+              "cpu_plain_again_vs_f64": max_err(grads("cpu"), ref64), "threads": torch.get_num_threads()})
+    what = f"fp32 attention backward {mode} {(b, h, s, d)}"
+    check(differing == 0, f"{what}: {differing} of {runs} runs after poisoning differ from the first")
+    check(outside(first, ref) == 0, f"{what}: off the plain versions on the card by more than 1e-5 (max {row['max_abs_err']})")
+    check(outside(first, ref64) == 0, f"{what}: off float64 by more than 1e-5 (max {row['max_abs_err_vs_f64']})")
+    return row
+
+
 def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
     """The causal mode of the forward, dq and dk/dv kernels against the plain
     versions; in 'block' mode also timed without the tile skipping, held to the
@@ -564,9 +674,11 @@ def _dct_case(b, h, w, p, crop, gen, timed, profile):
     nbytes = 4 * (b * 3 * h * w + b * 3 * ch * cw + ch * h + cw * w)  # the images, the tokens, the two matrices
     rows = {
         "dct": {"shape": [b, 3, h, w], "crop": [ch, cw], "patch": p, "impl": "mma", "timed": timed, **dct_row,
-                "library_ms": None, **_dct_bounds(b, flops, nbytes), "kernel_info": info("dct_patchify")},
+                "library_ms": None, "library_computes": "none: no single PyTorch call computes IPT->DCT->crop->patchify",
+                **_dct_bounds(b, flops, nbytes), "kernel_info": info("dct_patchify")},
         "idct": {"shape": [b, 3, ch, cw], "out": [h, w], "impl": "mma", "timed": timed, **idct_row,
-                 "library_ms": None, **_dct_bounds(b, b * 3 * (2 * h * ch * cw + 2 * h * cw * w), nbytes),
+                 "library_ms": None, "library_computes": "none: no single PyTorch call computes IDCT->RGB",
+                 **_dct_bounds(b, b * 3 * (2 * h * ch * cw + 2 * h * cw * w), nbytes),
                  "kernel_info": info("idct_unpatchify")},
     }
     wrappers = {
@@ -592,18 +704,23 @@ def _dct_case(b, h, w, p, crop, gen, timed, profile):
     return rows
 
 
+# (b, h, w, p, crop, timed): the serving batch first (the kernel table's row),
+# one served request, reconstruct_direct's launch (5 to 8 images of one size in
+# 8 slots), ragged edges at an area the TPU kernel refused, odd widths with
+# ragged K slices
+DCT_CASES = [
+    (16, 448, 448, 14, (448, 448), True),
+    (1, 448, 448, 14, (448, 448), True),
+    (8, 448, 448, 14, (448, 448), True),
+    (2, 1000, 700, 14, (994, 700), True),
+    (3, 333, 447, 8, (320, 432), False),
+    (1, 700, 1000, 14, (700, 994), False),  # IDCT planes 994 wide: 4-byte copies
+]
+
+
 def _dct_cases(gen):
     out = {"dct": [], "idct": []}
-    # (b, h, w, p, crop, timed): the serving batch first (the kernel table's
-    # row), one served request, ragged edges at an area the TPU kernel refused,
-    # odd widths with ragged K slices
-    for b, h, w, p, crop, timed in [
-        (16, 448, 448, 14, (448, 448), True),
-        (1, 448, 448, 14, (448, 448), True),
-        (2, 1000, 700, 14, (994, 700), True),
-        (3, 333, 447, 8, (320, 432), False),
-        (1, 700, 1000, 14, (700, 994), False),  # IDCT planes 994 wide: 4-byte copies
-    ]:
+    for b, h, w, p, crop, timed in DCT_CASES:
         rows = _dct_case(b, h, w, p, crop, gen, timed, profile=(b, h, w) == (16, 448, 448))
         out["dct"].append(rows["dct"])
         out["idct"].append(rows["idct"])
@@ -657,6 +774,8 @@ def phase_kernels(which: str = "all"):
         _attention_causal_case(1, 8, 173, 32, torch.float32, "block", gen),
         _attention_causal_case(1, 8, 173, 32, torch.bfloat16, "block", gen),  # ragged, causal, tensor cores
     ]
+    for mode in ("block", "bias"):
+        emit({"phase": "attention_bwd_fp32_determinism", **_attention_bwd_determinism(mode)})
     torch.cuda.empty_cache()
     cases = {
         "attention": attn,
@@ -1236,7 +1355,7 @@ def phase_ar_example_r3b(steps=200):
         "ms_per_step": step_ms, "valid_tokens_per_step": int((~batch[3]).sum()), "sample_mean": float(img.mean()),
         "launches": launches, "wall_s": wall_s,
     })
-    return launches
+    return launches, loaded
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1282,13 +1401,285 @@ def phase_ar_sampling(model, s=256):
     emit(out)
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def _timed(fn):
+    """(result, wall seconds) of fn() on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _warm_wall_ms(fns: dict, reps: int = 3) -> dict:
+    """Median wall ms of each fn() once warm; the fns take turns."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            times[name].append(_timed(fn)[1] * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def phase_reconstruct_direct_patch14l(n_images=16, size=448):
+    """reconstruct_direct at the full width of patch14-L (random init, bf16)
+    beside reconstruct (encode + decode of token records) on the same tokens,
+    and on the int8 forms of the same model."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.models import quant as Q
+
+    t_phase = time.perf_counter()
+    cfg = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    pipe = dt.DCTPipeline.from_config(cfg, sample_patches_beta=0.02, seed=0)  # bf16, random init, on the card
+    ims = smooth_images(n_images, size, seed=3)
+
+    def call(p, fn, **kw):
+        def run():
+            p.processor.rng = random.Random(0)  # the same token budgets on every path
+            return getattr(p, fn)(ims, **kw)
+        return run
+
+    runs = {}
+    for name, fn, kw in (("reconstruct", "reconstruct", {}), ("direct_uint8", "reconstruct_direct", {"as_uint8": True}),
+                         ("direct_float", "reconstruct_direct", {})):
+        K.reset_launch_counts()
+        out, wall = _timed(call(pipe, fn, **kw))
+        runs[name] = (out, path_launches(), wall)
+    recon, launches_rt, _ = runs["reconstruct"]
+    direct, launches, _ = runs["direct_uint8"]
+    check(len(direct) == n_images and all(d.dtype == np.uint8 and d.shape == (3, size, size) for d in direct),
+          "reconstruct_direct(as_uint8=True) did not give uint8 images of the input size")
+    check(all(np.isfinite(r).all() for r in recon), "reconstruct gave non-finite pixels")
+    psnr_paths = statistics.mean(psnr(d.astype(np.float32) / 255.0, r) for d, r in zip(direct, recon))
+    psnr_float = statistics.mean(psnr(d, r) for d, r in zip(runs["direct_float"][0], recon))
+    check(psnr_paths > MIN_DIRECT_VS_ROUNDTRIP_PSNR_DB,
+          f"reconstruct_direct (uint8) vs reconstruct: {psnr_paths} dB <= {MIN_DIRECT_VS_ROUNDTRIP_PSNR_DB}")
+    check(launches["idct_unpatchify"] == 1 and launches_rt["idct_unpatchify"] == n_images,
+          f"IDCT launches: {launches['idct_unpatchify']} for reconstruct_direct (want 1), "
+          f"{launches_rt['idct_unpatchify']} for reconstruct (want {n_images})")
+    n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
+    check(launches["dct_patchify"] == 1 and launches["attention"] == n_layers, f"reconstruct_direct launches {launches}")
+    check(launches["attention_dq"] == launches["attention_dkv"] == 0, f"reconstruct_direct ran a backward kernel: {launches}")
+
+    forms = {"float": pipe}
+    quantize_s = {}
+    for mode, bf16 in (("weight_only", ()), ("dynamic", (0, 1))):
+        q, quantize_s[mode] = _timed(lambda: Q.quantize_model_for_serving(
+            pipe.model, mode=mode, encoder_bf16_layers=bf16, decoder_bf16_layers=bf16))
+        forms[mode] = dt.DCTPipeline(q, pipe.processor)
+    dynamic_layers = [m for m in forms["dynamic"].model.module.modules() if isinstance(m, Q.Int8Dense)]
+    check(len(dynamic_layers) == 2 * 6 * (8 - 2) and all(m.mode == "dynamic" for m in dynamic_layers),
+          f"{len(dynamic_layers)} dynamic int8 layers, not 72")
+    before = Q.INT_MM_CALLS
+    dyn_out, _ = _timed(call(forms["dynamic"], "reconstruct_direct", as_uint8=True))
+    int_mm = Q.INT_MM_CALLS - before
+    # every dynamic layer ran its int8 product once for the one packed batch: none fell back
+    check(int_mm == len(dynamic_layers), f"{int_mm} torch._int_mm calls for {len(dynamic_layers)} dynamic int8 layers")
+    wo_out, _ = _timed(call(forms["weight_only"], "reconstruct_direct", as_uint8=True))
+    as_float = lambda imgs: [d.astype(np.float32) / 255.0 for d in imgs]
+    # where a call's time goes: device busy time by kernel against the wall
+    profiles = {name: profile_device(fn, reps=3, top=6) for name, fn in (
+        ("reconstruct_direct", call(pipe, "reconstruct_direct", as_uint8=True)), ("reconstruct", call(pipe, "reconstruct")))}
+    wall_ms = _warm_wall_ms({
+        "reconstruct": call(pipe, "reconstruct"),
+        "reconstruct_direct": call(pipe, "reconstruct_direct", as_uint8=True),
+        "reconstruct_direct_int8_weight_only": call(forms["weight_only"], "reconstruct_direct", as_uint8=True),
+        "reconstruct_direct_int8_dynamic": call(forms["dynamic"], "reconstruct_direct", as_uint8=True),
+    })
+    emit({
+        "phase": "reconstruct_direct_patch14l", "images": n_images, "size": size, "dtype": "bfloat16",
+        "sample_patches_beta": 0.02,
+        "psnr_direct_uint8_vs_reconstruct_db": psnr_paths, "psnr_direct_float_vs_reconstruct_db": psnr_float,
+        "tol_psnr_db": MIN_DIRECT_VS_ROUNDTRIP_PSNR_DB,
+        "idct_launches": {"reconstruct": launches_rt["idct_unpatchify"], "reconstruct_direct": launches["idct_unpatchify"]},
+        "launches": launches, "launches_reconstruct": launches_rt, "wall_ms": wall_ms,
+        "int8_dynamic": {"layers": len(dynamic_layers), "bf16_layers": [0, 1], "int_mm_calls_per_call": int_mm,
+                         "psnr_vs_float_direct_db": statistics.mean(psnr(a, b) for a, b in zip(as_float(dyn_out), as_float(direct)))},
+        "int8_weight_only": {"psnr_vs_float_direct_db": statistics.mean(psnr(a, b) for a, b in zip(as_float(wo_out), as_float(direct)))},
+        "quantize_s": quantize_s, "profile": profiles, "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+def phase_quantize_gate_r3b(n_images=6):
+    """The port's quantize_checkpoint --gate --gate_mode relative --mode
+    weight_only on a copy of the r3b checkpoint (never on docs/), with seeded
+    .npy validation images."""
+    import shutil
+    import tempfile
+
+    from dct_autoencoder_torch.tools import quantize_checkpoint as QC
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(R3B, "int8_serving.json")) as f:
+        jax_record = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out, imgs = (os.path.join(tmp, d) for d in ("model", "model-int8-wo", "images"))
+        shutil.copytree(R3B, src)
+        os.makedirs(imgs)
+        for i, im in enumerate(smooth_images(n_images, 448, seed=4)):
+            np.save(os.path.join(imgs, f"{i}.npy"), im)
+        record = QC.cli([
+            "--model_path", src, "--out_path", out, "--validate_images", imgs,
+            "--gate", "--gate_mode", "relative", "--mode", "weight_only",
+        ])
+        with open(os.path.join(src, "int8_serving.json")) as f:
+            check(json.load(f) == record, "int8_serving.json is not the gate's record")
+        check(os.path.isfile(os.path.join(out, "params.npz")) and os.path.isfile(os.path.join(out, "int8_gate.json")),
+              "the gate wrote no int8 model or no int8_gate.json")
+    keys = {"agreement", "gate_mode", "int8_flips_per_10k", "noise_floor_flips_per_10k", "flip_ratio", "psnr_delta", "pass"}
+    check(keys <= set(record) and record["n_validation_images"] == n_images, f"gate record keys {sorted(record)}")
+    emit({
+        "phase": "quantize_gate_r3b", "images": f"{n_images} seeded smooth fields, 448 x 448, .npy",
+        "record": {k: v for k, v in record.items() if k not in ("source_model", "int8_model")},
+        "jax_tpu_record_other_images": {k: jax_record.get(k) for k in ("flip_ratio", "psnr_delta", "pass", "n_validation_images")},
+        "phase_s": time.perf_counter() - t_phase,
+    })
+
+
+def _post(port, path, body, headers):
+    """(status, body) of one POST to the daemon on 127.0.0.1."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _healthz(port) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+        return json.loads(r.read())
+
+
+class _Daemon:
+    """The port's serve() on 127.0.0.1, port 0, in a thread; stopped and joined on exit."""
+
+    def __init__(self, pipe, max_batch, ar_model=None):
+        import threading
+
+        from dct_autoencoder_torch.tools import serve as S
+
+        self.httpd = S.serve(pipe, port=0, max_batch=max_batch, batch_timeout_ms=5.0 if max_batch > 1 else 0.0,
+                             ar_model=ar_model, host="127.0.0.1")
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.httpd.batcher.shutdown()
+        self.thread.join(timeout=10)
+        check(not self.thread.is_alive() and not self.httpd.batcher._worker.is_alive(), "the daemon did not shut down")
+
+
+def phase_serving_daemon_r3b(ar_model, n_requests=64):
+    """The port's daemon with from_pretrained(R3B) (the gated int8 sibling),
+    pad_rows_to 8 and pad_tokens_to 128: binary /reconstruct from the ported
+    load client at concurrency 1 and 8 under max_batch 16 and 1, JSON
+    /encode + /decode, /generate over the AR example's model, and a served
+    /reconstruct held bit for bit to the in-process call."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.models.factory import get_max_seq_length
+    from dct_autoencoder_torch.tools.bench_serving import fire, npy_bytes
+
+    t_phase = time.perf_counter()
+    base = dt.DCTPipeline.from_pretrained(R3B)  # bf16 on the card, the gated int8 sibling
+    check(base.model.config.encoder_config.quantize_int8, "from_pretrained did not follow the int8 gate's record")
+    pipe = dt.DCTPipeline(base.model, base.processor, pad_rows_to=8, pad_tokens_to=128)
+    ims = smooth_images(4, 448, seed=5)
+    as_u8 = lambda im: (im * 255.0 + 0.5).astype(np.uint8)
+    bin_hdr, json_hdr = {"Content-Type": "application/octet-stream"}, {"Content-Type": "application/json"}
+    body = npy_bytes(as_u8(ims[0]))
+
+    # one request's work in this process, without HTTP: its wall time and the device's share of it
+    direct = lambda: pipe.reconstruct_direct([ims[0]], as_uint8=True)
+    in_process_ms = _warm_wall_ms({"reconstruct_direct_1_image": direct}, reps=5)
+    in_process_profile = profile_device(direct, reps=5, top=6)
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    load, per_batch_idct, generated = {}, None, []
+    for max_batch in (16, 1):
+        with _Daemon(pipe, max_batch, ar_model) as d:
+            fire(d.port, body, bin_hdr, 16, 8)  # warm-up
+            for conc in (1, 8):
+                h0, idct0 = _healthz(d.port), K.launch_counts()["idct_unpatchify"]
+                r = fire(d.port, body, bin_hdr, n_requests, conc)
+                h1 = _healthz(d.port)
+                batches, served = h1["batches"] - h0["batches"], h1["served"] - h0["served"]
+                check(r["requests"] == served == n_requests, f"{r['requests']} answered, {served} served of {n_requests}")
+                load[f"max_batch_{max_batch}_concurrency_{conc}"] = {**r, "batches": batches}
+                if (max_batch, conc) == (16, 8):
+                    check(batches < served, f"no micro-batching at concurrency 8: {batches} batches for {served}")
+                    per_batch_idct = (K.launch_counts()["idct_unpatchify"] - idct0) / batches
+            if max_batch == 16:
+                for im in ims:
+                    status, raw = _post(d.port, "/encode", json.dumps({"image": im.tolist()}).encode(), json_hdr)
+                    check(status == 200, f"/encode answered {status}: {raw[:200]}")
+                    status, raw = _post(d.port, "/decode", raw, json_hdr)
+                    check(status == 200, f"/decode answered {status}: {raw[:200]}")
+                    check(np.asarray(json.loads(raw)["image"]).shape == im.shape, "/decode gave the wrong shape")
+                for temperature, seed in ((0.0, 0), (0.0, 1), (1.0, 2), (1.0, 3)):
+                    t0 = time.perf_counter()
+                    status, raw = _post(d.port, "/generate", json.dumps(
+                        {"n_tokens": 256, "temperature": temperature, "seed": seed, "return_codes": True}).encode(), json_hdr)
+                    check(status == 200, f"/generate answered {status}: {raw[:200]}")
+                    out = json.loads(raw)
+                    img = np.asarray(out["image"])
+                    check(img.ndim == 3 and img.shape[0] == 3 and np.isfinite(img).all(), "/generate gave no finite image")
+                    check(len(out["record"]["codes"]) == 256, "/generate did not sample 256 tokens")
+                    generated.append({"temperature": temperature, "wall_ms": (time.perf_counter() - t0) * 1e3})
+    torch.cuda.synchronize()
+    launches = path_launches()
+    check(all(launches[k] > 0 for k in SERVING_KERNELS), f"a kernel was not launched by the daemon: {launches}")
+    check(all(launches[k] == 0 for k in BWD_KERNELS), f"the daemon ran a backward kernel: {launches}")
+
+    # at a budget of every token, a served /reconstruct is the in-process call, bit for bit
+    cfg = base.model.config
+    proc0 = dt.DCTAutoencoderFeatureExtractor(
+        channels=cfg.image_channels, patch_size=cfg.patch_size, sample_patches_beta=0.0, max_patch_h=cfg.max_patch_h,
+        max_patch_w=cfg.max_patch_w, max_seq_len=get_max_seq_length(cfg, 0.0),
+    )
+    pipe0 = dt.DCTPipeline(base.model, proc0, pad_rows_to=8, pad_tokens_to=128)
+    with _Daemon(pipe0, 16) as d:
+        status, raw = _post(d.port, "/reconstruct", npy_bytes(as_u8(ims[1])), bin_hdr)
+    check(status == 200, f"/reconstruct answered {status}")
+    served = np.load(io.BytesIO(raw))
+    local = pipe0.reconstruct_direct([as_u8(ims[1]).astype(np.float32) / 255.0], as_uint8=True)[0]
+    check(served.dtype == np.uint8 and np.array_equal(served, local), "a served /reconstruct differs from reconstruct_direct")
+    emit({
+        "phase": "serving_daemon_r3b", "weights": "int8 weight-only sibling (model-int8-wo)", "pad_rows_to": 8,
+        "pad_tokens_to": 128, "image": [3, 448, 448], "codec": "npy uint8", "requests_per_config": n_requests,
+        "load": load, "idct_launches_per_batch_max_batch_16_concurrency_8": per_batch_idct,
+        "in_process_ms": in_process_ms, "in_process_profile": in_process_profile,
+        "generate": generated, "served_equals_in_process_at_beta_0": True, "launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
 # (cases key, name, source, TPU kernel, launch counter, the main path its count is read from)
 KERNEL_TABLE = [
     ("attention", "packed_attention_fwd", "dct_autoencoder_torch/csrc/attention_fwd.cu",
-     "dct_autoencoder_tpu/kernels/attention.py:91", "attention", "serving"),
+     "dct_autoencoder_tpu/kernels/attention.py:91", "attention", "serving_daemon"),
     ("attention_dq", "packed_attention_bwd_dq", "dct_autoencoder_torch/csrc/attention_bwd.cu",
      "dct_autoencoder_tpu/kernels/attention.py:194", "attention_dq", "train_patch14l"),
     ("attention_dkv", "packed_attention_bwd_dkv", "dct_autoencoder_torch/csrc/attention_bwd.cu",
@@ -1300,9 +1691,9 @@ KERNEL_TABLE = [
     ("attention_dkv_causal", "packed_attention_bwd_dkv_causal", "dct_autoencoder_torch/csrc/attention_bwd.cu",
      "dct_autoencoder_tpu/kernels/attention.py:80", "attention_dkv_causal", "ar_train"),
     ("dct", "fused_ipt_dct_patchify", "dct_autoencoder_torch/csrc/dct_patchify.cu",
-     "dct_autoencoder_tpu/kernels/dct_patchify.py:43", "dct_patchify", "serving"),
+     "dct_autoencoder_tpu/kernels/dct_patchify.py:43", "dct_patchify", "serving_daemon"),
     ("idct", "fused_idct_unpatchify_rgb", "dct_autoencoder_torch/csrc/idct_unpatchify.cu",
-     "dct_autoencoder_tpu/kernels/idct_unpatchify.py:47", "idct_unpatchify", "serving"),
+     "dct_autoencoder_tpu/kernels/idct_unpatchify.py:47", "idct_unpatchify", "serving_daemon"),
 ]
 SERVING_KERNELS = ("attention", "dct_patchify", "idct_unpatchify")
 FWD_KERNELS = ("attention", "attention_causal")
@@ -1311,7 +1702,8 @@ BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attentio
 # bfloat16 runs on the tensor cores; the AR example tokenizes in bfloat16 and
 # trains its AR model in float32, on the CUDA-core kernels
 PATH_IMPLS = {
-    "serving": ("mma", "mma"), "full_width": ("mma", "mma"), "train_r3b": ("mma", "mma"),
+    "serving": ("mma", "mma"), "reconstruct_direct": ("mma", "mma"), "serving_daemon": ("mma", "mma"),
+    "full_width": ("mma", "mma"), "train_r3b": ("mma", "mma"),
     "train_patch14l": ("mma", "mma"), "ar_train": ("mma", "mma"), "ar_example": ("mma", "simt"),
 }
 
@@ -1346,6 +1738,9 @@ def main() -> int:
         return 0
     profile = "--profile" in sys.argv[1:]
     launches = {"serving": phase_serving()}
+    launches["reconstruct_direct"] = phase_reconstruct_direct_patch14l()
+    torch.cuda.empty_cache()
+    phase_quantize_gate_r3b()
     launches["full_width"] = phase_full_width(profile)
     torch.cuda.empty_cache()
     launches["train_r3b"] = phase_train_r3b()
@@ -1353,8 +1748,9 @@ def main() -> int:
     launches["train_patch14l"] = phase_train_full_width(profile)
     torch.cuda.empty_cache()
     launches["ar_train"], ar_model = phase_ar_train_full_width(profile)
-    launches["ar_example"] = phase_ar_example_r3b()
+    launches["ar_example"], example_ar_model = phase_ar_example_r3b()
     phase_ar_sampling(ar_model)
+    launches["serving_daemon"] = phase_serving_daemon_r3b(example_ar_model)
 
     for path, impls in PATH_IMPLS.items():
         check_impl_launches(launches[path], *impls)

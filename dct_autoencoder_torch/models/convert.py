@@ -24,7 +24,7 @@ their names and layouts, since none of them is called ``kernel`` or
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -120,4 +120,38 @@ def jax_arrays_from_state_dict(
     missing = sorted(set(want) - set(state_dict))
     if missing:
         raise KeyError(f"parameters missing from the state_dict: {missing}")
+    return out
+
+
+def jax_param_tree(state_dict: Mapping[str, torch.Tensor], config) -> Dict[str, Any]:
+    """The JAX package's nested parameter tree (dicts of numpy arrays) of a
+    state_dict, with the keys of every level sorted: the order in which
+    jax.tree_util walks a dict, and the order of the tree of a checkpoint
+    that the JAX package loaded (its ``from_pretrained`` rebuilds the tree
+    with ``tree_unflatten``), so ``layers_10`` comes before ``layers_2``.
+    Code that draws random numbers while it walks the tree draws them in
+    the JAX package's order."""
+    tree: Dict[str, Any] = {}
+    for key, arr in jax_arrays_from_state_dict(state_dict, config).items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+
+    def ordered(node):
+        return {k: ordered(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
+
+    return ordered(tree)
+
+
+def flatten_jax_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Inverse of ``jax_param_tree``: flat '/'-joined paths, as in params.npz."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(flatten_jax_tree(v, path))
+        else:
+            out[path] = v
     return out

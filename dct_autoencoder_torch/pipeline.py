@@ -8,6 +8,17 @@ Encode runs the batched front-end kernel, packing, patchnorm and the model
 forward; decode rebuilds one packed row per record, runs decode_from_codes,
 the inverse patchnorm and the back-end kernel.  Records use the JAX
 package's schema, so either package decodes the other's records.
+
+``reconstruct_direct`` is the serving daemon's /reconstruct: no token
+records, and for a group of images of one size one back-end launch over the
+whole group and one copy of uint8 pixels to the host.
+
+``pad_rows_to`` / ``pad_tokens_to`` are the JAX package's shape buckets:
+encode pads the packed rows to a multiple (fully masked rows), decode pads
+each record's tokens to a multiple (masked tokens).  The port compiles no
+program per shape, but it keeps them so that a daemon configured for either
+package runs the same shapes and the same records come out; padding is
+masked everywhere, so records and images equal the unpadded path's.
 """
 from __future__ import annotations
 
@@ -18,11 +29,14 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .kernels.idct_unpatchify import fused_idct_unpatchify_rgb
 from .models.autoencoder import DCTAutoencoder
 from .models.config import DCTAutoencoderConfig
 from .models.factory import get_model_and_processor
 from .patches.container import from_dict, to_dict
 from .patches.extractor import DCTAutoencoderFeatureExtractor
+from .train.loop import pad_batch_rows
+from .train.pixel_loss import row_image_layout, unpatch_to_planes
 
 
 def _int8_sibling(path: str, record: dict) -> Optional[str]:
@@ -45,9 +59,20 @@ def _int8_sibling(path: str, record: dict) -> Optional[str]:
 
 
 class DCTPipeline:
-    def __init__(self, model: DCTAutoencoder, processor: DCTAutoencoderFeatureExtractor):
+    def __init__(
+        self,
+        model: DCTAutoencoder,
+        processor: DCTAutoencoderFeatureExtractor,
+        data_parallel: bool = False,
+        pad_rows_to: int = 0,
+        pad_tokens_to: int = 0,
+    ):
+        if data_parallel:
+            raise NotImplementedError("data_parallel (encode rows sharded over several devices) is not ported yet")
         self.model = model
         self.processor = processor
+        self.pad_rows_to = pad_rows_to
+        self.pad_tokens_to = pad_tokens_to
 
     @classmethod
     def from_pretrained(
@@ -117,6 +142,8 @@ class DCTPipeline:
         cols = {k: [d[k] for d in ds] for k in ds[0]}
         records: List[dict] = []
         for batch in self.processor.iter_batches(iter([cols]), batch_size=batch_size, drain=batch_size is not None):
+            if self.pad_rows_to:
+                batch = pad_batch_rows(batch, self.pad_rows_to)
             out = self.model.forward(self.model.normalize_(batch))
             records.extend(to_dict(out["dct_patches"], out["codes"]))
         return records
@@ -126,6 +153,18 @@ class DCTPipeline:
         images: List[np.ndarray] = []
         for rec in records:
             dp, codes = from_dict(rec, device=self.model.device)
+            n = codes.shape[0]
+            padn = (-n) % self.pad_tokens_to if self.pad_tokens_to else 0
+            if padn:
+                # masked tokens land in revert_patching's trash slot
+                codes = np.concatenate([codes, np.zeros((padn, codes.shape[1]), codes.dtype)])
+                pad1 = lambda t, fill: torch.cat([t, t.new_full((1, padn, *t.shape[2:]), fill)], dim=1)
+                dp = dp.replace(
+                    key_pad_mask=pad1(dp.key_pad_mask, True),
+                    batched_image_ids=pad1(dp.batched_image_ids, 0),
+                    patch_channels=pad1(dp.patch_channels, 0),
+                    patch_positions=pad1(dp.patch_positions, 0),
+                )
             decoded = self.model.decode_from_codes(
                 torch.from_numpy(codes)[None],
                 key_pad_mask=dp.key_pad_mask,
@@ -142,3 +181,49 @@ class DCTPipeline:
     def reconstruct(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         """encode + decode in one step (keeps the image order)."""
         return self.decode(self.encode(images))
+
+    @torch.no_grad()
+    def reconstruct_direct(self, images: Sequence[np.ndarray], as_uint8: bool = False) -> List[np.ndarray]:
+        """reconstruct() without the token records: the serving path.
+
+        The forward decodes from the same quantized codes that encode would
+        write, so the images are those of reconstruct() (within 1e-5 in fp32
+        on the CPU).  A group of images that share their patch grid and size
+        (clients resize to a bucket) goes normalize -> forward -> inverse
+        patchnorm -> scatter onto DCT planes -> one IDCT launch over
+        ``bucket`` slots (the next power of two >= the group's images, as the
+        JAX package buckets its program; empty slots cost the IDCT of a zero
+        plane) -> clamp, and with as_uint8 ``(x * 255 + 0.5)`` to uint8, on
+        the device; the pixels come to the host in one copy.  Groups of mixed
+        sizes take the host scatter and one back-end launch per size."""
+        ds = self.processor.preprocess_many(images)
+        cols = {k: [d[k] for d in ds] for k in ds[0]}
+        outs: List[np.ndarray] = []
+        for batch in self.processor.iter_batches(iter([cols]), batch_size=None):
+            if self.pad_rows_to:
+                batch = pad_batch_rows(batch, self.pad_rows_to)
+            out = self.model.forward(self.model.normalize_(batch))
+            decoded = self.model.inv_normalize_(out["dct_patches"])
+            n_images = len(batch.patch_sizes)
+            if len(set(batch.patch_sizes)) == 1 and len(set(batch.original_sizes)) == 1:
+                bucket = 1 << (n_images - 1).bit_length()
+                imgs = self._fused_reconstruct(decoded, batch.patch_sizes[0], batch.original_sizes[0], bucket, as_uint8)
+                outs.extend(imgs[i] for i in range(n_images))
+                continue
+            for im in self.processor.postprocess(decoded):
+                im = np.clip(im, 0.0, 1.0)
+                outs.append((im * 255.0 + 0.5).astype(np.uint8) if as_uint8 else im)
+        return outs
+
+    def _fused_reconstruct(self, decoded, grid, orig, max_images: int, as_uint8: bool) -> np.ndarray:
+        """Decoded patches of one uniform group -> (max_images, c, h, w) pixels on the host."""
+        p, c = self.processor.patch_size, self.processor.channels
+        (ph, pw), (h, w) = grid, orig
+        if not (ph * p <= h and pw * p <= w):
+            raise ValueError(f"patch grid {grid} of {p}px patches does not fit the image size {orig}")
+        offsets, _ = row_image_layout(decoded)
+        planes = unpatch_to_planes(decoded.patches, decoded, offsets, (ph, pw), p, c, max_images)
+        rgb = fused_idct_unpatchify_rgb(planes, h, w).clamp_(0.0, 1.0)
+        if as_uint8:
+            rgb = (rgb * 255.0 + 0.5).to(torch.uint8)
+        return rgb.cpu().numpy()

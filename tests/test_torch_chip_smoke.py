@@ -217,3 +217,41 @@ def test_dct_bounds_count_three_tf32_products():
     assert rows["bound_ms"] == rows["bound_tf32x3_ms"]
     assert rows["bound_fp32_cuda_cores_ms"] == pytest.approx(0.2578, rel=1e-3)
     assert rows["bound_bytes_ms"] == pytest.approx(0.0235, rel=1e-2)
+
+
+def test_serving_slice_phases_and_limits():
+    """The phases of the serving slice run, in this order, with the limits
+    their checks state."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = ["phase_serving()", "phase_reconstruct_direct_patch14l()", "phase_quantize_gate_r3b()",
+             "phase_ar_example_r3b()", "phase_serving_daemon_r3b(example_ar_model)"]
+    assert all(call in main for call in order)
+    assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
+    # reconstruct_direct in uint8 against reconstruct on the same tokens: the JAX package's 40 dB
+    assert chip_smoke.MIN_DIRECT_VS_ROUNDTRIP_PSNR_DB == 40.0
+    assert inspect.signature(chip_smoke.phase_reconstruct_direct_patch14l).parameters["n_images"].default == 16
+    assert inspect.signature(chip_smoke.phase_quantize_gate_r3b).parameters["n_images"].default == 6
+    assert inspect.signature(chip_smoke.phase_serving_daemon_r3b).parameters["n_requests"].default == 64
+    # the fp32 backward's determinism: 20 runs in each mode, same bits, 1e-5 from
+    # the plain versions on the card and from float64
+    assert inspect.signature(chip_smoke._attention_bwd_determinism).parameters["runs"].default == 20
+    src = inspect.getsource(chip_smoke._attention_bwd_determinism)
+    for needle in ("check(differing == 0", "check(outside(first, ref) == 0", "check(outside(first, ref64) == 0",
+                   "1e-5 + 1e-5 * r.abs()", "_poison_allocator()"):
+        assert needle in src, needle
+    assert 'for mode in ("block", "bias")' in inspect.getsource(chip_smoke.phase_kernels)
+    # the IDCT at reconstruct_direct's launch shape is held and timed
+    assert (8, 448, 448, 14, (448, 448), True) in chip_smoke.DCT_CASES
+    # the daemon and reconstruct_direct are paths whose launches are read
+    assert {"reconstruct_direct", "serving_daemon"} <= set(chip_smoke.PATH_IMPLS)
+    paths = {row[4]: row[5] for row in chip_smoke.KERNEL_TABLE}
+    assert all(paths[k] == "serving_daemon" for k in chip_smoke.SERVING_KERNELS)
+    # the daemon phase's checks: micro-batching, no backward kernel, bit-equal serving at beta 0, a clean shutdown
+    src = inspect.getsource(chip_smoke.phase_serving_daemon_r3b)
+    for needle in ("batches < served", "BWD_KERNELS", "np.array_equal(served, local)", "pad_rows_to=8", "pad_tokens_to=128"):
+        assert needle in src, needle
+    assert "did not shut down" in inspect.getsource(chip_smoke._Daemon)
+    # the int8 product ran once a dynamic layer: no layer fell back
+    assert "int_mm == len(dynamic_layers)" in inspect.getsource(chip_smoke.phase_reconstruct_direct_patch14l)

@@ -112,20 +112,60 @@ def test_attention_backward_kernels_match_plain(cuda, b, h, s, d, dtype, mode):
         assert (got[0].transpose(1, 2)[pad] == 0).all()
 
 
+def _poison_allocator():
+    """Fill the blocks the caching allocator hands out next (small and large pools) with NaN."""
+    small = [torch.full((n,), float("nan"), device="cuda") for n in (1 << 12, 1 << 15, 1 << 18) for _ in range(32)]
+    large = torch.full((64 << 20,), float("nan"), device="cuda")
+    torch.cuda.synchronize()
+    del small, large
+
+
+def _grads_f64(q, k, v, ids, pad, scale, mode):
+    """d sum(o^2) / d(q, k, v) of the kernels' function in float64 on the CPU."""
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    qq, kk, vv = (t.double().requires_grad_(True) for t in (q, k, v))
+    logits = torch.einsum("bhqd,bhkd->bhqk", qq, kk) * scale
+    allowed = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+    logits = logits + allowed.double() if mode == "bias" else torch.where(allowed, logits, torch.full_like(logits, tatt.NEG_INF))
+    m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=tatt.NEG_INF * 0.5).detach()
+    p = torch.exp(logits - m)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vv) / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-9)
+    (o**2).sum().backward()
+    return [t.grad for t in (qq, kk, vv)]
+
+
 @pytest.mark.parametrize("mode", ["block", "bias"])
 def test_attention_gradients_match_cpu(cuda, mode):
     """fp32 gradients through the autograd.Function on the card against the
-    plain path on the CPU, with the head merge's transposed grad_output."""
+    plain path on the CPU, with the head merge's transposed grad_output.  The
+    card's computation is repeated 5 times, each after filling the memory the
+    allocator hands out next with NaN: every repeat must give the same bits (a
+    kernel that read memory nothing wrote would not).  Both sides are also
+    held to a float64 computation (same limits), so that a failure names the
+    side that moved."""
     b, h, s, d = 2, 4, 173, 32
     q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.float32, "cpu", seed=2)
-    grads = {}
-    for dev in ("cpu", "cuda"):
+    ref64 = _grads_f64(q, k, v, ids, pad, d**-0.5, mode)
+
+    def grads(dev):
         qq, kk, vv = (t.clone().to(dev).requires_grad_(True) for t in (q, k, v))
         o = tatt.packed_flash_attention(qq, kk, vv, ids.to(dev), pad.to(dev), d**-0.5, mode)
         (o.transpose(1, 2).reshape(b, s, h * d) ** 2).sum().backward()
-        grads[dev] = [t.grad.cpu() for t in (qq, kk, vv)]
-    for a, c in zip(grads["cpu"], grads["cuda"]):
-        torch.testing.assert_close(c, a, atol=1e-5, rtol=1e-5)
+        return [t.grad.cpu() for t in (qq, kk, vv)]
+
+    want = grads("cpu")
+    for a, r in zip(want, ref64):
+        torch.testing.assert_close(a.double(), r, atol=1e-5, rtol=1e-5, msg=lambda m: f"the CPU side against float64: {m}")
+    first = None
+    for _ in range(5):
+        _poison_allocator()
+        got = grads("cuda")
+        first = first or got
+        assert all(torch.equal(x, y) for x, y in zip(first, got)), "a repeat on the card gave other bits"
+        for c, r in zip(got, ref64):
+            torch.testing.assert_close(c.double(), r, atol=1e-5, rtol=1e-5, msg=lambda m: f"the card against float64: {m}")
+        for a, c in zip(want, got):
+            torch.testing.assert_close(c, a, atol=1e-5, rtol=1e-5)
 
 
 def test_attention_backward_refuses_bad_input_on_cuda(cuda):
@@ -480,3 +520,80 @@ def test_dct_kernel_info(cuda):
             info = tdp.kernel_info(lib, which)
             spill = 0 if which == 1 else 16
             assert 0 < info["num_regs"] <= 255 and info["local_size_bytes"] <= spill and info["blocks_per_sm"] >= 2, (lib, which, info)
+
+
+# ---------------------------------------------------------------- int8 serving and reconstruct_direct
+
+
+@pytest.mark.parametrize("group_size", [0, 128])
+@pytest.mark.parametrize("d_in,d_out", [(1024, 4096), (4096, 1024)])  # patch14-L's fc1 and fc2
+def test_int8_dense_dynamic_on_card_matches_cpu(cuda, d_in, d_out, group_size):
+    """The dynamic int8 layer at patch14-L widths: the int32 sums are exact and
+    every other step is the same fp32 operation, so the card gives the CPU's
+    bits, in fp32 and in bf16 (one rounding of equal fp32 values)."""
+    from dct_autoencoder_torch.models import quant as tq
+
+    g = torch.Generator().manual_seed(d_in + group_size)
+    w = (torch.randn(d_in, d_out, generator=g) * 0.02).numpy()
+    q, scale = tq._quantize_weight(w, group_size)
+    x = torch.randn(3, 333, d_in, generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        layers = {}
+        for dev in ("cpu", cuda):
+            layer = tq.Int8Dense(d_in, d_out, dtype=dtype, group_size=group_size, mode="dynamic")
+            layer.load_state_dict({"kernel_q": torch.from_numpy(q), "kernel_scale": torch.from_numpy(scale),
+                                   "bias": torch.randn(d_out, generator=torch.Generator().manual_seed(1))})
+            layers[str(dev)] = layer.to(dev)
+        calls = tq.INT_MM_CALLS
+        got = layers["cuda"](x.to(dtype).to(cuda))
+        torch.cuda.synchronize()
+        assert tq.INT_MM_CALLS - calls == (d_in // group_size if group_size else 1)
+        want = layers["cpu"](x.to(dtype))
+        assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+def test_int8_matmul_pads_to_the_card_s_shape_rules(cuda):
+    """torch._int_mm on the card takes more than 16 rows and widths that are
+    multiples of 8: smaller and odd shapes are padded, the sums stay exact."""
+    from dct_autoencoder_torch.models import quant as tq
+
+    g = torch.Generator().manual_seed(0)
+    for m, k, n in [(1, 3, 5), (16, 24, 8), (17, 20, 12), (333, 1024, 4096)]:
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        got = tq.int8_matmul(a.to(cuda), b.t().contiguous().to(cuda))
+        assert got.shape == (m, n) and torch.equal(got.cpu(), a.int() @ b.int())
+
+
+def test_reconstruct_direct_on_card_matches_cpu(cuda):
+    """reconstruct_direct of the r3b float model in fp32 on the card (the
+    kernels) against the plain path on the CPU, on the same tokens: > 40 dB
+    between them (the JAX package's figure for two paths at rounding level),
+    one IDCT launch for the uniform group, and its uint8 output the host
+    quantization of its float output."""
+    import os
+    import random
+
+    import numpy as np
+
+    import dct_autoencoder_torch as dt
+
+    r3b = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs", "calibrated_run_r3b", "model")
+    rng = np.random.default_rng(0)
+    ims = [rng.uniform(0.1, 0.9, size=(3, 224, 224)).astype(np.float32) for _ in range(5)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pipe = dt.DCTPipeline.from_pretrained(r3b, dtype=torch.float32, device=dev, prefer_int8="never")
+        pipe = dt.DCTPipeline(pipe.model, pipe.processor, pad_rows_to=8)
+        pipe.processor.rng = random.Random(0)
+        tk.reset_launch_counts()
+        out[dev] = pipe.reconstruct_direct(ims)
+        if dev == "cuda":
+            assert tk.launch_counts()["idct_unpatchify"] == 1
+            pipe.processor.rng = random.Random(0)
+            u8 = pipe.reconstruct_direct(ims, as_uint8=True)
+            for f, u in zip(out[dev], u8):
+                assert u.dtype == np.uint8 and np.array_equal((np.clip(f, 0, 1) * 255.0 + 0.5).astype(np.uint8), u)
+    for a, c in zip(out["cpu"], out["cuda"]):
+        mse = float(np.mean((a.astype(np.float64) - c) ** 2))
+        assert 10 * np.log10(1.0 / max(mse, 1e-20)) > 40.0

@@ -156,10 +156,16 @@ def test_int8_dense_matches_jax(group_size, dtype):
 
 
 def test_dynamic_mode_is_refused_by_name():
+    """The 'dynamic' mode is ported now (tests/test_torch_quant.py): a config
+    asking for it builds dynamic Int8Dense layers, and a mode that neither
+    package has is refused by name."""
     cfg = TorchConfig.from_dict(tiny_config().to_dict())
     cfg.encoder_config.quantize_int8 = True
     cfg.encoder_config.quantize_int8_mode = "dynamic"
-    with pytest.raises(NotImplementedError, match="dynamic"):
+    layers = [m for m in TorchAE(cfg, device="cpu").module.modules() if isinstance(m, tquant.Int8Dense)]
+    assert len(layers) == 12 and all(m.mode == "dynamic" for m in layers)
+    cfg.encoder_config.quantize_int8_mode = "int4"
+    with pytest.raises(ValueError, match="int4"):
         TorchAE(cfg, device="cpu")
 
 

@@ -80,14 +80,14 @@ def jax_pre_sign(jm, nb) -> np.ndarray:
     return np.asarray(inter["encoder"]["__call__"][0])
 
 
-def assert_codes_match(got, want, pre, codebook_dim, valid):
+def assert_codes_match(got, want, pre, codebook_dim, valid, slack=PRE_SIGN_SLACK):
     """Codes equal; a flipped bit is allowed only where |pre-sign| <= slack."""
     if np.array_equal(got[valid], want[valid]):
         return
     shifts = np.arange(codebook_dim - 1, -1, -1)
     bits = lambda c: (c[..., None] >> shifts) & 1
     flipped = (bits(got) != bits(want))[valid].reshape(-1)
-    near_zero = np.abs(pre.reshape(*got.shape, codebook_dim))[valid].reshape(-1) <= PRE_SIGN_SLACK
+    near_zero = np.abs(pre.reshape(*got.shape, codebook_dim))[valid].reshape(-1) <= slack
     assert (near_zero | ~flipped).all(), "a bit flipped whose pre-sign value is far from 0"
 
 

@@ -182,6 +182,8 @@ def test_records_match_jax_records(pipelines):
 def test_port_imports_no_jax():
     code = (
         "import sys, dct_autoencoder_torch, dct_autoencoder_torch.train, dct_autoencoder_torch.ops.stats\n"
+        "import dct_autoencoder_torch.train.pixel_loss, dct_autoencoder_torch.models.quant\n"
+        "from dct_autoencoder_torch.tools import serve, bench_serving, quantize_checkpoint, int8_study\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'dct_autoencoder_tpu'))]\n"
         "assert not bad, bad\n"
     )
