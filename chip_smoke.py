@@ -36,7 +36,16 @@ also against a float64 plain version), and then drives the paths themselves:
   * the serving daemon (tools/serve.py) on the trained checkpoint's int8
     sibling with the shape buckets: binary /reconstruct from the load client
     (tools/bench_serving.py) at concurrency 1 and 8 under max_batch 16 and 1,
-    JSON /encode + /decode, and /generate over the AR example's model.
+    JSON /encode + /decode, and /generate over the AR example's model;
+  * AdamW8bit over patch14-L's ~205 M parameters: 3 updates on the card and
+    on the CPU (the same codes and absmax), timed beside fp32 AdamW;
+  * train() on the trained checkpoint with the pixel loss and 8-bit moments,
+    step 0 against the fp32 CPU step (and accumulation 2 against it too);
+  * the training CLI (train/cli.py) at the full width of patch14-L on PNG tar
+    shards written in a temporary directory: 8-bit moments, the pixel loss,
+    prefetch, augmentation, image grids (the IDCT kernel) and checkpoints for
+    8 steps, timed, with the device-busy share of steps 1-4 under the
+    profiler, then the same 4 steps without prefetch.
 The kernels' phase also runs the fp32 attention backward 20 times in each
 mask mode after filling the allocator's free memory with NaN, and requires
 the same bits every time.
@@ -937,6 +946,17 @@ def packed_batch(cfg, max_seq_len=256, rows=64, beta=0.02, seed=0, device="cuda"
     return batch, n_images
 
 
+def device_rows(prof) -> list:
+    """The profiler's device events by name, without user annotations: an
+    annotation such as "Optimizer.step#AdamW.step" spans kernels that are
+    listed on their own, and counting it too would count them twice."""
+    return [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
+    ]
+
+
 def profile_device(forward, reps=3, top=12):
     """Device time by kernel over `reps` calls of forward() (torch.profiler), per call."""
     from torch.profiler import ProfilerActivity, profile
@@ -948,11 +968,7 @@ def profile_device(forward, reps=3, top=12):
             forward()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rows = [
-        (e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
+    rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps) for e in device_rows(prof)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     check(busy > 0, "the profiler saw no device time")
@@ -1673,10 +1689,344 @@ def phase_serving_daemon_r3b(ar_model, n_requests=64):
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+def phase_opt8bit_card_vs_cpu(updates=3, timed=5):
+    """AdamW8bit over patch14-L's parameters at random init: 3 updates from
+    synthetic gradients on the card and on the CPU (same codes and absmax, bit
+    for bit; parameters within 1e-6), then ms an update beside fp32 AdamW."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch.train.opt8bit import AdamW8bit, opt_state_bytes
+
+    cfg = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    cpus = list(dt.DCTAutoencoder(cfg, device="cpu", seed=0).module.parameters())
+    cards = [torch.nn.Parameter(p.detach().to("cuda")) for p in cpus]
+    n_params = sum(p.numel() for p in cards)
+    opt_card, opt_cpu = AdamW8bit(cards, lr=1e-4), AdamW8bit(cpus, lr=1e-4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cpu_s = []
+    for _ in range(updates):
+        for pc, pg in zip(cpus, cards):
+            pg.grad = torch.randn(pg.shape, device="cuda", generator=gen) * 1e-3
+            pc.grad = pg.grad.cpu()
+        opt_card.step()
+        t0 = time.perf_counter()
+        opt_cpu.step()
+        cpu_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    codes_equal = all(
+        torch.equal(opt_card.state[pg][k].cpu(), opt_cpu.state[pc][k])
+        for pg, pc in zip(cards, cpus) for k in ("mu_codes", "nu_codes", "mu_absmax", "nu_absmax")
+    )
+    param_err = max((pg.detach().cpu() - pc.detach()).abs().max().item() for pg, pc in zip(cards, cpus))
+    check(codes_equal, "8-bit codes or absmax differ between the card and the CPU")
+    check(param_err <= 1e-6, f"parameters after {updates} updates differ by {param_err} between the card and the CPU")
+    del opt_cpu, cpus
+
+    ms_8bit = time_ms(opt_card.step, reps=timed)
+    bytes_8bit = opt_state_bytes(opt_card)
+    del opt_card
+    fp32 = torch.optim.AdamW(cards, lr=1e-4, betas=(0.9, 0.99), weight_decay=0.1)  # the default foreach
+    ms_fp32 = time_ms(fp32.step, reps=timed)
+    bytes_fp32 = opt_state_bytes(fp32)
+    check(bytes_8bit < bytes_fp32 / 3.5 and bytes_8bit / n_params < 2.5,
+          f"8-bit state {bytes_8bit} B against fp32 {bytes_fp32} B for {n_params} parameters")
+    emit({
+        "phase": "opt8bit_card_vs_cpu", "params": n_params, "tensors": len(cards), "updates": updates,
+        "codes_and_absmax_equal": codes_equal, "max_param_diff": param_err,
+        "ms_per_update_8bit": ms_8bit, "ms_per_update_fp32_adamw_foreach": ms_fp32,
+        "cpu_s_per_update_8bit": statistics.median(cpu_s),
+        "state_bytes_8bit": bytes_8bit, "state_bytes_fp32": bytes_fp32,
+        "state_bytes_per_param_8bit": bytes_8bit / n_params, "state_ratio_fp32_over_8bit": bytes_fp32 / bytes_8bit,
+    })
+    del fp32, cards
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 12
+
+
+def phase_train_pixel_r3b(steps=4, learning_rate=3e-4, n_images=16):
+    """train() on the trained checkpoint with the pixel loss and 8-bit moments
+    (16 x 448^2, one fixed batch); step 0 against the fp32 CPU step with the
+    same flags, and accumulation 2 against it too."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+
+    flags = dict(use_pixel_loss=True, pixel_loss_max_images=n_images, opt_8bit=True)
+    model, proc = dt.get_model_and_processor(resume_path=R3B, dtype=torch.bfloat16)
+    proc.rng = random.Random(0)
+    cols = _columns(proc.preprocess_many(smooth_images(n_images, 448, seed=2)))
+    n_layers = model.config.encoder_config.num_hidden_layers + model.config.decoder_config.num_hidden_layers
+
+    logs = []
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, state = T.train(model, proc, iter([cols] * steps), batch_size=None, learning_rate=learning_rate,
+                           max_iters=steps, log_every=1, log=logs.append, **flags)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = path_launches()
+    check(state.step == steps and len(logs) == steps, f"{state.step} steps, {len(logs)} log lines for {steps}")
+    check(isinstance(state.adamw, T.AdamW8bit), "train(opt_8bit=True) did not build AdamW8bit")
+    for name in ("attention", "attention_dq", "attention_dkv"):
+        check(launches[name] == n_layers * steps, f"{launches[name]} {name} launches for {n_layers} layers x {steps} steps")
+    keys = ("loss", "pixel_loss", "rec_loss", "rec_loss_unnormalized", "commit_loss", "entropy_loss", "grad_norm")
+    check(all(math.isfinite(m[k]) for m in logs for k in keys), f"a loss of the pixel-loss run is not finite: {logs}")
+
+    cpu_model, cpu_proc = dt.get_model_and_processor(resume_path=R3B, dtype=torch.float32, device="cpu")
+    tx = T.make_optimizer(learning_rate, steps, opt_8bit=True)
+    batch = next(cpu_proc.iter_batches(iter([cols]), batch_size=None))
+    batch, grid_sizes = T.prepare_train_batch(batch, n_images, (model.config.max_patch_h, model.config.max_patch_w))
+    _, cpu = T.make_train_step(cpu_model.module, tx, use_pixel_loss=True)(
+        T.TrainState.create(cpu_model.module, tx), cpu_model.patchnorm, batch, grid_sizes
+    )
+    cpu = {k: float(v) for k, v in cpu.items()}
+
+    accum_logs = []
+    model2, proc2 = dt.get_model_and_processor(resume_path=R3B, dtype=torch.bfloat16)
+    T.train(model2, proc2, iter([cols]), batch_size=None, learning_rate=learning_rate, max_iters=1,
+            grad_accumulation_steps=2, log_every=1, log=accum_logs.append, **flags)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    loss_rel, norm_rel = rel(logs[0]["loss"], cpu["loss"]), rel(logs[0]["grad_norm"], cpu["grad_norm"])
+    accum_rel = rel(accum_logs[0]["loss"], cpu["loss"])
+    check(loss_rel <= MAX_TRAIN_LOSS_REL, f"step-0 loss {logs[0]['loss']} vs CPU fp32 {cpu['loss']}")
+    check(norm_rel <= MAX_TRAIN_GRAD_NORM_REL, f"step-0 grad norm {logs[0]['grad_norm']} vs CPU fp32 {cpu['grad_norm']}")
+    check(accum_rel <= MAX_TRAIN_LOSS_REL, f"accumulation 2: step-0 loss {accum_logs[0]['loss']} vs CPU fp32 {cpu['loss']}")
+    emit({
+        "phase": "train_pixel_r3b", "steps": steps, "dtype": "bfloat16 compute, float32 masters",
+        "flags": flags, "images": n_images, "rows": int(batch.patches.shape[0]),
+        "tokens": int((~batch.key_pad_mask).sum()), "learning_rate": learning_rate,
+        "step0": {k: logs[0][k] for k in keys}, "step0_cpu_fp32": {k: cpu[k] for k in keys},
+        "step0_accum2": {k: accum_logs[0][k] for k in keys},
+        "step0_loss_rel_diff": loss_rel, "step0_grad_norm_rel_diff": norm_rel, "step0_accum2_loss_rel_diff": accum_rel,
+        "loss_last": logs[-1]["loss"], "launches": launches, "wall_s": wall_s,
+    })
+    del model2, proc2
+    return launches
+
+
+# ---------------------------------------------------------------- phase 13
+
+
+# raw-image sizes (h, w) of the CLI phase's shards: 336 to 768 px, mostly
+# small (the host decodes and augments one image at a time: ~33 ms an image
+# on an H100 machine's host when 5 of these 14 sizes were 640 px or more), a
+# few distinct preprocess shapes; one over the 768 cap and one under the
+# resolution floor (12 x 14 px) too
+CLI_IMAGE_SIZES = [(336, 336), (448, 448), (336, 448), (448, 336), (384, 384), (336, 336), (384, 512), (336, 336),
+                   (448, 448), (512, 384), (768, 576), (336, 384), (900, 600), (128, 128)]
+
+
+def write_image_shards(folder, n, seed=0):
+    """Tar shards of n PNG images (smooth fields, bicubic from a random 6 x 6
+    grid) with json sizes, through the port's ShardWriter."""
+    from PIL import Image
+
+    from dct_autoencoder_torch.data.shards import ShardWriter
+
+    rng = np.random.default_rng(seed)
+    with ShardWriter(os.path.join(folder, "%06d.tar"), maxsize=16e6) as w:
+        for i in range(n):
+            h, wd = CLI_IMAGE_SIZES[i % len(CLI_IMAGE_SIZES)]
+            seed_im = Image.fromarray(rng.integers(40, 216, size=(6, 6, 3), dtype=np.uint8))
+            buf = io.BytesIO()
+            seed_im.resize((wd, h), Image.BICUBIC).save(buf, format="PNG", compress_level=1)
+            w.write({"__key__": f"{i:08d}", "png": buf.getvalue(), "json": {"height": h, "width": wd}})
+
+
+class StepClock:
+    """Wraps train/loop.py's make_train_step while a CLI run trains: the end
+    time of every step (after a synchronize), the last state, and a
+    torch.profiler window from the end of step `window[0] - 1` to the end of
+    step `window[1] - 1`."""
+
+    def __init__(self, window):
+        self.window = window
+        self.ends, self.state, self.prof, self.prof_running = [], None, None, False
+
+    def __enter__(self):
+        from dct_autoencoder_torch.train import loop
+
+        self.loop, self.orig = loop, loop.make_train_step
+        loop.make_train_step = self._make
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.make_train_step = self.orig
+        if self.prof_running:
+            self.prof.stop()
+
+    def _make(self, *args, **kwargs):
+        from torch.profiler import ProfilerActivity, profile
+
+        step = self.orig(*args, **kwargs)
+
+        def timed(state, *rest):
+            out = step(state, *rest)
+            torch.cuda.synchronize()
+            self.ends.append(time.perf_counter())
+            self.state = out[0]
+            done = len(self.ends)
+            if done == self.window[0]:
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.start()
+                self.prof_running = True
+            elif done == self.window[1]:
+                self.prof.stop()
+                self.prof_running = False
+            return out
+
+        return timed
+
+    def busy(self) -> dict:
+        """Device time in the window over its wall time."""
+        wall_ms = (self.ends[self.window[1] - 1] - self.ends[self.window[0] - 1]) * 1e3
+        rows = device_rows(self.prof)
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        check(busy_ms > 0, "the profiler saw no device time in the CLI run")
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+        return {
+            "window_steps": list(range(*self.window)), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "top_kernels": [{"kernel": e.key[:100], "ms": e.self_device_time_total / 1e3, "launches": e.count}
+                            for e in top],
+        }
+
+
+def _run_cli(flags, window):
+    """cli.main with the CLI's output captured (printed to stderr if it fails)."""
+    import contextlib
+
+    from dct_autoencoder_torch.train import cli
+
+    out = io.StringIO()
+    with StepClock(window) as clock:
+        try:
+            with contextlib.redirect_stdout(out):
+                model = cli.main(**flags)
+        except BaseException:
+            print(out.getvalue()[-6000:], file=sys.stderr)
+            raise
+    return model, clock, out.getvalue()
+
+
+def phase_train_cli_patch14l(rows=64, steps=8, n_unique_images=96):
+    """The CLI (train/cli.py main) at patch14-L width on PNG shards: 8-bit
+    moments, the pixel loss, prefetch, augmentation, image grids, checkpoints;
+    then the same flags with prefetch 0 for the device-busy share."""
+    import tempfile
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.models.factory import get_max_seq_length
+    from dct_autoencoder_torch.train.opt8bit import opt_state_bytes
+
+    cfg = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
+    tmp = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        t0 = time.perf_counter()
+        write_image_shards(os.path.join(tmp, "raw"), n_unique_images)
+        shard_s = time.perf_counter() - t0
+        base = dict(
+            image_dataset_path_or_url=os.path.join(tmp, "raw", "*.tar"), model_config_path=PATCH14_L, dtype="bfloat16",
+            epochs=1000, sample_patches_beta=0.02, train_norm_iters=2, learning_rate=1e-4, seed=42, log_every=1,
+            opt_8bit=True, use_pixel_loss=True, pixel_loss_max_images=64, augment=True, log_images_every=4,
+            save_every=4, keep_checkpoints=True, stall_timeout_s=600.0,
+        )
+        window = (1, 5)  # steps 1..4: after step 0's warm-up, before the checkpoint that follows step 4
+        result = None
+        for rows_try in (rows, 48, 32):  # rows are cut only if the batch does not fit; widths never
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                model, clock, text = _run_cli(
+                    dict(base, batch_size=rows_try, max_iters=steps, prefetch_batches=2,
+                         out_base=os.path.join(tmp, f"out{rows_try}")), window)
+            except torch.cuda.OutOfMemoryError:
+                continue
+            result = rows_try
+            break
+        check(result is not None, "the CLI's patch14-L step fits at no row count down to 32")
+        rows = result
+        wall_s = time.perf_counter() - t0
+        launches = path_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        (out_dir,) = [os.path.join(tmp, f"out{rows}", d) for d in os.listdir(os.path.join(tmp, f"out{rows}"))]
+        lines = [json.loads(x) for x in open(os.path.join(out_dir, "metrics.jsonl"))]
+        step_lines = [d for d in lines if "loss" in d]
+        grid_lines = [d for d in lines if "pixel_loss" in d and "loss" not in d]
+        n_grids = len(grid_lines)
+        check([d["step"] for d in step_lines] == list(range(steps)), f"logged steps {[d['step'] for d in step_lines]}")
+        check(all(math.isfinite(d[k]) for d in step_lines for k in ("loss", "pixel_loss", "grad_norm")),
+              "a logged loss of the CLI run is not finite")
+        check(n_grids == len(range(0, steps, 4)) and all(math.isfinite(d["pixel_loss"]) for d in grid_lines),
+              f"image-grid metrics {grid_lines}")
+        names = set(os.listdir(out_dir))
+        check({"train_image_000000.png", "train_image_000004.png", "ckpt_000004", "model", "train_state.pt"} <= names,
+              f"the CLI's output directory holds {sorted(names)}")
+        check(launches["dct_patchify"] > 0, "the data path launched no DCT kernel")
+        check(launches["idct_unpatchify"] > 0, "the image grids launched no IDCT kernel")
+        for name in ("attention_dq", "attention_dkv"):
+            check(launches[name] == n_layers * steps, f"{launches[name]} {name} launches for {n_layers} x {steps} steps")
+        # the grids' forwards run the attention forward too
+        check(launches["attention"] == n_layers * (steps + n_grids),
+              f"{launches['attention']} attention launches for {n_layers} x ({steps} steps + {n_grids} grids)")
+        state_bytes = opt_state_bytes(clock.state.adamw)
+        ends = clock.ends
+        check(len(ends) == steps, f"{len(ends)} timed steps")
+        intervals = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]  # interval k-1: the end of step k-1 to that of k
+        timed = intervals[1:]  # steps 2..7
+        images = [d["images_per_batch"] for d in step_lines]
+        busy = clock.busy()
+        del model, clock
+
+        served = dt.DCTPipeline.from_pretrained(os.path.join(out_dir, "model"))  # the trained checkpoint, on the card
+        check(served.model.device.type == "cuda", "the trained checkpoint did not load on the card")
+        recs = served.encode(smooth_images(2, 448, seed=4))
+        check(len(recs) == 2 and all(len(r["codes"]) > 0 for r in recs), "the trained checkpoint encoded nothing")
+        del served
+
+        torch.cuda.empty_cache()
+        # the same flags but prefetch; no periodic checkpoint (it would come after the window)
+        _, clock0, _ = _run_cli(dict(base, batch_size=rows, max_iters=window[1], prefetch_batches=0, save_every=0,
+                                     keep_checkpoints=False, out_base=os.path.join(tmp, "out_prefetch0")), window)
+        busy0 = clock0.busy()
+        intervals0 = [(b - a) * 1e3 for a, b in zip(clock0.ends, clock0.ends[1:])]
+        del clock0
+        emit({
+            "phase": "train_cli_patch14l", "dtype": "bfloat16 compute, float32 masters", "rows": rows,
+            "max_seq_len": get_max_seq_length(cfg, base["sample_patches_beta"]), "steps": steps, "flags": {k: v for k, v in base.items() if k not in (
+                "image_dataset_path_or_url", "model_config_path")},
+            "unique_images": n_unique_images, "image_sizes": CLI_IMAGE_SIZES, "shard_write_s": shard_s,
+            "images_per_step": images, "loss": [d["loss"] for d in step_lines],
+            "pixel_loss": [d["pixel_loss"] for d in step_lines], "grid_pixel_mse": [d["pixel_loss"] for d in grid_lines],
+            "step_interval_ms": intervals, "ms_per_step_median_steps_2_7": statistics.median(timed),
+            "ms_per_step_mean_steps_2_7": statistics.mean(timed),
+            "images_per_s_steps_2_7": sum(images[2:]) / (ends[-1] - ends[1]),
+            "peak_memory_gb": peak_gb, "optimizer_state_bytes": state_bytes, "wall_s": wall_s,
+            "prefetch2": busy, "prefetch0": dict(busy0, step_interval_ms=intervals0),
+            "launches": launches,
+        })
+        return launches
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 
-# (cases key, name, source, TPU kernel, launch counter, the main path its count is read from)
+# (cases key, name, source, TPU kernel, launch counter, the main path its count is read from;
+# every path's count is in launches_by_path, and the training CLI phase checks all five kernels itself)
 KERNEL_TABLE = [
     ("attention", "packed_attention_fwd", "dct_autoencoder_torch/csrc/attention_fwd.cu",
      "dct_autoencoder_tpu/kernels/attention.py:91", "attention", "serving_daemon"),
@@ -1705,6 +2055,7 @@ PATH_IMPLS = {
     "serving": ("mma", "mma"), "reconstruct_direct": ("mma", "mma"), "serving_daemon": ("mma", "mma"),
     "full_width": ("mma", "mma"), "train_r3b": ("mma", "mma"),
     "train_patch14l": ("mma", "mma"), "ar_train": ("mma", "mma"), "ar_example": ("mma", "simt"),
+    "train_pixel_r3b": ("mma", "mma"), "train_cli": ("mma", "mma"),
 }
 
 
@@ -1746,6 +2097,11 @@ def main() -> int:
     launches["train_r3b"] = phase_train_r3b()
     torch.cuda.empty_cache()
     launches["train_patch14l"] = phase_train_full_width(profile)
+    torch.cuda.empty_cache()
+    phase_opt8bit_card_vs_cpu()
+    launches["train_pixel_r3b"] = phase_train_pixel_r3b()
+    torch.cuda.empty_cache()
+    launches["train_cli"] = phase_train_cli_patch14l()
     torch.cuda.empty_cache()
     launches["ar_train"], ar_model = phase_ar_train_full_width(profile)
     launches["ar_example"], example_ar_model = phase_ar_example_r3b()

@@ -2,7 +2,9 @@
 
 The model alone (config, weights, patchnorm) is written by
 `DCTAutoencoder.save_pretrained` in the JAX package's format; this file is
-the trainer's own and is written with torch.save.
+the trainer's own and is written with torch.save and read back with
+weights_only=True: tensors and plain Python values only (AdamW's fp32
+moments, or AdamW8bit's uint8 codes, fp32 absmax and int count).
 """
 from __future__ import annotations
 

@@ -2,13 +2,13 @@
 
 Masked L1 in normalized DCT space (weight 0.1), masked L1 in unnormalized
 DCT space (weight 1.0), LFQ commit loss (0.1), MaskGIT entropy loss (0.1),
-plus codebook perplexity as a metric.  DCT features are treated as Laplace
-distributed, hence L1.  The differentiable pixel loss and VQ mode are not
-ported.
+plus codebook perplexity as a metric, and optionally the differentiable RGB
+pixel loss (train/pixel_loss.py).  DCT features are treated as Laplace
+distributed, hence L1.  VQ mode is not ported.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,12 +39,20 @@ def step_autoencoder(
     normalized_batch: DCTPatches,
     training: bool = True,
     generator: Optional[torch.Generator] = None,
+    pixel_grid_sizes: Optional[torch.Tensor] = None,
+    pixel_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """One forward pass and the loss dict.
 
     Keys ending in 'loss' enter `weighted_total`; 'perplexity' is a metric;
     'codes' and 'rec_patches' ride along.  `generator` draws the dropout
     masks when the config has dropout.
+
+    pixel_grid_sizes != None adds 'pixel_loss', the differentiable RGB pixel
+    loss (reference decode_pixels=True, main.py:95-110): a (max_images, 2)
+    tensor of per-image patch grids (train/pixel_loss.py::make_grid_sizes).
+    pixel_rows (gradient accumulation) carries (row_offsets, slot_valid),
+    which map this micro-batch's rows onto global slots of the grid sizes.
     """
     out = module(normalized_batch, training=training, generator=generator)
     output_patches: DCTPatches = out["dct_patches"]
@@ -59,6 +67,21 @@ def step_autoencoder(
     losses["commit_loss"] = out["commit_loss"]
     unnormalized = inverse_patchnorm(patchnorm, output_patches)
     losses["rec_loss_unnormalized"] = masked_l1(unnormalized, batch.patches, mask)
+
+    if pixel_grid_sizes is not None:
+        from .pixel_loss import packed_pixel_loss
+
+        cfg = module.config
+        # the reference's target: postprocess(inv_normalize_(normalized_batch))
+        # (main.py:96-98), the input tokens pushed back through the inverse
+        # norm, not the raw pixels
+        with torch.no_grad():
+            target = inverse_patchnorm(patchnorm, normalized_batch)
+        row_offsets, slot_valid = pixel_rows if pixel_rows is not None else (None, None)
+        losses["pixel_loss"] = packed_pixel_loss(
+            unnormalized, target, output_patches, pixel_grid_sizes, (cfg.max_patch_h, cfg.max_patch_w),
+            cfg.patch_size, cfg.image_channels, row_offsets=row_offsets, slot_valid=slot_valid,
+        )
 
     codes = out["codes"]
     with torch.no_grad():

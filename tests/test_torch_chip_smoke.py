@@ -255,3 +255,62 @@ def test_serving_slice_phases_and_limits():
     assert "did not shut down" in inspect.getsource(chip_smoke._Daemon)
     # the int8 product ran once a dynamic layer: no layer fell back
     assert "int_mm == len(dynamic_layers)" in inspect.getsource(chip_smoke.phase_reconstruct_direct_patch14l)
+
+
+def test_cli_shards_hold_the_sizes_the_phase_names(tmp_path):
+    """The CLI phase's PNG shards: every size of CLI_IMAGE_SIZES, in order,
+    with json sizes that the reader and the resolution filter read."""
+    from dct_autoencoder_torch.data.shards import WebDatasetReader
+
+    n = len(chip_smoke.CLI_IMAGE_SIZES) + 2
+    chip_smoke.write_image_shards(str(tmp_path), n)
+    got = list(WebDatasetReader(str(tmp_path)))
+    assert len(got) == n
+    for i, s in enumerate(got):
+        h, w = chip_smoke.CLI_IMAGE_SIZES[i % len(chip_smoke.CLI_IMAGE_SIZES)]
+        assert s["json"] == {"height": h, "width": w} and s["png"].shape == (3, h, w)
+    sides = [x for size in chip_smoke.CLI_IMAGE_SIZES for x in size]
+    assert min(sides) < 14 * 12 and max(sides) > 768  # the filter and the cap both act
+
+
+def test_step_clock_times_every_step_and_profiles_its_window(monkeypatch):
+    """StepClock wraps loop.make_train_step while train() runs, then restores it."""
+    from dct_autoencoder_torch.train import loop
+    from test_torch_train import _port_setup, _stream
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    orig = loop.make_train_step
+    model, proc = _port_setup()
+    with chip_smoke.StepClock((1, 3)) as clock:
+        loop.train(model, proc, _stream(proc, 4), batch_size=None, max_iters=4, log=lambda _: None)
+    assert loop.make_train_step is orig
+    assert len(clock.ends) == 4 and clock.ends == sorted(clock.ends)
+    assert clock.state.step == 4 and clock.prof is not None and not clock.prof_running
+
+
+def test_device_rows_leave_out_user_annotations():
+    class Event:
+        def __init__(self, key, annotation):
+            self.key, self.is_user_annotation = key, annotation
+            self.device_type, self.self_device_time_total = torch.autograd.DeviceType.CUDA, 5.0
+
+    class Prof:
+        def key_averages(self):
+            return [Event("Optimizer.step#AdamW8bit.step", True), Event("void kernel<4>", False)]
+
+    assert [e.key for e in chip_smoke.device_rows(Prof())] == ["void kernel<4>"]
+
+
+def test_training_cli_slice_phases_run_after_the_train_steps():
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = ["phase_train_full_width(profile)", "phase_opt8bit_card_vs_cpu()", "phase_train_pixel_r3b()",
+             "phase_train_cli_patch14l()", "phase_ar_train_full_width(profile)"]
+    assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
+    assert {"train_pixel_r3b", "train_cli"} <= set(chip_smoke.PATH_IMPLS)
+    src = inspect.getsource(chip_smoke.phase_train_cli_patch14l)
+    for needle in ('launches["dct_patchify"] > 0', 'launches["idct_unpatchify"] > 0', "n_layers * (steps + n_grids)",
+                   "prefetch_batches=0", "from_pretrained"):
+        assert needle in src, needle
+    assert inspect.signature(chip_smoke.phase_train_cli_patch14l).parameters["rows"].default == 64

@@ -597,3 +597,61 @@ def test_reconstruct_direct_on_card_matches_cpu(cuda):
     for a, c in zip(out["cpu"], out["cuda"]):
         mse = float(np.mean((a.astype(np.float64) - c) ** 2))
         assert 10 * np.log10(1.0 / max(mse, 1e-20)) > 40.0
+
+
+def test_adamw8bit_on_card_equals_cpu(cuda):
+    """3 updates of AdamW8bit on the card and on the CPU from the same
+    parameters and gradients: the same codes and absmax, bit for bit (the
+    update divides by tensors and takes 1 - b**count from the host), and
+    parameters within 1e-6."""
+    from dct_autoencoder_torch.train.opt8bit import AdamW8bit
+
+    g = torch.Generator().manual_seed(0)
+    shapes = [(64, 64), (300,), (7, 5, 3), (513,)]
+    init = [torch.randn(s, generator=g) for s in shapes]
+    grads = [[torch.randn(s, generator=g) * 0.01 for s in shapes] for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = [torch.nn.Parameter(p.clone().to(dev)) for p in init]
+        opt = AdamW8bit(params, lr=1e-3)
+        for step_grads in grads:
+            for p, gr in zip(params, step_grads):
+                p.grad = gr.to(dev)
+            opt.step()
+        runs[dev] = (params, opt)
+    (pc, oc), (pg, og) = runs["cpu"], runs["cuda"]
+    for a, b in zip(pc, pg):
+        torch.testing.assert_close(b.detach().cpu(), a.detach(), atol=1e-6, rtol=0)
+        for name in ("mu_codes", "nu_codes", "mu_absmax", "nu_absmax"):
+            assert torch.equal(og.state[b][name].cpu(), oc.state[a][name]), name
+
+
+def test_pixel_loss_train_step_on_card_matches_cpu(cuda):
+    """One fp32 train step of the r3b model with the pixel loss and 8-bit
+    moments, on the card (the kernels) and on the CPU (the plain path), on
+    the same batch: losses rtol 1e-4, grad norm rtol 1e-3."""
+    import os
+    import random
+
+    import numpy as np
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import train as T
+
+    r3b = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs", "calibrated_run_r3b", "model")
+    rng = np.random.default_rng(0)
+    ims = [rng.uniform(0.1, 0.9, size=(3, 112, 112)).astype(np.float32) for _ in range(5)]
+    metrics = {}
+    for dev in ("cpu", "cuda"):
+        model, proc = dt.get_model_and_processor(resume_path=r3b, dtype=torch.float32, device=dev)
+        proc.rng = random.Random(0)
+        ds = proc.preprocess_many(ims)
+        batch = next(proc.iter_batches(iter([{k: [d[k] for d in ds] for k in ds[0]}]), batch_size=None))
+        batch, gs = T.prepare_train_batch(batch, pixel_loss_max_images=8, clip_grid=(32, 32))
+        tx = T.make_optimizer(1e-4, 10, warmup_steps=0, opt_8bit=True)
+        step = T.make_train_step(model.module, tx, use_pixel_loss=True)
+        _, m = step(T.TrainState.create(model.module, tx), model.patchnorm, batch, gs)
+        metrics[dev] = {k: v.item() for k, v in m.items()}
+    for k in ("loss", "pixel_loss", "rec_loss", "rec_loss_unnormalized"):
+        np.testing.assert_allclose(metrics["cuda"][k], metrics["cpu"][k], rtol=1e-4, err_msg=k)
+    np.testing.assert_allclose(metrics["cuda"]["grad_norm"], metrics["cpu"]["grad_norm"], rtol=1e-3)

@@ -184,6 +184,10 @@ def test_port_imports_no_jax():
         "import sys, dct_autoencoder_torch, dct_autoencoder_torch.train, dct_autoencoder_torch.ops.stats\n"
         "import dct_autoencoder_torch.train.pixel_loss, dct_autoencoder_torch.models.quant\n"
         "from dct_autoencoder_torch.tools import serve, bench_serving, quantize_checkpoint, int8_study\n"
+        "from dct_autoencoder_torch.tools import viz, preproc_dataset\n"
+        "import dct_autoencoder_torch.data\n"
+        "from dct_autoencoder_torch.data import shards, images, augment, prefetch, dataset\n"
+        "from dct_autoencoder_torch.train import cli, opt8bit, loop, losses, checkpoint, pixel_loss\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'dct_autoencoder_tpu'))]\n"
         "assert not bad, bad\n"
     )
