@@ -45,7 +45,19 @@ also against a float64 plain version), and then drives the paths themselves:
     shards written in a temporary directory: 8-bit moments, the pixel loss,
     prefetch, augmentation, image grids (the IDCT kernel) and checkpoints for
     8 steps, timed, with the device-busy share of steps 1-4 under the
-    profiler, then the same 4 steps without prefetch.
+    profiler, then the same 4 steps without prefetch;
+  * VQ mode (models/vq.py) at the full width of patch14-L with vq_type 'vq'
+    (16 heads x 8192 codes x 16 dims): 8 train steps on 64 x 256 packed rows
+    with k-means at step 0 and dead-code expiry at steps 3 and 7, timed,
+    then encode and reconstruct_direct of 16 448 x 448 images with the
+    trained model;
+  * VQ at r3b's widths: the eval forward on the card against the CPU, step 0
+    against the fp32 CPU step, save_pretrained / from_pretrained;
+  * the training CLI with a VQ config at r3b's widths on PNG shards (8-bit
+    moments, expiry every 2 steps), its checkpoint served by DCTPipeline;
+  * the sweep's shared-step campaign (train/sweep.py run_onchip) over the same
+    shards with conf/small-448.json in fp32, as `--onchip` runs it (the
+    CUDA-core attention kernels), both methods, 5 trials each.
 The kernels' phase also runs the fp32 attention backward 20 times in each
 mask mode after filling the allocator's free memory with NaN, and requires
 the same bits every time.
@@ -76,6 +88,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 R3B = os.path.join(HERE, "docs", "calibrated_run_r3b", "model")
 PATCH14_L = os.path.join(HERE, "conf", "patch14-l.json")
+SMALL_448 = os.path.join(HERE, "conf", "small-448.json")
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -119,6 +132,8 @@ MAX_AR_STEP0_LOSS_REL = 1e-3
 MAX_CACHED_VS_KERNEL_FP32 = 2e-3
 MAX_CACHED_VS_KERNEL_BF16 = 0.25
 MAX_AR_LOSS0_FROM_LN_Z = 0.7
+# VQ at r3b's widths, fp32: the card's eval codes against the CPU's, share of (token, head) ids equal
+MIN_VQ_CODE_AGREEMENT = 0.95
 
 
 def emit(obj) -> None:
@@ -2022,6 +2037,278 @@ def phase_train_cli_patch14l(rows=64, steps=8, n_unique_images=96):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- VQ mode and the sweep
+
+
+def vq_config(path):
+    """The config at `path` with only vq_type set to 'vq'."""
+    import dct_autoencoder_torch as dt
+
+    cfg = dt.DCTAutoencoderConfig.from_json_file(path)
+    cfg.vq_type = "vq"
+    return cfg
+
+
+def _replaced_rows(state, codebook) -> dict:
+    """The surgery's replaced rows of the last step, and their Adam moments."""
+    replaced = state.vq_replaced
+    check(replaced is not None, "the surgery step replaced no code")
+    moments = state.adamw.state[codebook]
+    rows = {k: moments[k][replaced] for k in ("exp_avg", "exp_avg_sq")}
+    check(all(bool((v == 0).all()) for v in rows.values()), "a replaced code kept Adam moments")
+    return {"replaced": int(replaced.sum()), "codebook_rows": int(replaced.numel())}
+
+
+def phase_train_vq_patch14l(profile: bool = False, steps=8, expire_every=4, n_images=16, size=448):
+    """patch14-L with vq_type 'vq' at random init: train steps on one 64 x 256
+    packed batch (bf16 compute, fp32 masters and AdamW), k-means at step 0,
+    expiry at steps 3 and 7; then encode and reconstruct_direct with it."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+
+    t_phase = time.perf_counter()
+    cfg = vq_config(PATCH14_L)
+    n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
+    model, proc = dt.get_model_and_processor(cfg, dtype=torch.bfloat16, sample_patches_beta=0.02, seed=0)
+    vq = model.module.vq_model
+    check((vq.heads, vq.codebook_size, vq.codebook_dim) == (16, 8192, 16), f"VQ shape {(vq.heads, vq.codebook_size)}")
+    batch, n_batch_images = packed_batch(cfg)
+    batch = T.prepare_train_batch(batch)[0]
+    tx = T.make_optimizer(1e-4, 10000)
+    state = T.TrainState.create(model.module, tx)
+    step = T.make_train_step(model.module, tx, vq_expire_threshold=15.0, vq_expire_every=expire_every)
+    cb0 = vq.codebook.detach().clone()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    step_ms, losses, surgery = [], [], {}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, model.patchnorm, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(metrics[k]) for k in ("loss", "rec_loss", "commit_loss", "grad_norm")})
+        check(all(math.isfinite(v) for v in losses[-1].values()), f"step {i}: a loss is not finite: {losses[-1]}")
+        if i == 0:
+            check(not torch.equal(vq.codebook, cb0) and bool(torch.isfinite(vq.codebook).all()),
+                  "k-means at step 0 did not give a new, finite codebook")
+            surgery[i] = _replaced_rows(state, vq.codebook)
+        if i % expire_every == expire_every - 1:
+            surgery[i] = _replaced_rows(state, vq.codebook)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches_train = path_launches()
+    for name in ("attention", "attention_dq", "attention_dkv"):
+        check(launches_train[name] == n_layers * steps, f"{launches_train[name]} {name} launches for {n_layers} x {steps} steps")
+    stats = model.module.vq_stats()
+    check(all(bool(torch.isfinite(v).all()) for v in stats.values()), "a VQ statistic is not finite")
+    plain = [ms for i, ms in enumerate(step_ms) if i not in surgery]
+    if profile:  # a step without surgery (step 8 with expiry every 4)
+        emit({"phase": "profile_train_vq_step_patch14l", **profile_device(lambda: step(state, model.patchnorm, batch), reps=1, top=24)})
+
+    pipe = dt.DCTPipeline(model, proc)
+    ims = smooth_images(n_images, size, seed=5)
+    proc.rng = random.Random(0)
+    records = pipe.encode(ims)
+    codes = [x for r in records for d in r["codes"] for x in d["data"]]
+    check(len(codes) > 0 and 0 <= min(codes) and max(codes) < cfg.vq_codebook_size, "encoded codes out of [0, 8192)")
+    before = path_launches()
+    proc.rng = random.Random(0)
+    direct = pipe.reconstruct_direct(ims, as_uint8=True)
+    launches = path_launches()
+    check(launches["idct_unpatchify"] - before["idct_unpatchify"] == 1, "reconstruct_direct did not launch the IDCT once")
+    check(len(direct) == n_images and all(d.shape == (3, size, size) and d.dtype == np.uint8 for d in direct),
+          "reconstruct_direct gave no uint8 images of the input size")
+    emit({
+        "phase": "train_vq_patch14l", "dtype": "bfloat16 compute, float32 masters", "rows": 64, "seq_len": 256,
+        "images": n_batch_images, "steps": steps, "vq_expire_every": expire_every, "vq_expire_threshold": 15.0,
+        "step_ms": step_ms, "ms_per_step_without_surgery_median": statistics.median(plain[1:]),
+        "surgery_step_ms": {i: step_ms[i] for i in surgery}, "surgery": surgery,
+        "images_per_s": n_batch_images / statistics.median(plain[1:]) * 1e3, "peak_memory_gb": peak_gb,
+        "losses": losses, "launches_train": launches_train, "launches": launches,
+        "encode_images": n_images, "encoded_codes": len(codes), "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+def phase_train_vq_r3b(n_images=16, size=448, learning_rate=3e-4):
+    """VQ at r3b's widths, random init: the fp32 eval forward on the card
+    against the CPU; step 0 in bf16 (gumbel on) against the fp32 CPU step;
+    save_pretrained and from_pretrained on the card."""
+    import tempfile
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+    from dct_autoencoder_torch.models.patchnorm import calibrate_patchnorm_batch
+
+    t_phase = time.perf_counter()
+    cfg = vq_config(os.path.join(R3B, "config.json"))
+    ims = smooth_images(n_images, size, seed=6)
+    models = {}
+    for name, dtype, device in (("card", torch.float32, "cuda"), ("cpu", torch.float32, "cpu"), ("card_bf16", torch.bfloat16, "cuda")):
+        model, proc = dt.get_model_and_processor(cfg, dtype=dtype, sample_patches_beta=0.02, seed=0, device=device)
+        proc.rng = random.Random(0)
+        batch = next(proc.iter_batches(iter([_columns(proc.preprocess_many(ims))]), batch_size=None))
+        batch = T.prepare_train_batch(batch.to(model.device))[0]
+        model.patchnorm, _ = calibrate_patchnorm_batch(model.patchnorm, batch)
+        models[name] = (model, batch)
+    outs = {k: models[k][0].forward(models[k][0].normalize_(models[k][1])) for k in ("card", "cpu")}
+    valid = ~models["cpu"][1].key_pad_mask
+    check(torch.equal(models["card"][1].key_pad_mask.cpu(), models["cpu"][1].key_pad_mask), "the card and the CPU packed differently")
+    codes_card, codes_cpu = outs["card"]["codes"].cpu()[valid], outs["cpu"]["codes"][valid]
+    agreement = float((codes_card == codes_cpu).float().mean())
+    check(agreement >= MIN_VQ_CODE_AGREEMENT, f"VQ eval codes agree on {agreement:.4f} of ids, card vs CPU")
+
+    results = {}
+    for name in ("card_bf16", "cpu"):
+        model, batch = models[name]
+        tx = T.make_optimizer(learning_rate, 100)
+        state = T.TrainState.create(model.module, tx)
+        if name == "card_bf16":
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+        state, metrics = T.make_train_step(model.module, tx)(state, model.patchnorm, batch)
+        results[name] = {k: float(v) for k, v in metrics.items()}
+        if name == "card_bf16":
+            launches = path_launches()
+    card, cpu = results["card_bf16"], results["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    norm_rel = abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    check(all(math.isfinite(v) for v in card.values()), f"step 0 on the card: {card}")
+    check(loss_rel <= MAX_TRAIN_LOSS_REL, f"VQ step-0 loss {card['loss']} vs CPU fp32 {cpu['loss']}")
+    check(norm_rel <= MAX_TRAIN_GRAD_NORM_REL, f"VQ step-0 grad norm {card['grad_norm']} vs CPU fp32 {cpu['grad_norm']}")
+
+    model, batch = models["card_bf16"]
+    tmp = tempfile.mkdtemp(prefix="vq_r3b_")
+    try:
+        model.save_pretrained(tmp)
+        check(os.path.isfile(os.path.join(tmp, "vq_stats.npz")), "save_pretrained wrote no vq_stats.npz")
+        loaded = dt.DCTAutoencoder.from_pretrained(tmp, dtype=torch.bfloat16)
+        check(loaded.device.type == "cuda", "from_pretrained did not load on the card")
+        want, got = model.module.vq_stats(), loaded.module.vq_stats()
+        check(want.keys() == got.keys() and all(torch.equal(want[k], got[k]) for k in want), "vq_stats changed on the way")
+        same_codes = torch.equal(model.forward(model.normalize_(batch))["codes"], loaded.forward(loaded.normalize_(batch))["codes"])
+        check(same_codes, "the reloaded model gives other codes")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({
+        "phase": "train_vq_r3b", "images": n_images, "rows": int(batch.patches.shape[0]),
+        "tokens": int((~batch.key_pad_mask).sum()), "eval_code_agreement_fp32_card_vs_cpu": agreement,
+        "tol_code_agreement": MIN_VQ_CODE_AGREEMENT, "step0_card_bf16": card, "step0_cpu_fp32": cpu,
+        "step0_loss_rel_diff": loss_rel, "step0_grad_norm_rel_diff": norm_rel, "launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+def phase_train_cli_vq_r3b(shards, steps=4, batch_size=16):
+    """The CLI with a VQ config at r3b's widths on PNG shards: 8-bit moments,
+    expiry every 2 steps, one checkpoint, which DCTPipeline then serves."""
+    import tempfile
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cli_vq_")
+    try:
+        cfg_path = os.path.join(tmp, "r3b_vq.json")
+        cfg = vq_config(os.path.join(R3B, "config.json"))
+        cfg.to_json_file(cfg_path)
+        n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
+        flags = dict(image_dataset_path_or_url=shards, model_config_path=cfg_path, dtype="bfloat16", epochs=100,
+                     batch_size=batch_size, max_iters=steps, train_norm_iters=2, log_every=1, opt_8bit=True,
+                     vq_expire_every=2, save_every=1000, out_base=os.path.join(tmp, "out"))
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, text = _run_cli(flags, (1, 2))
+        train_s = time.perf_counter() - t0
+        launches = path_launches()
+        (out_dir,) = [os.path.join(tmp, "out", d) for d in os.listdir(os.path.join(tmp, "out"))]
+        lines = [json.loads(x) for x in open(os.path.join(out_dir, "metrics.jsonl"))]
+        step_lines = [d for d in lines if "loss" in d]
+        check([d["step"] for d in step_lines] == list(range(steps)), f"logged steps {[d['step'] for d in step_lines]}")
+        check(all(math.isfinite(d[k]) for d in step_lines for k in ("loss", "commit_loss", "grad_norm")),
+              "a logged loss of the VQ CLI run is not finite")
+        check(os.path.isfile(os.path.join(out_dir, "model", "vq_stats.npz")), "the checkpoint holds no vq_stats.npz")
+        check(launches["dct_patchify"] > 0, "the VQ CLI's data path launched no DCT kernel")
+        for name in ("attention_dq", "attention_dkv"):
+            check(launches[name] == n_layers * steps, f"{launches[name]} {name} launches for {n_layers} x {steps} steps")
+        served = dt.DCTPipeline.from_pretrained(os.path.join(out_dir, "model"))
+        check(served.model.device.type == "cuda" and served.model.config.vq_type == "vq", "the VQ checkpoint did not load")
+        recs = served.encode(smooth_images(2, 448, seed=7))
+        codes = [x for r in recs for d in r["codes"] for x in d["data"]]
+        check(len(codes) > 0 and max(codes) < cfg.vq_codebook_size and min(codes) >= 0, "the VQ checkpoint encoded badly")
+        emit({
+            "phase": "train_cli_vq_r3b", "steps": steps, "batch_size": batch_size,
+            "flags": {k: v for k, v in flags.items() if k not in ("image_dataset_path_or_url", "model_config_path", "out_base")},
+            "loss": [d["loss"] for d in step_lines], "commit_loss": [d["commit_loss"] for d in step_lines],
+            "images_per_step": [d["images_per_batch"] for d in step_lines], "train_s": train_s,
+            "launches": launches, "phase_s": time.perf_counter() - t_phase,
+        })
+        return launches
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def vq_and_sweep_shards(n=48) -> str:
+    """A temporary directory of PNG tar shards (write_image_shards: the CLI
+    phase's sizes) for the VQ CLI and sweep phases."""
+    import tempfile
+
+    folder = tempfile.mkdtemp(prefix="vq_sweep_shards_")
+    write_image_shards(folder, n, seed=1)
+    return folder
+
+
+def phase_sweep_small_448(shards, trials=5, max_iters=6, batch_size=4):
+    """train/sweep.py run_onchip with conf/small-448.json (the JAX function's
+    default) over the shards, as `--onchip` runs it: fp32, both methods,
+    `trials` trials each, more than TPE's random start-up trials so that
+    its own suggestion runs."""
+    import tempfile
+
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.train import sweep
+
+    n_startup = sweep.TPESuggester(sweep.DEFAULT_SPACE, random.Random(0)).n_startup
+    check(trials > n_startup, f"{trials} trials never reach TPE's suggestion (after {n_startup} start-up trials)")
+    t_phase = time.perf_counter()
+    out_file = os.path.join(tempfile.mkdtemp(prefix="sweep_"), "trials.jsonl")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    logs = []
+    results = sweep.run_onchip(shards, model_config_path=SMALL_448, trials=trials, max_iters=max_iters,
+                               batch_size=batch_size, score_last=2, calib_steps=1, out_file=out_file, log=logs.append)
+    torch.cuda.synchronize()
+    launches = path_launches()
+    recs = [json.loads(x) for x in open(out_file)]
+    os.remove(out_file)
+    check(len(recs) == 2 * trials and {r["method"] for r in recs} == {"tpe", "random"}, f"{len(recs)} sweep records")
+    check(all(math.isfinite(r["rec_loss"]) and math.isfinite(r["loss"]) for r in recs), "a sweep score is not finite")
+    tpe, rnd = ([r["hp"] for r in recs if r["method"] == m] for m in ("tpe", "random"))
+    # the start-up trials are the random draws of the same seed; then TPE suggests its own
+    check(tpe[:n_startup] == rnd[:n_startup] and tpe[n_startup] != rnd[n_startup], "TPE's suggestion did not run")
+    check(launches["dct_patchify"] > 0, "the sweep's data path launched no DCT kernel")
+    check(launches["attention_dq"] > 0 and launches["attention_dkv"] > 0, "the sweep's trials launched no backward kernel")
+    emit({
+        "phase": "sweep_small_448", "trials_per_method": trials, "max_iters": max_iters, "batch_size": batch_size,
+        "dtype": "float32", "records": [{k: r[k] for k in ("method", "trial", "rec_loss", "loss", "wall_s", "hp")} for r in recs],
+        "s_per_trial": statistics.mean(r["wall_s"] for r in recs),
+        "best": {m: results[m]["rec_loss"] for m in ("tpe", "random")}, "data_log": [x for x in logs if "sweep data" in x],
+        "launches": launches, "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2050,12 +2337,15 @@ FWD_KERNELS = ("attention", "attention_causal")
 BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attention_dkv_causal")
 # path -> (impl of its non-causal attention launches, impl of its causal ones):
 # bfloat16 runs on the tensor cores; the AR example tokenizes in bfloat16 and
-# trains its AR model in float32, on the CUDA-core kernels
+# trains its AR model in float32, and the sweep trains in float32 as its
+# command line does, on the CUDA-core kernels
 PATH_IMPLS = {
     "serving": ("mma", "mma"), "reconstruct_direct": ("mma", "mma"), "serving_daemon": ("mma", "mma"),
     "full_width": ("mma", "mma"), "train_r3b": ("mma", "mma"),
     "train_patch14l": ("mma", "mma"), "ar_train": ("mma", "mma"), "ar_example": ("mma", "simt"),
     "train_pixel_r3b": ("mma", "mma"), "train_cli": ("mma", "mma"),
+    "train_vq_patch14l": ("mma", "mma"), "train_vq_r3b": ("mma", "mma"), "train_cli_vq": ("mma", "mma"),
+    "sweep": ("simt", "simt"),
 }
 
 
@@ -2102,6 +2392,18 @@ def main() -> int:
     launches["train_pixel_r3b"] = phase_train_pixel_r3b()
     torch.cuda.empty_cache()
     launches["train_cli"] = phase_train_cli_patch14l()
+    torch.cuda.empty_cache()
+    launches["train_vq_patch14l"] = phase_train_vq_patch14l(profile)
+    torch.cuda.empty_cache()
+    launches["train_vq_r3b"] = phase_train_vq_r3b()
+    shard_dir = vq_and_sweep_shards()
+    try:
+        launches["train_cli_vq"] = phase_train_cli_vq_r3b(os.path.join(shard_dir, "*.tar"))
+        launches["sweep"] = phase_sweep_small_448(os.path.join(shard_dir, "*.tar"))
+    finally:
+        import shutil
+
+        shutil.rmtree(shard_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     launches["ar_train"], ar_model = phase_ar_train_full_width(profile)
     launches["ar_example"], example_ar_model = phase_ar_example_r3b()

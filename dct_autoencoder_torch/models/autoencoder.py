@@ -1,4 +1,4 @@
-"""DCT autoencoder: patch embed -> CLIP encoder -> LFQ -> CLIP decoder -> proj_out.
+"""DCT autoencoder: patch embed -> CLIP encoder -> LFQ or VQ -> CLIP decoder -> proj_out.
 
 `DCTAutoencoderModule` is the nn.Module; its parameter names follow the
 JAX package's flax tree (see models/convert.py).  `DCTAutoencoder` wraps it
@@ -8,8 +8,13 @@ decode_from_codes, forward, from_pretrained, save_pretrained).
 Types: every parameter is an fp32 master.  The transformer and the
 patch-embed / proj_out projections cast their weights at use and run in the
 model dtype (bf16 on the card); LayerNorms keep fp32 statistics; position
-embeddings are gathered and summed in fp32 and then cast; LFQ and its
-projections run in fp32, as in the JAX model.
+embeddings are gathered and summed in fp32 and then cast; LFQ, VQ and
+their projections run in fp32, as in the JAX model.
+
+VQ (`vq_type='vq'`, models/vq.py) is built with the reference's settings.
+Its EMA statistics (JAX's 'vq_stats' collection) are buffers of
+`vq_model`; `save_pretrained` writes them to vq_stats.npz in JAX's format
+and `from_pretrained` reads them back.
 
 The module's parameters are trainable (train/loop.py updates them in
 place); the wrapper's serving methods run without autograd.
@@ -27,6 +32,7 @@ from torch import nn
 from ..patches.container import DCTPatches
 from .config import DCTAutoencoderConfig
 from .lfq import LFQ
+from .vq import VectorQuantize
 from .patchnorm import PatchNormState, apply_patchnorm, inverse_patchnorm
 from .transformer import Dense, LayerNorm, TransformerEncoder
 
@@ -45,8 +51,8 @@ def resolve_device(device) -> torch.device:
 class DCTAutoencoderModule(nn.Module):
     def __init__(self, config: DCTAutoencoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.vq_type != "lfq":
-            raise NotImplementedError(f"vq_type {config.vq_type!r} is not ported yet (only 'lfq')")
+        if config.vq_type not in ("lfq", "vq"):
+            raise ValueError(config.vq_type)
         self.config = config
         self.dtype = dtype
         dim = config.encoder_config.hidden_size
@@ -59,7 +65,16 @@ class DCTAutoencoderModule(nn.Module):
         self.patch_embed_norm = LayerNorm(dim, 1e-4)
         self.encoder = TransformerEncoder(config.encoder_config, dtype)
         self.decoder = TransformerEncoder(config.decoder_config, dtype)
-        self.vq_model = LFQ(dim, config.vq_codebook_size, config.vq_num_codebooks)
+        if config.vq_type == "lfq":
+            self.vq_model = LFQ(dim, config.vq_codebook_size, config.vq_num_codebooks)
+        else:
+            # the reference's settings (modeling_dct_autoencoder.py:77): k-means
+            # init, gumbel sampling at temperature 20, 16-dim codes, a gradient
+            # codebook, affine statistics, dead codes below an EMA usage of 15
+            self.vq_model = VectorQuantize(
+                dim, config.vq_codebook_size, heads=config.vq_num_codebooks, codebook_dim=16,
+                sample_codebook_temp=20.0, affine_param=True, kmeans_init=True, threshold_ema_dead_code=15.0,
+            )
         self.proj_out_norm = LayerNorm(dim, 1e-4)
         self.proj_out_linear = Dense(dim, config.patch_dim, bias=False, dtype=dtype)
 
@@ -76,14 +91,29 @@ class DCTAutoencoderModule(nn.Module):
             feats, x.batched_image_ids, x.key_pad_mask, self.config.attn_mask_mode, training, generator
         )
 
-    def encode(self, x: DCTPatches, training: bool = False, generator: Optional[torch.Generator] = None):
+    def encode(
+        self, x: DCTPatches, training: bool = False, generator: Optional[torch.Generator] = None,
+        vq_generator: Optional[torch.Generator] = None, update_vq_stats: bool = False,
+    ):
         """Normalized patches -> (x with quantized fp32 features, codes (b, s, c),
-        commit_loss, distances); the last two are zeros unless training."""
+        commit_loss, distances, vq_z); commit_loss and distances are zeros
+        unless training, and distances are zeros for VQ.  vq_z is VQ's
+        projection before quantization (b, s, heads, 16), None for LFQ.
+
+        VQ only: in training, vq_generator samples the codes with gumbel
+        noise (temperature 20) and update_vq_stats=True updates the EMA
+        statistics (JAX: apply with rngs={'vq': key}, mutable=['vq_stats'])."""
         feats = self.patch_embed_norm(self.patch_embed_linear(x.patches.to(self.dtype)))
         feats = feats + self._pos_embedding("encoder", x)
         feats = self._stack(self.encoder, feats, x, training, generator)
-        quantized, codes, commit_loss, distances = self.vq_model(feats, mask=~x.key_pad_mask, training=training)
-        return x.replace(patches=quantized), codes, commit_loss, distances
+        mask = ~x.key_pad_mask
+        if self.config.vq_type == "vq":
+            quantized, codes, commit_loss, vq_z = self.vq_model(
+                feats, mask=mask, training=training, generator=vq_generator, update_stats=update_vq_stats
+            )
+            return x.replace(patches=quantized), codes, commit_loss, quantized.new_zeros(()), vq_z
+        quantized, codes, commit_loss, distances = self.vq_model(feats, mask=mask, training=training)
+        return x.replace(patches=quantized), codes, commit_loss, distances, None
 
     def decode(self, x: DCTPatches) -> DCTPatches:
         """Quantized features -> DCT patch predictions (model dtype).
@@ -98,10 +128,18 @@ class DCTAutoencoderModule(nn.Module):
         return self.decode(x.replace(patches=self.vq_model.indices_to_codes(codes)))
 
     def forward(
-        self, x: DCTPatches, training: bool = False, generator: Optional[torch.Generator] = None
+        self, x: DCTPatches, training: bool = False, generator: Optional[torch.Generator] = None,
+        vq_generator: Optional[torch.Generator] = None, update_vq_stats: bool = False,
     ) -> Dict[str, Any]:
-        q, codes, commit_loss, distances = self.encode(x, training, generator)
-        return dict(dct_patches=self.decode(q), commit_loss=commit_loss, codes=codes, distances=distances)
+        q, codes, commit_loss, distances, vq_z = self.encode(x, training, generator, vq_generator, update_vq_stats)
+        out = dict(dct_patches=self.decode(q), commit_loss=commit_loss, codes=codes, distances=distances)
+        if vq_z is not None:
+            out["vq_z"] = vq_z
+        return out
+
+    def vq_stats(self) -> Dict[str, torch.Tensor]:
+        """VQ's EMA statistics by name (JAX: vq_stats['vq_model']); {} for LFQ."""
+        return self.vq_model.stats() if self.config.vq_type == "vq" else {}
 
 
 class DCTAutoencoder:
@@ -137,15 +175,19 @@ class DCTAutoencoder:
         return x.replace(patches=inverse_patchnorm(self.patchnorm, x))
 
     def forward(self, batch: DCTPatches, training: bool = False) -> Dict[str, Any]:
-        """dct_patches, codes, commit_loss, distances.  training=True runs the
-        LFQ training path under autograd; otherwise nothing is recorded."""
+        """dct_patches, codes, commit_loss, distances (and vq_z for VQ).
+        training=True runs the training path under autograd (VQ: the argmin,
+        the statistics left as they are, as JAX's apply without an rng or
+        mutable); otherwise nothing is recorded."""
         with torch.set_grad_enabled(training):
             return self.module(batch.to(self.device), training=training)
 
     __call__ = forward
 
     def encode(self, batch: DCTPatches, training: bool = False):
-        """(quantized batch, codes); with training=True also (commit_loss, distances)."""
+        """(quantized batch, codes); with training=True also (commit_loss,
+        distances, vq_z).  Nothing updates the VQ statistics here (JAX: apply
+        without mutable)."""
         with torch.set_grad_enabled(training):
             out = self.module.encode(batch.to(self.device), training=training)
         return out if training else out[:2]
@@ -160,13 +202,18 @@ class DCTAutoencoder:
         return self.module.decode_from_codes(torch.as_tensor(codes, device=self.device), x)
 
     def save_pretrained(self, path: str) -> None:
-        """Write config.json, params.npz (flat '/' paths) and patchnorm.npz in
-        the JAX package's checkpoint format, so either package loads it."""
-        from .convert import jax_arrays_from_state_dict
+        """Write config.json, params.npz (flat '/' paths), patchnorm.npz and,
+        for VQ, vq_stats.npz in the JAX package's checkpoint format, so either
+        package loads it."""
+        from .convert import jax_arrays_from_state_dict, vq_stats_from_state_dict
 
         os.makedirs(path, exist_ok=True)
         self.config.to_json_file(os.path.join(path, "config.json"))
-        np.savez(os.path.join(path, "params.npz"), **jax_arrays_from_state_dict(self.module.state_dict(), self.config))
+        state = self.module.state_dict()
+        np.savez(os.path.join(path, "params.npz"), **jax_arrays_from_state_dict(state, self.config))
+        stats = vq_stats_from_state_dict(state)
+        if stats:
+            np.savez(os.path.join(path, "vq_stats.npz"), **stats)
         pn = self.patchnorm
         np.savez(
             os.path.join(path, "patchnorm.npz"),
@@ -176,12 +223,17 @@ class DCTAutoencoder:
     @classmethod
     def from_pretrained(cls, path: str, dtype: torch.dtype = torch.float32, device="cuda") -> "DCTAutoencoder":
         """Load a checkpoint written by the JAX package's save_pretrained
-        (config.json, params.npz, patchnorm.npz) through models/convert.py."""
-        from .convert import state_dict_from_jax_npz
+        (config.json, params.npz, patchnorm.npz, and vq_stats.npz if there
+        is one) through models/convert.py.  A VQ checkpoint without
+        vq_stats.npz keeps the initial statistics, as in JAX."""
+        from .convert import load_jax_arrays
 
         config = DCTAutoencoderConfig.from_json_file(os.path.join(path, "config.json"))
         model = cls(config, dtype=dtype, device=device)
-        model.module.load_state_dict(state_dict_from_jax_npz(os.path.join(path, "params.npz"), config))
+        vq_path = os.path.join(path, "vq_stats.npz")
+        load_jax_arrays(
+            model.module, os.path.join(path, "params.npz"), config, vq_path if os.path.exists(vq_path) else None
+        )
         pn_path = os.path.join(path, "patchnorm.npz")
         if os.path.exists(pn_path):
             model.patchnorm = PatchNormState.load(pn_path, model.device)

@@ -15,6 +15,13 @@ gradients keyed like the state_dict.  In both directions every key must be
 consumed and every parameter filled, with matching shapes; anything else
 raises.
 
+VQ's EMA statistics (buffers of ``vq_model`` named as in models/vq.py's
+STAT_NAMES) are the JAX package's separate 'vq_stats' collection, saved to
+vq_stats.npz under the same flat paths (``vq_model/batch_mean``, ...):
+`jax_arrays_from_state_dict` leaves them out, `vq_stats_from_state_dict`
+takes them, and `state_dict_from_jax_npz` / `load_jax_arrays` take them
+back from a vq_stats.npz (or dict) given beside the parameters.
+
 The same two functions carry the autoregressive token model
 (``ar_params.npz``, models/ar.py) when given an ``ARConfig``: its embedding
 tables (``code_embed`` (C, z, h), the three position tables, ``bos``) keep
@@ -43,6 +50,21 @@ def _port_key(jax_key: str) -> str:
     return ".".join(parts)
 
 
+def is_vq_stat(port_key: str) -> bool:
+    """Whether a state_dict key is one of VQ's EMA statistics (vq_stats.npz)."""
+    from .vq import STAT_NAMES
+
+    parts = port_key.split(".")
+    return len(parts) == 2 and parts[0] == "vq_model" and parts[1] in STAT_NAMES
+
+
+def _load_npz(npz_or_dict) -> Dict[str, np.ndarray]:
+    if isinstance(npz_or_dict, str):
+        with np.load(npz_or_dict) as f:
+            return {k: f[k] for k in f.files}
+    return dict(npz_or_dict)
+
+
 def expected_shapes(config) -> Dict[str, torch.Size]:
     """The port's parameter names and shapes for `config`, a tokenizer's
     DCTAutoencoderConfig or an ARConfig (no allocation)."""
@@ -55,15 +77,26 @@ def expected_shapes(config) -> Dict[str, torch.Size]:
 
 
 def state_dict_from_jax_npz(
-    npz_or_dict: Union[str, Mapping[str, np.ndarray]], config
+    npz_or_dict: Union[str, Mapping[str, np.ndarray]], config,
+    vq_stats: Union[None, str, Mapping[str, np.ndarray]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Map flat JAX parameter paths onto the port's fp32 state_dict."""
-    if isinstance(npz_or_dict, str):
-        with np.load(npz_or_dict) as f:
-            arrays = {k: f[k] for k in f.files}
-    else:
-        arrays = dict(npz_or_dict)
+    """Map flat JAX parameter paths (and, if given, vq_stats paths) onto the
+    port's fp32 state_dict.  Without vq_stats the statistics are left out
+    of the result (load it with `load_jax_arrays`)."""
+    arrays = _load_npz(npz_or_dict)
+    stats = _load_npz(vq_stats) if vq_stats is not None else {}
+    if set(arrays) & set(stats):
+        raise KeyError(f"keys in both the parameters and vq_stats: {sorted(set(arrays) & set(stats))}")
+    for key in arrays:
+        if is_vq_stat(_port_key(key)):
+            raise KeyError(f"{key!r} is a vq_stats entry, not a parameter")
+    for key in stats:
+        if not is_vq_stat(_port_key(key)):
+            raise KeyError(f"vq_stats key {key!r} is not one of VQ's statistics")
+    arrays.update(stats)
     want = expected_shapes(config)
+    if vq_stats is None:
+        want = {k: v for k, v in want.items() if not is_vq_stat(k)}
     out: Dict[str, torch.Tensor] = {}
     for jax_key, arr in arrays.items():
         key = _port_key(jax_key)
@@ -81,6 +114,25 @@ def state_dict_from_jax_npz(
     if missing:
         raise KeyError(f"port parameters not filled by the checkpoint: {missing}")
     return out
+
+
+def load_jax_arrays(module: torch.nn.Module, params, config, vq_stats=None) -> None:
+    """Load JAX parameter arrays (a params.npz path or a flat dict) and, if
+    given, vq_stats arrays into `module`; without vq_stats, VQ's statistics
+    keep the module's values.  Every parameter must be filled."""
+    sd = state_dict_from_jax_npz(params, config, vq_stats)
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    if unexpected or any(not is_vq_stat(k) for k in missing):
+        raise KeyError(f"state_dict mismatch: missing {missing}, unexpected {unexpected}")
+
+
+def vq_stats_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """VQ's EMA statistics of a state_dict under JAX's vq_stats paths, as
+    fp32 numpy arrays ({} for an LFQ model)."""
+    return {
+        key.replace(".", "/"): np.ascontiguousarray(t.detach().float().cpu().numpy())
+        for key, t in state_dict.items() if is_vq_stat(key)
+    }
 
 
 def _jax_key(port_key: str, ndim: int) -> str:
@@ -104,10 +156,13 @@ def jax_arrays_from_state_dict(
 ) -> Dict[str, np.ndarray]:
     """Map the port's state_dict (or gradients under the same names) onto the
     JAX package's flat parameter paths, as fp32 numpy arrays (int8 for the
-    int8 serving form's ``kernel_q``)."""
-    want = expected_shapes(config)
+    int8 serving form's ``kernel_q``).  VQ's statistics are left out (see
+    `vq_stats_from_state_dict`)."""
+    want = {k: v for k, v in expected_shapes(config).items() if not is_vq_stat(k)}
     out: Dict[str, np.ndarray] = {}
     for key, t in state_dict.items():
+        if is_vq_stat(key):
+            continue
         if key not in want:
             raise KeyError(f"{key!r} is not a parameter of the port's module")
         if t.shape != want[key]:

@@ -224,10 +224,10 @@ def quantize_model_for_serving(
     bf16 layers, group size and (if given) mode; its weights are the float
     model's JAX-layout tree quantized by ``quantize_transformer_params``.
     Loading checks the structure: every quantized leaf must fill a parameter
-    or buffer of the int8 module and every one must be filled.  Patchnorm is
-    carried over."""
+    or buffer of the int8 module and every one must be filled.  Patchnorm and
+    VQ's statistics are carried over."""
     from .autoencoder import DCTAutoencoder
-    from .convert import flatten_jax_tree, jax_param_tree, state_dict_from_jax_npz
+    from .convert import flatten_jax_tree, jax_param_tree, load_jax_arrays, vq_stats_from_state_dict
 
     cfg = copy.deepcopy(model.config)
     for stack, bf16 in ((cfg.encoder_config, encoder_bf16_layers), (cfg.decoder_config, decoder_bf16_layers)):
@@ -240,6 +240,7 @@ def quantize_model_for_serving(
     tree = quantize_transformer_params(
         jax_param_tree(model.module.state_dict(), model.config), encoder_bf16_layers, decoder_bf16_layers, group_size
     )
-    qmodel.module.load_state_dict(state_dict_from_jax_npz(flatten_jax_tree(tree), cfg))
+    stats = vq_stats_from_state_dict(model.module.state_dict())
+    load_jax_arrays(qmodel.module, flatten_jax_tree(tree), cfg, stats or None)
     qmodel.patchnorm = model.patchnorm
     return qmodel

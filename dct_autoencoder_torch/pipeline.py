@@ -1,4 +1,4 @@
-"""Tokenizer pipeline: images <-> LFQ token records in one call.
+"""Tokenizer pipeline: images <-> token records (LFQ or VQ) in one call.
 
     pipe = DCTPipeline.from_pretrained("docs/calibrated_run_r3b/model")  # its gated int8 sibling
     records = pipe.encode(images)        # JSON-able per-image token records
@@ -7,7 +7,9 @@
 Encode runs the batched front-end kernel, packing, patchnorm and the model
 forward; decode rebuilds one packed row per record, runs decode_from_codes,
 the inverse patchnorm and the back-end kernel.  Records use the JAX
-package's schema, so either package decodes the other's records.
+package's schema, so either package decodes the other's records.  A VQ
+checkpoint encodes without training (the argmin, no gumbel draw, the
+statistics as loaded from vq_stats.npz).
 
 ``reconstruct_direct`` is the serving daemon's /reconstruct: no token
 records, and for a group of images of one size one back-end launch over the

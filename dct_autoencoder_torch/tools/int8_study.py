@@ -29,7 +29,7 @@ def _noise_equiv_model(model, seed: int, skip_layers=()):
     So the same seed perturbs the same weights by the same amounts as in the
     JAX package."""
     from ..models.autoencoder import DCTAutoencoder
-    from ..models.convert import flatten_jax_tree, jax_param_tree, state_dict_from_jax_npz
+    from ..models.convert import flatten_jax_tree, jax_param_tree, load_jax_arrays, vq_stats_from_state_dict
 
     rng = np.random.default_rng(seed)
     skip = set(skip_layers)
@@ -56,6 +56,6 @@ def _noise_equiv_model(model, seed: int, skip_layers=()):
     for stack in ("encoder", "decoder"):
         if stack in params:
             params[stack] = walk_stack(params[stack])
-    m.module.load_state_dict(state_dict_from_jax_npz(flatten_jax_tree(params), m.config))
+    load_jax_arrays(m.module, flatten_jax_tree(params), m.config, vq_stats_from_state_dict(model.module.state_dict()) or None)
     m.patchnorm = model.patchnorm
     return m

@@ -1,5 +1,7 @@
-"""LFQ autoencoder training on one device: losses (the pixel loss included),
-optimizers (AdamW, 8-bit AdamW), step, loop, checkpoints, and the CLI."""
+"""Autoencoder training on one device, LFQ or VQ: losses (the pixel loss
+included), optimizers (AdamW, 8-bit AdamW), step (with VQ's codebook
+surgery and the sweep's dynamic hyper-parameters), loop, checkpoints, the
+CLI and the hyper-parameter sweep (train/sweep.py)."""
 from .checkpoint import has_train_state, load_train_state, save_train_state
 from .loop import (
     Optimizer,

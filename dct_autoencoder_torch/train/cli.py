@@ -9,8 +9,10 @@ Usage:
 Counterpart of dct_autoencoder_tpu/train/cli.py with the same flags and
 defaults, plus --device (cuda unless --device cpu).  Metrics go to
 out/<timestamp>/metrics.jsonl, with image grids and checkpoints beside them.
-Not ported, and refused by name when set: --n_model_parallel,
---pipeline_microbatches, --sequence_parallel, --zero1, and any VQ config.
+A VQ config (vq_type 'vq') trains with k-means init and dead-code expiry
+(--vq_kmeans_init, --vq_expire_threshold, --vq_expire_every, JAX's
+defaults).  Not ported, and refused by name when set: --n_model_parallel,
+--pipeline_microbatches, --sequence_parallel, --zero1.
 --profile_dir writes a torch.profiler trace (trace.json) of the main
 training phase.  One default differs from JAX: --rss_limit_gb is 0 (off).
 """
@@ -170,8 +172,8 @@ def main(
     augment_scale_min: float = 0.3,
     augment_hflip: float = 0.5,
     augment_color_jitter: float = 0.0,
-    # VQ training knobs: VQ mode is not ported (a VQ config is refused);
-    # on an LFQ config they are unused, as in JAX
+    # VQ training knobs (reference threshold_ema_dead_code=15, kmeans_init=True;
+    # train/loop.py make_train_step); unused on an LFQ config, as in JAX
     vq_kmeans_init: bool = True,
     vq_expire_threshold: float = 15.0,
     vq_expire_every: int = 50,
@@ -189,11 +191,6 @@ def main(
         zero1=(zero1, False, "ZeRO-1 optimizer sharding"),
     )
     model_config = DCTAutoencoderConfig.from_json_file(model_config_path)
-    if model_config.vq_type != "lfq":
-        raise NotImplementedError(
-            f"vq_type={model_config.vq_type!r}: VQ mode (and its flags vq_kmeans_init, vq_expire_threshold, "
-            "vq_expire_every) is not ported yet"
-        )
     loss_weights = dict(
         rec_loss=rec_loss,
         rec_loss_unnormalized=rec_loss_unnormalized,
@@ -314,6 +311,9 @@ def main(
             out_dir=out_dir,
             resume_path=train_state_resume_path,
             seed=seed,
+            vq_kmeans_init=vq_kmeans_init,
+            vq_expire_threshold=vq_expire_threshold,
+            vq_expire_every=vq_expire_every,
             log=log,
         )
     if out_dir:

@@ -1,6 +1,6 @@
 """Training loop on one device: optimizer, train step, calibration, checkpoints.
 
-Counterpart of the JAX package's train/loop.py for LFQ models:
+Counterpart of the JAX package's train/loop.py, for LFQ and VQ models:
   * AdamW(0.9, 0.99, eps 1e-8, weight decay 0.1 on every parameter) behind a
     global-norm clip at 5.0, under the warmup-cosine schedule of
     ``optax.warmup_cosine_decay_schedule`` reproduced step for step (the
@@ -9,19 +9,29 @@ Counterpart of the JAX package's train/loop.py for LFQ models:
   * one step = normalize -> forward -> losses (optionally the RGB pixel
     loss) -> backward -> update, with gradient accumulation over row
     micro-batches;
+  * VQ mode: the EMA statistics (buffers of the module) update in every
+    micro-batch's forward, gumbel sampling draws from a generator seeded
+    by (seed, step, micro-batch), and after the update the codebook
+    surgery runs on the last micro-batch's projections: k-means init at
+    step 0, dead-code expiry every vq_expire_every steps, the Adam moments
+    of replaced codes zeroed;
+  * dynamic_hparams: per-trial loss weights and a learning-rate scale as
+    step arguments, for the shared-step sweep (train/sweep.py);
   * the norm-calibration phase with beta forced to 0 and full sequences;
   * the loop itself: batch prefetch on a host thread, logging, image grids,
     periodic and final checkpoints, exact resume, NaN abort or restore, and
     the stall and host-RSS watchdogs.
 
 Where JAX returns new pytrees, the port updates the module's fp32
-parameters and the optimizer's moments in place.
+parameters, its VQ statistics and the optimizer's moments in place.  The
+port's random draws (gumbel, k-means, expiry) are its own, not JAX's
+streams; each is a function of (seed, step), as JAX's fold_in is, so a
+resumed run draws what the uninterrupted run drew.
 
-Not ported: VQ mode and its codebook surgery, shared-program sweeps
-(dynamic_hparams), attention dropout and everything multi-device; they
-raise NotImplementedError by name.  One default differs from JAX on
-purpose: the RSS watchdog is off (rss_limit_gb=0), since it works around a
-memory leak of the TPU client that this runtime does not have.
+Not ported: attention dropout and everything multi-device; they raise
+NotImplementedError by name.  One default differs from JAX on purpose: the
+RSS watchdog is off (rss_limit_gb=0), since it works around a memory leak
+of the TPU client that this runtime does not have.
 """
 from __future__ import annotations
 
@@ -77,16 +87,23 @@ class Optimizer:
             weight_decay=self.weight_decay,
         )
 
-    def apply(self, adamw: torch.optim.Optimizer, params: List[torch.Tensor], count: int) -> torch.Tensor:
+    def apply(
+        self, adamw: torch.optim.Optimizer, params: List[torch.Tensor], count: int, lr_scale: float = 1.0
+    ) -> torch.Tensor:
         """Clip the parameters' gradients by their global norm, then take
-        update number `count`; returns the norm before clipping."""
+        update number `count`; returns the norm before clipping.
+
+        lr_scale multiplies the schedule's rate.  AdamW's update, decoupled
+        weight decay included, is linear in the rate (in AdamW8bit too), so a
+        unit-peak schedule scaled by s is the schedule with peak s: JAX's
+        dynamic_hparams scales the whole update by s."""
         grads = [p.grad for p in params if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # optax.clip_by_global_norm: untouched below the limit, else g / norm * limit
         scale = torch.where(grad_norm < self.grad_clip, torch.ones_like(grad_norm), self.grad_clip / grad_norm)
         torch._foreach_mul_(grads, scale)
         for group in adamw.param_groups:
-            group["lr"] = self.schedule(count)
+            group["lr"] = self.schedule(count) * lr_scale
         adamw.step()
         return grad_norm
 
@@ -115,13 +132,23 @@ def make_optimizer(
 
 @dataclasses.dataclass
 class TrainState:
-    module: DCTAutoencoderModule  # its fp32 parameters are the trained state
+    module: DCTAutoencoderModule  # its fp32 parameters (and VQ's statistics) are the trained state
     adamw: torch.optim.Optimizer  # first and second moments (AdamW or AdamW8bit)
     step: int = 0
+    # VQ: the codebook rows that the last step's surgery replaced (bool,
+    # the codebook's shape without its last dim), None if it replaced none
+    vq_replaced: Optional[torch.Tensor] = None
 
     @staticmethod
     def create(module: DCTAutoencoderModule, tx: Optimizer) -> "TrainState":
         return TrainState(module=module, adamw=tx.init(module), step=0)
+
+    @property
+    def vq_stats(self) -> Dict[str, torch.Tensor]:
+        """VQ's EMA statistics (JAX: TrainState.vq_stats['vq_model']), the
+        module's buffers; {} for LFQ.  The module's state_dict carries them,
+        so checkpoints and resume include them."""
+        return self.module.vq_stats()
 
 
 class RssLimitExceeded(RuntimeError):
@@ -247,9 +274,12 @@ def make_train_step(
     accum_steps: int = 1,
     use_pixel_loss: bool = False,
     seed: int = 0,
+    vq_kmeans_init: bool = True,
+    vq_expire_threshold: float = 15.0,
+    vq_expire_every: int = 50,
     dynamic_hparams: bool = False,
 ) -> Callable:
-    """Build the train-step fn (state, patchnorm, batch[, grid_sizes]) -> (state, metrics).
+    """Build the train-step fn (state, patchnorm, batch[, grid_sizes[, hparams]]) -> (state, metrics).
 
     Normalization is done inside the step (frozen patchnorm).  The state's
     module and optimizer are updated in place and the same state object is
@@ -265,10 +295,30 @@ def make_train_step(
     images the loss can average, at most the grid sizes' length), so that
     accum = K equals accum = 1 even when packing spreads images unevenly;
     the per-token means are re-weighted by their token share.
+
+    dynamic_hparams=True: the step takes a fifth argument `hparams`, a dict
+    of per-trial loss weights plus 'lr_scale' (Python numbers or 0-d
+    tensors), so that one step serves every trial of a sweep.  Build `tx`
+    with learning_rate=1.0: the update is then scaled by lr_scale, which is
+    exact (see Optimizer.apply).  Weights in hparams override loss_weights.
+
+    VQ mode (config.vq_type == 'vq'), as in JAX:
+      * the EMA statistics update in every micro-batch's forward and thread
+        from one micro-batch to the next;
+      * gumbel sampling at temperature 20 draws from a generator seeded by
+        (seed, step, micro-batch);
+      * after the update, the codebook surgery runs on the last
+        micro-batch's projections and valid tokens: k-means init from the
+        batch at step 0 (vq_kmeans_init), and every vq_expire_every steps
+        (when step % vq_expire_every == vq_expire_every - 1) codes whose
+        EMA usage is below vq_expire_threshold are replaced by samples of
+        the batch; replaced codes get their Adam moments zeroed (fp32 AdamW
+        only: JAX finds the moments by the codebook's shape, which the
+        8-bit state's blocks do not have).  With no valid token in that
+        window the surgery does nothing.  state.vq_replaced holds the
+        replaced rows.
     """
     _refuse_attention_dropout(module.config)
-    if dynamic_hparams:
-        raise NotImplementedError("dynamic_hparams (shared-program sweeps) is not ported yet")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     generators: Dict[torch.device, torch.Generator] = {}
@@ -281,32 +331,48 @@ def make_train_step(
             generators[device] = torch.Generator(device=device).manual_seed(seed)
         return generators[device]
 
-    def backward(patchnorm, batch, step, grid_sizes=None, pixel_rows=None, pixel_weight=None, token_weight=None):
+    is_vq = module.config.vq_type == "vq"
+
+    def backward(
+        patchnorm, batch, step, micro, lw, grid_sizes=None, pixel_rows=None, pixel_weight=None, token_weight=None
+    ):
         normalized = batch.replace(patches=apply_patchnorm(patchnorm, batch))
+        device = batch.patches.device
         losses = step_autoencoder(
-            module, patchnorm, batch, normalized, training=True, generator=dropout_generator(batch.patches.device),
+            module, patchnorm, batch, normalized, training=True, generator=dropout_generator(device),
             pixel_grid_sizes=grid_sizes, pixel_rows=pixel_rows,
+            vq_generator=step_generator(seed, step, micro, device) if is_vq else None, update_vq_stats=is_vq,
         )
         if pixel_weight is not None:
             losses["pixel_loss"] = losses["pixel_loss"] * pixel_weight
         if token_weight is not None:
             for k in _TOKEN_MEAN_LOSSES:
                 losses[k] = losses[k] * token_weight
-        total = weighted_total(losses, loss_weights, warmup_dict, float(step))
+        vq_z = losses.pop("vq_z", None)
+        total = weighted_total(losses, lw, warmup_dict, float(step))
         total.backward()
         metrics = {k: v.detach() for k, v in losses.items() if k not in ("codes", "rec_patches")}
         metrics["loss"] = total.detach()
-        return metrics
+        return metrics, vq_z
 
-    def train_step(state: TrainState, patchnorm: PatchNormState, batch: DCTPatches, grid_sizes=None):
+    def train_step(
+        state: TrainState, patchnorm: PatchNormState, batch: DCTPatches, grid_sizes=None, hparams=None
+    ):
         if state.module is not module:
             raise ValueError("the state belongs to another module than the step was built for")
         if use_pixel_loss != (grid_sizes is not None):
             raise ValueError("grid sizes (prepare_train_batch(pixel_loss_max_images=...)) go with use_pixel_loss, and only with it")
+        if dynamic_hparams and (hparams is None or "lr_scale" not in hparams):
+            raise ValueError("a step built with dynamic_hparams=True takes hparams with 'lr_scale'")
+        lw = loss_weights
+        if hparams is not None:
+            lw = dict(loss_weights or {})
+            lw.update({k: v for k, v in hparams.items() if k != "lr_scale"})
         params = [p for p in module.parameters() if p.requires_grad]
         state.adamw.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            metrics = backward(patchnorm, batch, state.step, grid_sizes)
+            metrics, vq_z = backward(patchnorm, batch, state.step, 0, lw, grid_sizes)
+            surgery_mask = ~batch.key_pad_mask
         else:
             b = batch.patches.shape[0]
             if b % accum_steps:
@@ -333,21 +399,122 @@ def make_train_step(
                     slot_mask = (slots >= start) & (slots < start + counts.sum())
                     pixel_rows = (row_off, slot_mask)
                     pixel_weight = slot_mask.sum().float() * accum_steps / torch.clamp(total_images, min=1.0)
-                m = backward(
-                    patchnorm, _rows(batch, i * mb, (i + 1) * mb), state.step, grid_sizes, pixel_rows, pixel_weight,
-                    token_weight,
+                m, vq_z = backward(
+                    patchnorm, _rows(batch, i * mb, (i + 1) * mb), state.step, i, lw, grid_sizes, pixel_rows,
+                    pixel_weight, token_weight,
                 )
                 metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
             metrics = {k: v / accum_steps for k, v in metrics.items()}
             torch._foreach_div_([p.grad for p in params if p.grad is not None], float(accum_steps))
+            # the surgery samples from the last micro-batch, whose projections are vq_z
+            surgery_mask = ~batch.key_pad_mask[(accum_steps - 1) * mb :]
 
-        grad_norm = tx.apply(state.adamw, params, state.step)
+        lr_scale = float(hparams["lr_scale"]) if dynamic_hparams else 1.0
+        grad_norm = tx.apply(state.adamw, params, state.step, lr_scale=lr_scale)
         state.adamw.zero_grad(set_to_none=True)
+        state.vq_replaced = None
+        if is_vq:
+            state.vq_replaced = _vq_codebook_surgery(
+                module.vq_model, state.adamw, vq_z, surgery_mask, state.step, seed,
+                vq_kmeans_init, vq_expire_threshold, vq_expire_every,
+            )
         state.step += 1
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return train_step
+
+
+# generator streams of one step: gumbel sampling uses the micro-batch index
+_KMEANS_STREAM = 1 << 16
+_EXPIRE_STREAM = (1 << 16) + 1
+
+
+def step_generator(seed: int, step: int, stream: int, device) -> torch.Generator:
+    """A generator on `device` whose state is a function of (seed, step,
+    stream) only (JAX: fold_in(PRNGKey(seed), step)), so that a resumed run
+    draws what the uninterrupted run drew."""
+    state = np.random.SeedSequence([int(seed), int(step), int(stream)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) & ((1 << 63) - 1))
+
+
+@torch.no_grad()
+def _zero_codebook_moments(adamw: torch.optim.Optimizer, codebook: torch.Tensor, replaced: torch.Tensor) -> None:
+    """Zero the Adam moment rows of codes that the surgery replaced, so a
+    fresh code does not inherit the old one's momentum.  As in JAX, the
+    moments are those shaped like the codebook: fp32 AdamW's exp_avg and
+    exp_avg_sq.  AdamW8bit keeps its moments as (n_blocks, 256) codes and
+    absmax, which JAX's search by shape does not find either, so they stay."""
+    state = adamw.state.get(codebook, {})
+    keep = (~replaced).to(torch.float32)[..., None]
+    for name in ("exp_avg", "exp_avg_sq"):
+        moment = state.get(name)
+        if isinstance(moment, torch.Tensor) and moment.shape == codebook.shape:
+            moment.mul_(keep.to(moment.dtype))
+
+
+@torch.no_grad()
+def _vq_codebook_surgery(
+    vq, adamw: torch.optim.Optimizer, vq_z: torch.Tensor, mask: torch.Tensor, step: int, seed: int,
+    kmeans_init: bool, expire_threshold: float, expire_every: int,
+) -> Optional[torch.Tensor]:
+    """The codebook surgery after a VQ step's update (JAX: _vq_codebook_surgery).
+
+    k-means init when step == 0, dead-code expiry when
+    step % expire_every == expire_every - 1; in the EMA-codebook mode both
+    edit the statistics (embed, embed_avg, the cluster sizes; k-means seeds
+    the cluster sizes with its bins and embed_avg with embed x bins).  Does
+    nothing when `mask` (the sampling window's valid tokens) is empty, or
+    when neither is due.  Returns the replaced rows of the gradient codebook
+    (None in the EMA mode or when nothing ran)."""
+    from ..models.vq import (
+        draw_expiry,
+        draw_kmeans,
+        expire_dead_codes_ema_stats,
+        expire_dead_codes_params,
+        kmeans_init_from_batch,
+    )
+
+    do_kmeans = kmeans_init and step == 0
+    do_expire = expire_threshold > 0 and expire_every > 0 and step % expire_every == expire_every - 1
+    if not (do_kmeans or do_expire) or not bool(mask.any()):
+        return None
+    device = vq_z.device
+    if vq.ema_update:
+        stats = vq.stats()
+        if do_kmeans:
+            gen = step_generator(seed, step, _KMEANS_STREAM, device)
+            draws = draw_kmeans(vq_z, mask, stats["embed"].shape, gen)
+            emb, bins = kmeans_init_from_batch(stats["embed"], vq_z, mask, draws, return_bins=True)
+            vq.embed.copy_(emb)
+            vq.embed_avg.copy_(emb * bins[..., None])
+            vq.ema_cluster_size.copy_(bins)
+            if "cluster_size" in stats:
+                vq.cluster_size.copy_(bins)
+        if do_expire and "cluster_size" in stats:
+            gen = step_generator(seed, step, _EXPIRE_STREAM, device)
+            new = expire_dead_codes_ema_stats(vq.stats(), vq_z, draw_expiry(vq_z, mask, vq.embed.shape, gen), expire_threshold)
+            for k, v in new.items():
+                getattr(vq, k).copy_(v)
+        return None
+
+    cb = vq.codebook
+    replaced = torch.zeros(cb.shape[:-1], dtype=torch.bool, device=cb.device)
+    if do_kmeans:
+        gen = step_generator(seed, step, _KMEANS_STREAM, device)
+        cb.copy_(kmeans_init_from_batch(cb, vq_z, mask, draw_kmeans(vq_z, mask, cb.shape, gen)))
+        replaced[...] = True
+    if do_expire:
+        gen = step_generator(seed, step, _EXPIRE_STREAM, device)
+        dead = vq.cluster_size < expire_threshold
+        new_cb, new_cs = expire_dead_codes_params(
+            cb, vq.cluster_size, vq_z, draw_expiry(vq_z, mask, cb.shape, gen), expire_threshold
+        )
+        cb.copy_(new_cb)
+        vq.cluster_size.copy_(new_cs)
+        replaced |= dead
+    _zero_codebook_moments(adamw, cb, replaced)
+    return replaced
 
 
 def train_patch_norm(
@@ -445,6 +612,10 @@ def train(
     out_dir: Optional[str] = None,
     resume_path: Optional[str] = None,
     seed: int = 0,
+    # VQ: k-means init and dead-code expiry (see make_train_step)
+    vq_kmeans_init: bool = True,
+    vq_expire_threshold: float = 15.0,
+    vq_expire_every: int = 50,
     log: Callable[[Dict], None] = print,
 ) -> Tuple[DCTAutoencoder, TrainState]:
     """Main training loop, on the model's device.
@@ -475,7 +646,8 @@ def train(
         state, model.patchnorm = load_train_state(resume_path, state, model.patchnorm)
         log({"resumed_from": resume_path, "step": state.step})
     step_fn = make_train_step(
-        model.module, tx, loss_weights, warmup_dict, grad_accumulation_steps, use_pixel_loss=use_pixel_loss, seed=seed
+        model.module, tx, loss_weights, warmup_dict, grad_accumulation_steps, use_pixel_loss=use_pixel_loss, seed=seed,
+        vq_kmeans_init=vq_kmeans_init, vq_expire_threshold=vq_expire_threshold, vq_expire_every=vq_expire_every,
     )
     clip_grid = (model.config.max_patch_h, model.config.max_patch_w)
 

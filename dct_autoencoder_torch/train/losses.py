@@ -1,10 +1,11 @@
-"""Loss assembly for autoencoder training (LFQ).
+"""Loss assembly for autoencoder training (LFQ or VQ).
 
 Masked L1 in normalized DCT space (weight 0.1), masked L1 in unnormalized
-DCT space (weight 1.0), LFQ commit loss (0.1), MaskGIT entropy loss (0.1),
-plus codebook perplexity as a metric, and optionally the differentiable RGB
+DCT space (weight 1.0), the commit loss (0.1: LFQ's, or VQ's commitment +
+codebook loss), MaskGIT entropy loss (0.1, LFQ only; 0 for VQ), plus
+codebook perplexity as a metric, and optionally the differentiable RGB
 pixel loss (train/pixel_loss.py).  DCT features are treated as Laplace
-distributed, hence L1.  VQ mode is not ported.
+distributed, hence L1.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ def step_autoencoder(
     generator: Optional[torch.Generator] = None,
     pixel_grid_sizes: Optional[torch.Tensor] = None,
     pixel_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    vq_generator: Optional[torch.Generator] = None,
+    update_vq_stats: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """One forward pass and the loss dict.
 
@@ -53,13 +56,22 @@ def step_autoencoder(
     tensor of per-image patch grids (train/pixel_loss.py::make_grid_sizes).
     pixel_rows (gradient accumulation) carries (row_offsets, slot_valid),
     which map this micro-batch's rows onto global slots of the grid sizes.
+
+    VQ: `vq_generator` samples the codes with gumbel noise, and
+    update_vq_stats=True updates the EMA statistics in the module's buffers
+    (JAX: vq_stats passed in, applied with mutable=['vq_stats']; here they
+    are read from module.vq_stats()); then the projections before
+    quantization come back under 'vq_z', detached.
     """
-    out = module(normalized_batch, training=training, generator=generator)
+    out = module(
+        normalized_batch, training=training, generator=generator, vq_generator=vq_generator,
+        update_vq_stats=update_vq_stats,
+    )
     output_patches: DCTPatches = out["dct_patches"]
     mask = ~output_patches.key_pad_mask
 
     losses: Dict[str, torch.Tensor] = {}
-    if training:
+    if training and module.config.vq_type == "lfq":
         losses["entropy_loss"] = compute_entropy_loss(out["distances"], mask)
     else:
         losses["entropy_loss"] = out["distances"].new_zeros(())
@@ -89,6 +101,8 @@ def step_autoencoder(
         losses["perplexity"] = calculate_perplexity(null_codes, module.config.vq_codebook_size)
     losses["codes"] = codes
     losses["rec_patches"] = output_patches.patches
+    if update_vq_stats and "vq_z" in out:
+        losses["vq_z"] = out["vq_z"].detach()
     return losses
 
 
@@ -99,7 +113,10 @@ def weighted_total(
     global_step: Optional[float] = None,
 ) -> torch.Tensor:
     """Weighted sum of the '*loss' terms with an optional per-term linear
-    warmup; a term whose weight is exactly 0 is skipped."""
+    warmup.  Weights are Python numbers, or 0-d tensors (per-trial weights
+    of the shared-step sweep, train/sweep.py); a term whose weight is the
+    Python number 0 is skipped, a tensor weight always contributes, as in
+    JAX."""
     weights = dict(DEFAULT_LOSS_WEIGHTS)
     if loss_weights:
         weights.update(loss_weights)
@@ -110,7 +127,7 @@ def weighted_total(
         w = weights.get(k, 1.0)
         if warmup_dict and k in warmup_dict and global_step is not None:
             w = w * min((float(global_step) + 1.0) / warmup_dict[k], 1.0)
-        if w == 0.0:
+        if isinstance(w, (int, float)) and w == 0.0:
             continue
         total = v * w if total is None else total + v * w
     if total is None:

@@ -314,3 +314,68 @@ def test_training_cli_slice_phases_run_after_the_train_steps():
                    "prefetch_batches=0", "from_pretrained"):
         assert needle in src, needle
     assert inspect.signature(chip_smoke.phase_train_cli_patch14l).parameters["rows"].default == 64
+
+
+def test_vq_and_sweep_slice_phases_and_limits():
+    """The VQ and sweep phases run after the training CLI and before the AR
+    phases, with the limits their checks state.  The VQ paths' launches are
+    held to the tensor-core kernels; the sweep's, in fp32 as its command
+    line runs it, to the CUDA-core ones."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = ["phase_train_cli_patch14l()", "phase_train_vq_patch14l(profile)", "phase_train_vq_r3b()",
+             "phase_train_cli_vq_r3b(", "phase_sweep_small_448(", "phase_ar_train_full_width(profile)"]
+    assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
+    for path in ("train_vq_patch14l", "train_vq_r3b", "train_cli_vq", "sweep"):
+        assert chip_smoke.PATH_IMPLS[path] == (("simt", "simt") if path == "sweep" else ("mma", "mma")), path
+        assert f'launches["{path}"]' in main
+    sig = lambda fn: {k: v.default for k, v in inspect.signature(fn).parameters.items()}  # noqa: E731
+    assert sig(chip_smoke.phase_train_vq_patch14l) == {"profile": False, "steps": 8, "expire_every": 4, "n_images": 16, "size": 448}
+    assert sig(chip_smoke.phase_train_vq_r3b)["n_images"] == 16 and sig(chip_smoke.phase_train_cli_vq_r3b)["steps"] == 4
+    assert sig(chip_smoke.phase_sweep_small_448)["trials"] == 5
+    assert chip_smoke.MIN_VQ_CODE_AGREEMENT == 0.95
+    needles = {
+        chip_smoke.phase_train_vq_patch14l: ("vq_expire_threshold=15.0", "_replaced_rows(state, vq.codebook)",
+                                             "n_layers * steps", 'before["idct_unpatchify"] == 1',
+                                             "max(codes) < cfg.vq_codebook_size", "torch.isfinite(v).all()"),
+        chip_smoke.phase_train_vq_r3b: ("MIN_VQ_CODE_AGREEMENT", "MAX_TRAIN_LOSS_REL", "MAX_TRAIN_GRAD_NORM_REL",
+                                        "vq_stats.npz", "torch.equal(want[k], got[k])", "same_codes"),
+        chip_smoke.phase_train_cli_vq_r3b: ("opt_8bit=True", "vq_expire_every=2", "vq_stats.npz", 'launches["dct_patchify"] > 0',
+                                            "DCTPipeline.from_pretrained"),
+        chip_smoke.phase_sweep_small_448: ("SMALL_448", "2 * trials", "math.isfinite(r[\"rec_loss\"])",
+                                           'launches["dct_patchify"] > 0', "trials > n_startup",
+                                           "tpe[n_startup] != rnd[n_startup]"),
+    }
+    for fn, wants in needles.items():
+        src = inspect.getsource(fn)
+        for needle in wants:
+            assert needle in src, (fn.__name__, needle)
+    assert "bfloat16" not in inspect.getsource(chip_smoke.phase_sweep_small_448)
+
+
+def test_vq_config_keeps_the_published_widths():
+    cfg = chip_smoke.vq_config(chip_smoke.PATCH14_L)
+    assert cfg.vq_type == "vq" and (cfg.vq_num_codebooks, cfg.vq_codebook_size) == (16, 8192)
+    assert cfg.encoder_config.hidden_size == 1024
+    assert cfg.encoder_config.num_hidden_layers == cfg.decoder_config.num_hidden_layers == 8
+    r3b = chip_smoke.vq_config(os.path.join(chip_smoke.R3B, "config.json"))
+    assert r3b.vq_type == "vq" and r3b.encoder_config.hidden_size == 256
+
+
+def test_replaced_rows_requires_zeroed_moments():
+    from types import SimpleNamespace
+
+    cb = torch.nn.Parameter(torch.randn(6, 4))
+    adamw = torch.optim.AdamW([cb])
+    cb.grad = torch.randn(6, 4)
+    adamw.step()
+    replaced = torch.tensor([True, False, True, False, False, False])
+    state = SimpleNamespace(vq_replaced=replaced, adamw=adamw)
+    with pytest.raises(AssertionError, match="Adam moments"):
+        chip_smoke._replaced_rows(state, cb)
+    for k in ("exp_avg", "exp_avg_sq"):
+        adamw.state[cb][k][replaced] = 0.0
+    assert chip_smoke._replaced_rows(state, cb) == {"replaced": 2, "codebook_rows": 6}
+    with pytest.raises(AssertionError, match="replaced no code"):
+        chip_smoke._replaced_rows(SimpleNamespace(vq_replaced=None, adamw=adamw), cb)

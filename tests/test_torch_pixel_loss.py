@@ -309,9 +309,9 @@ def test_pixel_loss_in_train_step_matches_jax():
 class _RecordingOptimizer(tloop.Optimizer):
     """The optimizer of make_optimizer that keeps the gradients it was handed."""
 
-    def apply(self, adamw, params, count):
+    def apply(self, adamw, params, count, lr_scale=1.0):
         self.grads = [p.grad.clone() for p in params]
-        return super().apply(adamw, params, count)
+        return super().apply(adamw, params, count, lr_scale)
 
 
 @pytest.mark.parametrize("sizes", [(32, 32, 32, 32), (32, 16, 16, 32, 16)], ids=["even", "uneven"])

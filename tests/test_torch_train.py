@@ -581,11 +581,11 @@ def _write_cfg(tmp_path, cfg) -> str:
     return path
 
 
-def _cli(tmp_path, cfg=None, **flags):
+def _cli(tmp_path, **flags):
     from dct_autoencoder_torch.train import cli
 
     return cli.main(
-        preprocessed_dataset_path_or_url=str(tmp_path / "none"), model_config_path=_write_cfg(tmp_path, cfg or tiny_config()),
+        preprocessed_dataset_path_or_url=str(tmp_path / "none"), model_config_path=_write_cfg(tmp_path, tiny_config()),
         should_save=False, device="cpu", **flags,
     )
 
@@ -599,27 +599,15 @@ REFUSED = {
     "cli_pipeline_microbatches": lambda m, p, t: _cli(t, pipeline_microbatches=2),
     "cli_sequence_parallel": lambda m, p, t: _cli(t, sequence_parallel=True),
     "cli_zero1": lambda m, p, t: _cli(t, zero1=True),
-    "cli_vq_config": lambda m, p, t: _cli(t, cfg=tiny_config("vq"), vq_expire_every=10),
 }
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_train_refuses_what_is_not_ported(what, tmp_path):
     model, proc = _port_setup()
-    name = what.removeprefix("cli_").replace("_config", "")
+    name = what.removeprefix("cli_")
     with pytest.raises(NotImplementedError, match=name):
         REFUSED[what](model, proc, tmp_path)
-
-
-@pytest.mark.parametrize("what", ["dynamic_hparams", "vq"])
-def test_make_functions_refuse_what_is_not_ported(what):
-    """dynamic_hparams is make_train_step's (JAX's train() has no such argument: its sweep builds the step)."""
-    model, _ = _port_setup()
-    with pytest.raises(NotImplementedError, match=what):
-        if what == "vq":
-            TorchAE(TorchConfig.from_dict(tiny_config("vq").to_dict()), device="cpu")
-        else:
-            tloop.make_train_step(model.module, tloop.make_optimizer(), dynamic_hparams=True)
 
 
 # ---------------------------------------------------------------- the loop's host machinery
