@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving, training and AR paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, AR and offline-tool paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # add --profile for device-time breakdowns
 
@@ -57,7 +57,20 @@ also against a float64 plain version), and then drives the paths themselves:
     moments, expiry every 2 steps), its checkpoint served by DCTPipeline;
   * the sweep's shared-step campaign (train/sweep.py run_onchip) over the same
     shards with conf/small-448.json in fp32, as `--onchip` runs it (the
-    CUDA-core attention kernels), both methods, 5 trials each.
+    CUDA-core attention kernels), both methods, 5 trials each;
+  * the AR token dump (tools/prepare_autoregressive_dataset.py) at the full
+    width of patch14-L (random init, saved and loaded, bf16) over 64 PNG
+    images with captions, with JAX's defaults: records in key order with
+    their captions, each decoded on the card; two processes split the keys
+    of one; then tools/eval.py on that checkpoint over 16 of the images;
+  * tools/eval.py on the trained checkpoint in fp32, on the card against the
+    CPU, and --scan over two copies of it (one pipeline, equal rows);
+  * decode_gif, diagnose (fp32: the CUDA-core attention kernels) and
+    testpipe (no model), each on the card against the CPU;
+  * the int8 study (tools/int8_study.py) at its defaults: patch14-L at
+    random init, bf16, 16 x 256 synthetic patches, every variant;
+  * the native packing library (ext/packing.cpp, built with g++) against
+    the port's numpy packing, bit for bit, on 1,000 images' token counts.
 The kernels' phase also runs the fp32 attention backward 20 times in each
 mask mode after filling the allocator's free memory with NaN, and requires
 the same bits every time.
@@ -186,11 +199,16 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # ---------------------------------------------------------------- phase 1
 
 
-def phase_environment():
-    smi = subprocess.run(
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_environment():
+    smi = _card()
     print(smi, flush=True)
 
     from dct_autoencoder_torch.kernels import _build
@@ -1836,21 +1854,30 @@ CLI_IMAGE_SIZES = [(336, 336), (448, 448), (336, 448), (448, 336), (384, 384), (
                    (448, 448), (512, 384), (768, 576), (336, 384), (900, 600), (128, 128)]
 
 
-def write_image_shards(folder, n, seed=0):
+def write_image_shards(folder, n, seed=0, sizes=CLI_IMAGE_SIZES, captions=False, maxsize=16e6):
     """Tar shards of n PNG images (smooth fields, bicubic from a random 6 x 6
-    grid) with json sizes, through the port's ShardWriter."""
+    grid) with json sizes, through the port's ShardWriter; image i has the
+    size sizes[i % len(sizes)], key f"{i:08d}" and, with captions, the
+    caption caption_of(i)."""
     from PIL import Image
 
     from dct_autoencoder_torch.data.shards import ShardWriter
 
     rng = np.random.default_rng(seed)
-    with ShardWriter(os.path.join(folder, "%06d.tar"), maxsize=16e6) as w:
+    with ShardWriter(os.path.join(folder, "%06d.tar"), maxsize=maxsize) as w:
         for i in range(n):
-            h, wd = CLI_IMAGE_SIZES[i % len(CLI_IMAGE_SIZES)]
+            h, wd = sizes[i % len(sizes)]
             seed_im = Image.fromarray(rng.integers(40, 216, size=(6, 6, 3), dtype=np.uint8))
             buf = io.BytesIO()
             seed_im.resize((wd, h), Image.BICUBIC).save(buf, format="PNG", compress_level=1)
-            w.write({"__key__": f"{i:08d}", "png": buf.getvalue(), "json": {"height": h, "width": wd}})
+            sample = {"__key__": f"{i:08d}", "png": buf.getvalue(), "json": {"height": h, "width": wd}}
+            if captions:
+                sample["txt"] = caption_of(i)
+            w.write(sample)
+
+
+def caption_of(i: int) -> str:
+    return f"a smooth field, image {i}"
 
 
 class StepClock:
@@ -2309,6 +2336,487 @@ def phase_sweep_small_448(shards, trials=5, max_iters=6, batch_size=4):
     return launches
 
 
+# ---------------------------------------------------------------- the offline tools
+
+
+# the AR dump's images: 336-768 px, all above the data path's resolution floor and within its cap
+AR_IMAGE_SIZES = [(336, 336), (448, 448), (336, 448), (448, 336), (384, 384), (384, 512), (512, 384), (768, 576),
+                  (576, 768), (336, 384), (768, 768), (448, 608)]
+# tools/eval.py on r3b, fp32 on the card against fp32 on the CPU
+MAX_EVAL_PSNR_DELTA_DB = 0.2
+MAX_EVAL_PERPLEXITY_REL = 0.02
+# diagnose's printed PSNR on the card against the CPU's; testpipe's printed statistics (3 decimals)
+MAX_DIAGNOSE_PSNR_DELTA_DB = 0.1
+MAX_TESTPIPE_STAT_DELTA = 1e-3
+# a decode_gif frame from the card against the same frame from the CPU's plain path
+MIN_GIF_FRAME_PSNR_DB = 40.0
+
+
+class Recorder:
+    """Wraps the attribute `name` of obj (a module function, a method or a
+    classmethod) while in use: each call's arguments, result and wall
+    seconds (after a synchronize), in call order."""
+
+    def __init__(self, obj, name):
+        import inspect
+
+        self.obj, self.name = obj, name
+        self.raw = inspect.getattr_static(obj, name)
+        self.calls, self.results, self.seconds = [], [], []
+
+    def __enter__(self):
+        orig = getattr(self.obj, self.name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.calls.append((args, kwargs))
+            self.results.append(out)
+            return out
+
+        setattr(self.obj, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.raw)
+
+
+def _quiet(fn):
+    """(fn(), what it printed); the printout goes to stderr if fn raises."""
+    import contextlib
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = fn()
+    except BaseException:
+        print(out.getvalue()[-6000:], file=sys.stderr)
+        raise
+    return result, out.getvalue()
+
+
+def write_pngs(folder, images) -> list:
+    """(c, h, w) float images in [0, 1] -> PNG files; their paths."""
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i, im in enumerate(images):
+        path = os.path.join(folder, f"im{i:03d}.png")
+        Image.fromarray((np.clip(im, 0, 1).transpose(1, 2, 0) * 255 + 0.5).astype(np.uint8)).save(path)
+        paths.append(path)
+    return paths
+
+
+def _pngs_from_shards(url, folder, n) -> list:
+    """The first n PNG members of the tar shards matching url, written to folder as files."""
+    import glob
+    import tarfile
+
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for shard in sorted(glob.glob(url)):
+        with tarfile.open(shard) as tar:
+            for member in tar:
+                if member.name.endswith(".png") and len(paths) < n:
+                    path = os.path.join(folder, member.name)
+                    with open(path, "wb") as f:
+                        f.write(tar.extractfile(member).read())
+                    paths.append(path)
+    return paths
+
+
+def phase_tools_prepare_ar_patch14l(n_images=64, batch_size=32, beta=0.01, n_eval=16):
+    """tools/prepare_autoregressive_dataset.py at the full width of patch14-L
+    (random init, saved with save_pretrained, bf16 on the card, JAX's
+    defaults) over PNG shards with captions: one process under the
+    profiler, then two processes; then tools/eval.py on the same checkpoint
+    over 16 of the images at 448, and every record decoded on the card by
+    eval's pipeline."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.data.shards import WebDatasetReader
+    from dct_autoencoder_torch.tools import eval as tool_eval
+    from dct_autoencoder_torch.tools import prepare_autoregressive_dataset as tool_ar
+
+    t_phase = time.perf_counter()
+    cfg = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
+    tmp = tempfile.mkdtemp(prefix="tools_ar_")
+    try:
+        model_dir = os.path.join(tmp, "model")
+        (_, save_s) = _timed(lambda: dt.DCTAutoencoder(cfg, device="cpu", seed=0).save_pretrained(model_dir))
+        write_image_shards(os.path.join(tmp, "raw"), n_images, seed=5, sizes=AR_IMAGE_SIZES, captions=True, maxsize=4e6)
+        url = os.path.join(tmp, "raw", "*.tar")
+        n_shards = len(os.listdir(os.path.join(tmp, "raw")))
+        check(n_shards >= 2, f"{n_shards} input shard: two processes need two")
+        flags = dict(image_dataset_path_or_url=url, model_load_path=model_dir, batch_size=batch_size,
+                     sample_patches_beta=beta)
+
+        # one process, under the profiler from the end of the model's load
+        # to the end of the dump: the device-busy share of the dump itself
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        load = {}
+        real_load = tool_ar.get_model_and_processor
+
+        def load_then_profile(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real_load(*args, **kwargs)
+            torch.cuda.synchronize()
+            load.update(s=time.perf_counter() - t0, model=out[0])
+            prof.start()
+            return out
+
+        tool_ar.get_model_and_processor = load_then_profile
+        try:
+            K.reset_launch_counts()
+            (written, text), wall = _timed(lambda: _quiet(lambda: tool_ar.main(output_dir=os.path.join(tmp, "tok1"), **flags)))
+        finally:
+            tool_ar.get_model_and_processor = real_load
+            if "s" in load:
+                prof.stop()
+        launches = path_launches()
+        load_s, model = load.pop("s"), load.pop("model")
+        check(model.dtype == torch.bfloat16 and model.device.type == "cuda", f"the dump ran {model.dtype} on {model.device}")
+        del model
+        rows = device_rows(prof)
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        check(busy_ms > 0, "the profiler saw no device time in the dump")
+        top = [{"kernel": e.key[:100], "ms": e.self_device_time_total / 1e3, "launches": e.count}
+               for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]]
+        dump_s = wall - load_s
+
+        recs = [(smp["__key__"], smp["json"]) for smp in WebDatasetReader(os.path.join(tmp, "tok1"))]
+        check(written == len(recs) == n_images, f"{written} records written, {len(recs)} read, {n_images} images")
+        check(sorted(os.listdir(os.path.join(tmp, "tok1"))) == ["h000-000000.tar"], "the dump's output shards")
+        check([k for k, _ in recs] == [f"{i:08d}" for i in range(n_images)], "records are not in key order")
+        check(all(r["caption"] == caption_of(int(k)) for k, r in recs), "a record carries another image's caption")
+        for key, r in recs:
+            emb = r["image_embedding"]
+            check(set(emb) == {"size", "original_size", "codes"} and emb["codes"], f"record {key}: {sorted(emb)}")
+            check(all(set(c) == {"c", "h", "w", "data"} and len(c["data"]) == cfg.vq_num_codebooks for c in emb["codes"]),
+                  f"record {key}: a code entry of another schema")
+            check(all(0 <= x < cfg.vq_codebook_size for c in emb["codes"] for x in c["data"]), f"record {key}: code out of range")
+            check(tuple(emb["original_size"]) == AR_IMAGE_SIZES[int(key) % len(AR_IMAGE_SIZES)], f"record {key}: size")
+        n_tokens = sum(len(r["image_embedding"]["codes"]) for _, r in recs)
+        check(launches["dct_patchify"] == n_images, f"{launches['dct_patchify']} DCT launches for {n_images} images")
+        check(launches["attention"] > 0 and launches["attention"] % n_layers == 0, f"attention launches {launches}")
+        check(launches["attention_dq"] == launches["attention_dkv"] == launches["idct_unpatchify"] == 0,
+              f"the dump ran a backward or IDCT kernel: {launches}")
+
+        # two processes, each owning every other input shard: the same keys, split
+        parts, walls2 = [], []
+        for index in range(2):
+            out_dir = os.path.join(tmp, "tok2")
+            (n_part, _), w = _timed(lambda: _quiet(lambda: tool_ar.main(
+                output_dir=out_dir, process_index=index, process_count=2, **flags)))
+            part = [smp["__key__"] for smp in WebDatasetReader(os.path.join(out_dir, f"h{index:03d}-000000.tar"))]
+            check(n_part == len(part) > 0, f"process {index} wrote {n_part} records, {len(part)} read")
+            parts.append(set(part))
+            walls2.append(w)
+        check(not parts[0] & parts[1] and sorted(parts[0] | parts[1]) == [k for k, _ in recs],
+              "two processes did not split the one process's keys")
+
+        # tools/eval.py on the same checkpoint over 16 of the images at 448
+        paths = _pngs_from_shards(url, os.path.join(tmp, "eval_images"), n_eval)
+        check(len(paths) == n_eval, f"{len(paths)} eval images")
+        with Recorder(dt.DCTPipeline, "from_pretrained") as built, Recorder(tool_eval, "evaluate_checkpoint") as ev:
+            K.reset_launch_counts()
+            (rows, _), eval_wall = _timed(lambda: _quiet(lambda: tool_eval.main(
+                checkpoint=model_dir, images=",".join(paths), resize=448)))
+        eval_launches = path_launches()
+        check(len(rows) == 1 and len(built.calls) == 1 and built.calls[0][1]["dtype"] == torch.bfloat16,
+              "eval built other than one bf16 pipeline")
+        row = rows[0]
+        check(math.isfinite(row["psnr"]) and row["n_tokens"] > 0 and row["perplexity"] >= 1.0, f"eval row {row}")
+        check(eval_launches["idct_unpatchify"] == n_eval and eval_launches["dct_patchify"] >= 1, f"eval launches {eval_launches}")
+
+        # every record decodes on the card to an image of its original size, through eval's pipeline
+        pipe, eval_load_s = built.results[0], built.seconds[0]
+        decoded, decode_s = _timed(lambda: pipe.decode([r["image_embedding"] for _, r in recs]))
+        check(all(im.shape == (3, *r["image_embedding"]["original_size"]) and np.isfinite(im).all()
+                  for im, (_, r) in zip(decoded, recs)), "a record did not decode to its original size")
+        del pipe, decoded, built
+        emit({
+            "phase": "tools_prepare_ar_patch14l", "config": "conf/patch14-l.json (random init, saved and loaded)",
+            "dtype": "bfloat16", "images": n_images, "input_shards": n_shards, "image_sizes": AR_IMAGE_SIZES,
+            "batch_size": batch_size, "sample_patches_beta": beta, "tokens": n_tokens,
+            "records_per_s": n_images / dump_s, "dump_s_without_load": dump_s, "wall_s": wall, "model_load_s": load_s,
+            "save_pretrained_s": save_s, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / (dump_s * 1e3),
+            "top_device_kernels": top,
+            "profiled": "the one-process dump, from the end of the model's load, under torch.profiler (CPU and CUDA)",
+            "two_process_wall_s": walls2, "two_process_keys": [len(p) for p in parts],
+            "decode_s": decode_s, "launches": launches,
+            "eval": {"images": n_eval, "resize": 448, "row": row, "s_per_checkpoint": ev.seconds[0],
+                     "images_per_s": n_eval / ev.seconds[0], "wall_s": eval_wall, "load_s": eval_load_s,
+                     "launches": eval_launches},
+            "card": _card(), "phase_s": time.perf_counter() - t_phase,
+        })
+        return launches, eval_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_tools_eval_r3b(n_images=8, size=448):
+    """tools/eval.py on r3b (the float checkpoint, fp32) on the card and on
+    the CPU; then --scan over r3b as ckpt_000001 and as model: two equal
+    rows, one DCTPipeline, no kernel built again."""
+    import shutil
+    import tempfile
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.kernels import _build
+    from dct_autoencoder_torch.tools import eval as tool_eval
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tools_eval_")
+    try:
+        images = ",".join(write_pngs(os.path.join(tmp, "images"), smooth_images(n_images, size, seed=11)))
+        flags = dict(images=images, resize=size, dtype="float32")
+        with Recorder(dt.DCTPipeline, "encode") as enc:
+            K.reset_launch_counts()
+            (card_rows, _), card_s = _timed(lambda: _quiet(lambda: tool_eval.main(checkpoint=R3B, **flags)))
+            launches = path_launches()
+            (cpu_rows, _), cpu_s = _timed(lambda: _quiet(lambda: tool_eval.main(checkpoint=R3B, device="cpu", **flags)))
+        card, cpu = card_rows[0], cpu_rows[0]
+        agree = code_agreement(enc.results[0], enc.results[1])
+        check(agree >= MIN_CODE_AGREEMENT, f"eval codes card vs CPU {agree} < {MIN_CODE_AGREEMENT}")
+        check(card["n_tokens"] == cpu["n_tokens"], f"n_tokens {card['n_tokens']} vs CPU {cpu['n_tokens']}")
+        check(abs(card["psnr"] - cpu["psnr"]) <= MAX_EVAL_PSNR_DELTA_DB, f"eval PSNR {card['psnr']} vs CPU {cpu['psnr']}")
+        ppl_rel = abs(card["perplexity"] - cpu["perplexity"]) / cpu["perplexity"]
+        check(ppl_rel <= MAX_EVAL_PERPLEXITY_REL, f"perplexity {card['perplexity']} vs CPU {cpu['perplexity']}")
+        check(launches["idct_unpatchify"] == n_images and launches["dct_patchify"] >= 1, f"eval launches {launches}")
+
+        scan = os.path.join(tmp, "run")
+        for name in ("ckpt_000001", "model"):
+            shutil.copytree(R3B, os.path.join(scan, name))
+        with Recorder(dt.DCTPipeline, "from_pretrained") as built, Recorder(_build, "_start") as nvcc, \
+                Recorder(tool_eval, "evaluate_checkpoint") as ev:
+            K.reset_launch_counts()
+            (rows, _), scan_s = _timed(lambda: _quiet(lambda: tool_eval.main(scan=scan, **flags)))
+            scan_launches = path_launches()
+        check([r["step"] for r in rows] == ["ckpt_000001", "model"], f"scan rows {[r['step'] for r in rows]}")
+        check(len(built.calls) == 1, f"the scan built {len(built.calls)} pipelines")
+        check(all(p is None for p in nvcc.results), "the scan built a kernel again")
+        a, b = rows
+        check(a["n_tokens"] == b["n_tokens"] and a["perplexity"] == b["perplexity"] and abs(a["psnr"] - b["psnr"]) <= 1e-4,
+              f"the same weights gave two rows {a} and {b}")
+        with open(os.path.join(scan, "eval.jsonl")) as f:
+            check([json.loads(x) for x in f] == rows, "eval.jsonl holds other rows than the scan printed")
+        emit({
+            "phase": "tools_eval_r3b", "images": n_images, "size": size, "dtype": "float32 (the CUDA-core attention kernels)",
+            "card": card, "cpu": cpu, "code_agreement_vs_cpu": agree, "psnr_delta_db": card["psnr"] - cpu["psnr"],
+            "perplexity_rel_delta": ppl_rel, "card_wall_s": card_s, "cpu_wall_s": cpu_s,
+            "scan": {"rows": rows, "s_per_checkpoint": ev.seconds, "wall_s": scan_s, "pipelines_built": len(built.calls),
+                     "nvcc_started": sum(p is not None for p in nvcc.results), "launches": scan_launches},
+            "limits": {"code_agreement": MIN_CODE_AGREEMENT, "psnr_db": MAX_EVAL_PSNR_DELTA_DB,
+                       "perplexity_rel": MAX_EVAL_PERPLEXITY_REL},
+            "launches": launches, "card_name": _card(), "phase_s": time.perf_counter() - t_phase,
+        })
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _psnr_lines(text) -> list:
+    import re
+
+    return [float(x) for x in re.findall(r"PSNR ([-+\d.]+) dB", text)]
+
+
+def _numbers(text) -> list:
+    import re
+
+    return [float(x) for x in re.findall(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?", text)]
+
+
+def phase_tools_demos_r3b(n_frames=8, size=448, n_images=4, n_diagnose=2):
+    """decode_gif and diagnose on r3b (fp32: the CUDA-core attention
+    kernels) and testpipe (no model), each on the card against the CPU."""
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.tools import decode_gif as tool_gif
+    from dct_autoencoder_torch.tools import diagnose as tool_diagnose
+    from dct_autoencoder_torch.tools import testpipe as tool_testpipe
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tools_demos_")
+    launches = {}
+    try:
+        paths = write_pngs(os.path.join(tmp, "images"), smooth_images(n_images, size, seed=13))
+        original = np.asarray(Image.open(paths[0]), np.float32) / 255.0  # (h, w, 3)
+
+        # decode_gif: the coarse-to-fine frames; frame 8 on the card against the CPU's
+        frames = {}
+        for device in ("cuda", "cpu"):
+            K.reset_launch_counts()
+            # on the CPU one frame, from every token: the card's last frame
+            count = n_frames if device == "cuda" else 1
+            (out, _), frames[device + "_s"] = _timed(lambda: _quiet(lambda: tool_gif.main(
+                image=paths[0], model_load_path=R3B, out_file=os.path.join(tmp, f"{device}.gif"), n_frames=count,
+                max_side=size, device=device)))
+            frames[device] = [np.asarray(f, np.float32)[:, size:] / 255.0 for f in out]
+            if device == "cuda":
+                launches["tools_decode_gif"] = path_launches()
+        gif = Image.open(os.path.join(tmp, "cuda.gif"))
+        check(getattr(gif, "n_frames", 1) == n_frames, f"the GIF has {getattr(gif, 'n_frames', 1)} frames")
+        frame_psnr = [psnr(f, original) for f in frames["cuda"]]
+        check(frame_psnr[-1] > frame_psnr[0], f"frame PSNR does not rise: {frame_psnr}")
+        card_vs_cpu = psnr(frames["cuda"][-1], frames["cpu"][-1])
+        check(card_vs_cpu > MIN_GIF_FRAME_PSNR_DB, f"frame {n_frames}, card vs CPU: {card_vs_cpu} dB")
+        gl = launches["tools_decode_gif"]
+        check(gl["dct_patchify"] == 1 and gl["idct_unpatchify"] == n_frames, f"decode_gif launches {gl}")
+
+        # diagnose: its printed PSNR on the card within 0.1 dB of the CPU's
+        text = {}
+        for device in ("cuda", "cpu"):
+            K.reset_launch_counts()
+            _, text[device] = _quiet(lambda: tool_diagnose.main(
+                model_load_path=R3B, image_dir=os.path.dirname(paths[0]), n_images=n_diagnose,
+                out_file=os.path.join(tmp, f"diagnose_{device}.png"), device=device))
+            if device == "cuda":
+                launches["tools_diagnose"] = path_launches()
+        diag = {d: _psnr_lines(t) for d, t in text.items()}
+        check(len(diag["cuda"]) == len(diag["cpu"]) == n_diagnose, f"diagnose printed {diag}")
+        diag_delta = max(abs(a - b) for a, b in zip(diag["cuda"], diag["cpu"]))
+        check(diag_delta <= MAX_DIAGNOSE_PSNR_DELTA_DB, f"diagnose PSNR card {diag['cuda']} vs CPU {diag['cpu']}")
+
+        # testpipe: no model; junk.png written, the statistics equal the CPU's to the printed digits
+        tp = {}
+        for device in ("cuda", "cpu"):
+            K.reset_launch_counts()
+            out_file = os.path.join(tmp, f"junk_{device}.png")
+            _, tp[device] = _quiet(lambda: tool_testpipe.main(image_dir=os.path.dirname(paths[0]), out_file=out_file,
+                                                               device=device))
+            check(os.path.isfile(out_file), f"testpipe wrote no {out_file}")
+            if device == "cuda":
+                launches["tools_testpipe"] = path_launches()
+        stat_lines = {d: [x for x in t.splitlines() if x.startswith("std ")] for d, t in tp.items()}
+        stats = {d: _numbers(lines[0]) for d, lines in stat_lines.items()}
+        stat_delta = max(abs(a - b) for a, b in zip(stats["cuda"], stats["cpu"]))
+        check(len(stats["cuda"]) == 4 and stat_delta <= MAX_TESTPIPE_STAT_DELTA + 1e-9,
+              f"testpipe statistics card {stat_lines['cuda']} vs CPU {stat_lines['cpu']}")
+        check(_numbers(tp["cuda"].split("std ")[0]) == _numbers(tp["cpu"].split("std ")[0]),
+              "testpipe's token counts differ between the card and the CPU")
+        tl = launches["tools_testpipe"]
+        check(tl["dct_patchify"] == n_images and tl["idct_unpatchify"] == 1 and tl["attention"] == 0,
+              f"testpipe launches {tl}")
+        emit({
+            "phase": "tools_demos_r3b", "dtype": "float32 (the CUDA-core attention kernels)",
+            "decode_gif": {"frames": n_frames, "size": size, "frame_psnr_db": frame_psnr,
+                           "frame_card_vs_cpu_psnr_db": card_vs_cpu, "card_s": frames["cuda_s"], "cpu_s": frames["cpu_s"],
+                           "launches": launches["tools_decode_gif"]},
+            "diagnose": {"images": n_diagnose, "psnr_db": diag, "max_delta_db": diag_delta,
+                         "launches": launches["tools_diagnose"]},
+            "testpipe": {"images": n_images, "stats": stats, "max_delta": stat_delta,
+                         "launches": launches["tools_testpipe"]},
+            "limits": {"gif_frame_psnr_db": MIN_GIF_FRAME_PSNR_DB, "diagnose_psnr_db": MAX_DIAGNOSE_PSNR_DELTA_DB,
+                       "testpipe_stat": MAX_TESTPIPE_STAT_DELTA},
+            "card": _card(), "phase_s": time.perf_counter() - t_phase,
+        })
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+INT8_STUDY_DYNAMIC = ("dynamic", "dynamic_last1_bf16", "dynamic_last2_bf16", "dynamic_first2_bf16", "dynamic_g128",
+                      "dynamic_g128_first2_bf16")
+
+
+def phase_int8_study_patch14l():
+    """tools/int8_study.py at its defaults: patch14-L at random init, bf16,
+    synthetic 16 x 256 packed patches, seed 0, no --per_layer."""
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.tools import int8_study
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    (lines, text), wall = _timed(lambda: _quiet(lambda: int8_study.main([])))
+    launches = path_launches()
+    names = [x["variant"] for x in lines]
+    check(len(lines) == 10 and set(INT8_STUDY_DYNAMIC) <= set(names), f"the study's variants: {names}")
+    for x in lines:
+        check(0.0 <= x["token_agreement"] <= 1.0, f"agreement {x}")
+        check((x["int_mm_calls"] > 0) == (x["variant"] in INT8_STUDY_DYNAMIC), f"torch._int_mm calls of {x}")
+    emit({
+        "phase": "int8_study_patch14l", "config": "conf/patch14-l.json, random init, bfloat16, 16 x 256, seed 0",
+        "header": text.splitlines()[0], "variants": lines, "wall_s": wall, "launches": launches,
+        "card": _card(), "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
+def phase_native_packing(n_images=1000, beta=0.02, max_seq_len=256, reps=5):
+    """patches/native.py (ext/packing.cpp, built with g++) against the port's
+    numpy packing, bit for bit, on the token counts of 1,000 images at
+    patch14-L's patch size; host ms of each path."""
+    from dct_autoencoder_torch.models.config import DCTAutoencoderConfig
+    from dct_autoencoder_torch.patches import native
+    from dct_autoencoder_torch.patches.packing import build_attn_mask, fill_batch, group_patches_by_max_seq_len
+
+    t_phase = time.perf_counter()
+    available, build_s = _timed(native.available)
+    check(available, "the native packing library did not build or load")
+    pz = DCTAutoencoderConfig.from_json_file(PATCH14_L).patch_dim
+    rng, nprng = random.Random(0), np.random.default_rng(0)
+    lengths = np.asarray([min(max(1, round(-1.0 / beta * math.log(rng.random()))), max_seq_len) for _ in range(n_images)])
+    items = [(nprng.standard_normal((k, pz)).astype(np.float32), nprng.integers(0, 32, (k, 2)).astype(np.int32),
+              nprng.integers(0, 3, (k,)).astype(np.int32)) for k in lengths]
+    cat = [np.concatenate([it[j] for it in items]) for j in range(3)]
+
+    def numpy_groups():
+        state = group_patches_by_max_seq_len(items, max_seq_len)
+        return state.groups + ([state.group] if state.group else [])
+
+    def run_native():
+        n_rows, row_ids, slots, offsets = native.greedy_pack(lengths, max_seq_len)
+        return native.fill_batch(*cat, lengths, row_ids, slots, offsets, n_rows, max_seq_len)
+
+    def host_ms(fn):
+        out = fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    (n_rows, row_ids, _, _), greedy_ms = host_ms(lambda: native.greedy_pack(lengths, max_seq_len))
+    groups, grouping_ms = host_ms(numpy_groups)
+    check(n_rows == len(groups) and [int(lengths[row_ids == r].sum()) for r in range(n_rows)]
+          == [sum(p.shape[0] for p, _, _ in g) for g in groups], "greedy_pack placed the images otherwise than numpy")
+    got, native_ms = host_ms(run_native)
+    want, numpy_ms = host_ms(lambda: fill_batch(numpy_groups(), max_seq_len, pz))
+    for name, a, b in zip(("patches", "positions", "channels", "image_ids", "key_pad_mask"), got, want):
+        check(a.dtype == b.dtype and np.array_equal(a, b), f"native fill_batch's {name} differs from numpy's")
+    ids, pad = want[3], want[4]
+    mask, mask_native_ms = host_ms(lambda: native.build_attn_mask(ids, pad))
+    ref, mask_numpy_ms = host_ms(lambda: build_attn_mask(ids, pad))
+    check(np.array_equal(mask, ref), "native build_attn_mask differs from numpy's")
+    emit({
+        "phase": "native_packing", "images": n_images, "tokens": int(lengths.sum()), "rows": n_rows,
+        "max_seq_len": max_seq_len, "patch_dim": pz, "sample_patches_beta": beta, "library": native.lib_path(),
+        "build_or_load_s": build_s, "card": _card(),
+        "host_ms": {"greedy_pack_native": greedy_ms, "greedy_pack_numpy_grouping": grouping_ms,
+                    "pack_and_fill_native": native_ms, "group_and_fill_numpy": numpy_ms,
+                    "attn_mask_native": mask_native_ms, "attn_mask_numpy": mask_numpy_ms},
+        "phase_s": time.perf_counter() - t_phase,
+    })
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2338,7 +2846,10 @@ BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attentio
 # path -> (impl of its non-causal attention launches, impl of its causal ones):
 # bfloat16 runs on the tensor cores; the AR example tokenizes in bfloat16 and
 # trains its AR model in float32, and the sweep trains in float32 as its
-# command line does, on the CUDA-core kernels
+# command line does, on the CUDA-core kernels; the offline tools that run
+# float32 (eval on r3b as the phase asks, decode_gif and diagnose as their
+# tools do) run there too.  testpipe runs no model, so no attention: its
+# launches are read by its phase and listed in launches_by_path only
 PATH_IMPLS = {
     "serving": ("mma", "mma"), "reconstruct_direct": ("mma", "mma"), "serving_daemon": ("mma", "mma"),
     "full_width": ("mma", "mma"), "train_r3b": ("mma", "mma"),
@@ -2346,6 +2857,8 @@ PATH_IMPLS = {
     "train_pixel_r3b": ("mma", "mma"), "train_cli": ("mma", "mma"),
     "train_vq_patch14l": ("mma", "mma"), "train_vq_r3b": ("mma", "mma"), "train_cli_vq": ("mma", "mma"),
     "sweep": ("simt", "simt"),
+    "tools_prepare_ar": ("mma", "mma"), "tools_eval_patch14l": ("mma", "mma"), "int8_study": ("mma", "mma"),
+    "tools_eval_r3b": ("simt", "simt"), "tools_decode_gif": ("simt", "simt"), "tools_diagnose": ("simt", "simt"),
 }
 
 
@@ -2409,6 +2922,15 @@ def main() -> int:
     launches["ar_example"], example_ar_model = phase_ar_example_r3b()
     phase_ar_sampling(ar_model)
     launches["serving_daemon"] = phase_serving_daemon_r3b(example_ar_model)
+    del ar_model, example_ar_model
+    torch.cuda.empty_cache()
+    launches["tools_prepare_ar"], launches["tools_eval_patch14l"] = phase_tools_prepare_ar_patch14l()
+    torch.cuda.empty_cache()
+    launches["tools_eval_r3b"] = phase_tools_eval_r3b()
+    launches.update(phase_tools_demos_r3b())
+    launches["int8_study"] = phase_int8_study_patch14l()
+    torch.cuda.empty_cache()
+    phase_native_packing()
 
     for path, impls in PATH_IMPLS.items():
         check_impl_launches(launches[path], *impls)

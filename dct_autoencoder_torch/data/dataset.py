@@ -115,6 +115,7 @@ def load_and_transform_dataset(
     size_buckets=None,
     preprocess_batch_size: int = 0,
     augment=None,
+    keep_key: bool = False,
 ) -> Iterator[Dict[str, Any]]:
     """Raw image shards -> per-image preprocess dicts (reference dataset.py:35-89).
 
@@ -131,6 +132,9 @@ def load_and_transform_dataset(
       * augment: a data.augment.Augmenter (or any (c,h,w)->(c,h,w) callable)
         applied after the size normalization and before the on-device DCT;
         shape-preserving.
+    The port's own option: keep_key=True keeps each sample's tar ``__key__``
+    as a column (it rides through packing like a caption), so that a tool
+    can name its outputs after their sources.
 
     An image the extractor refuses (ValueError: smaller than one patch) is
     skipped with a warning, as JAX skips a failed preprocess; a failure of
@@ -180,6 +184,8 @@ def load_and_transform_dataset(
                     for k, v in sample.items()
                     if k not in ("jpg", "jpeg", "png", "json", "__key__")
                 }
+                if keep_key:
+                    extra["__key__"] = sample["__key__"]
                 yield im, extra
             except Exception as e:
                 if not warn_and_continue(e):

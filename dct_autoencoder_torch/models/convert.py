@@ -167,11 +167,11 @@ def jax_arrays_from_state_dict(
             raise KeyError(f"{key!r} is not a parameter of the port's module")
         if t.shape != want[key]:
             raise ValueError(f"{key}: shape {tuple(t.shape)}, the module expects {tuple(want[key])}")
-        arr = t.detach().to(torch.int8 if t.dtype == torch.int8 else torch.float32).cpu().numpy()
-        jax_key = _jax_key(key, arr.ndim)
+        t = t.detach().to(torch.int8 if t.dtype == torch.int8 else torch.float32)
+        jax_key = _jax_key(key, t.ndim)
         if jax_key.endswith("/kernel"):
-            arr = arr.T
-        out[jax_key] = np.ascontiguousarray(arr)
+            t = t.T  # transposed by torch's copy, several times faster than numpy's for these sizes
+        out[jax_key] = t.contiguous().cpu().numpy()
     missing = sorted(set(want) - set(state_dict))
     if missing:
         raise KeyError(f"parameters missing from the state_dict: {missing}")

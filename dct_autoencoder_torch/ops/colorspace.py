@@ -1,8 +1,9 @@
-"""IPT colour space on (..., 3, h, w) tensors.
+"""IPT, LMS and JPEG YCbCr colour spaces on (..., 3, h, w) tensors.
 
 Same matrices and gamma as the JAX package's ops/colorspace.py (sRGB -> XYZ
 D65, Hunt-Pointer-Estevez XYZ -> LMS, LMS' -> IPT), built in float64 and
-cast to the tensor's type at use.
+cast to the tensor's type at use.  YCbCr uses the correct JPEG constants,
+as the JAX package does, so the pair is an exact round trip.
 """
 from __future__ import annotations
 
@@ -46,6 +47,14 @@ def _signed_pow(x: torch.Tensor, gamma: float) -> torch.Tensor:
     return torch.sign(x) * torch.abs(x) ** gamma
 
 
+def rgb_to_lms(x: torch.Tensor) -> torch.Tensor:
+    return _channel_mult(RGB2LMS, x)
+
+
+def lms_to_rgb(x: torch.Tensor) -> torch.Tensor:
+    return _channel_mult(LMS2RGB, x)
+
+
 def rgb_to_ipt(x: torch.Tensor) -> torch.Tensor:
     """sRGB in [0, 1] -> IPT."""
     return _channel_mult(M_IPT, _signed_pow(_channel_mult(RGB2LMS, x), IPT_GAMMA))
@@ -54,3 +63,21 @@ def rgb_to_ipt(x: torch.Tensor) -> torch.Tensor:
 def ipt_to_rgb(x: torch.Tensor) -> torch.Tensor:
     """IPT -> sRGB."""
     return _channel_mult(LMS2RGB, _signed_pow(_channel_mult(IPT2LMS, x), 1.0 / IPT_GAMMA))
+
+
+def rgb_to_ycbcr(x: torch.Tensor) -> torch.Tensor:
+    """JPEG-convention YCbCr: Cb = (B - Y) / 1.772 + 0.5, Cr = (R - Y) / 1.402 + 0.5."""
+    r, g, b = x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = (-0.299 * r - 0.587 * g + 0.886 * b) / 1.772 + 0.5
+    cr = (0.701 * r - 0.587 * g - 0.114 * b) / 1.402 + 0.5
+    return torch.stack([y, cb, cr], dim=-3)
+
+
+def ycbcr_to_rgb(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of rgb_to_ycbcr."""
+    y, cb, cr = x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :]
+    r = y + 1.402 * (cr - 0.5)
+    g = y - (0.114 * 1.772 * (cb - 0.5) + 0.299 * 1.402 * (cr - 0.5)) / 0.587
+    b = y + 1.772 * (cb - 0.5)
+    return torch.stack([r, g, b], dim=-3)

@@ -82,6 +82,18 @@ def dct_matrix_tf32(n: int, crop: int, transpose: bool, device) -> tuple:
         return tf32_split(padded)
 
 
+def dct1d(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Orthonormal DCT-II along `dim`."""
+    d = dct_matrix(x.shape[dim], x.dtype, x.device)
+    return (x.movedim(dim, -1) @ d.T).movedim(-1, dim)
+
+
+def idct1d(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Orthonormal DCT-III (inverse of dct1d) along `dim`."""
+    d = dct_matrix(x.shape[dim], x.dtype, x.device)
+    return (x.movedim(dim, -1) @ d).movedim(-1, dim)
+
+
 def dct2(x: torch.Tensor) -> torch.Tensor:
     """Orthonormal 2-D DCT-II over the trailing (h, w) axes."""
     dh = dct_matrix(x.shape[-2], x.dtype, x.device)
@@ -94,3 +106,15 @@ def idct2(x: torch.Tensor) -> torch.Tensor:
     dh = dct_matrix(x.shape[-2], x.dtype, x.device)
     dw = dct_matrix(x.shape[-1], x.dtype, x.device)
     return dh.T @ x @ dw
+
+
+@lru_cache(maxsize=None)
+def _block_dct_basis_np(patch_size: int) -> np.ndarray:
+    """(p*p, p*p) matrix mapping a flattened p x p pixel block to its 2-D DCT:
+    vec(D X D^T) = (D kron D) vec(X)."""
+    d = _dct_matrix_np(patch_size)
+    return np.kron(d, d)
+
+
+def block_dct_basis(patch_size: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.as_tensor(_block_dct_basis_np(patch_size), device=device).to(dtype)

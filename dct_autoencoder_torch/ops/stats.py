@@ -87,6 +87,26 @@ def calculate_perplexity(codes: torch.Tensor, codebook_size: int, null_index: in
     return 2.0 ** (-torch.sum(probs * logits))
 
 
+def pad_sequence(seqs, max_seq_len: int) -> torch.Tensor:
+    """Right-pad a list of (k_i, ...) arrays or tensors with zeros to (n, max_seq_len, ...)."""
+    seqs = [torch.as_tensor(np.asarray(s)) for s in seqs]
+    out = seqs[0].new_zeros((len(seqs), max_seq_len, *seqs[0].shape[1:]))
+    for i, s in enumerate(seqs):
+        if s.shape[0] > max_seq_len:
+            raise ValueError(f"sequence {i} has {s.shape[0]} entries, more than max_seq_len {max_seq_len}")
+        out[i, : s.shape[0]] = s
+    return out
+
+
+def ema_update_2d(old: torch.Tensor, new: torch.Tensor, alpha: float = 0.8) -> torch.Tensor:
+    """EMA over the overlapping top-left (h, w) region of `new`; returns an
+    updated copy of `old` (which is left as it is)."""
+    h, w = new.shape[-2], new.shape[-1]
+    out = old.clone()
+    out[..., :h, :w] = alpha * new[..., :h, :w] + (1 - alpha) * old[..., :h, :w]
+    return out
+
+
 def get_decay_fn(start_val: float, end_value: float, n: int):
     """Linear decay schedule fn."""
 

@@ -82,6 +82,13 @@ def fill_batch(groups: List[List[Item]], max_seq_len: int, pz: int):
     return out_patches, out_positions, out_channels, out_image_ids, out_pad
 
 
+def build_attn_mask(image_ids: np.ndarray, key_pad_mask: np.ndarray) -> np.ndarray:
+    """(b, s) ids and padding -> the (b, s, s) bool mask the ids imply:
+    allowed(i, j) = ids[i] == ids[j] and not pad[j].  The model never
+    builds it; tools and tests that want the dense mask do."""
+    return (image_ids[:, :, None] == image_ids[:, None, :]) & ~key_pad_mask[:, None, :]
+
+
 def batch_groups(
     groups: List[List[Item]],
     max_seq_len: int,

@@ -379,3 +379,106 @@ def test_replaced_rows_requires_zeroed_moments():
     assert chip_smoke._replaced_rows(state, cb) == {"replaced": 2, "codebook_rows": 6}
     with pytest.raises(AssertionError, match="replaced no code"):
         chip_smoke._replaced_rows(SimpleNamespace(vq_replaced=None, adamw=adamw), cb)
+
+
+def test_offline_tool_phases_and_limits():
+    """The offline tools' phases run after the daemon, with the limits and
+    checks their contract states; fp32 tool paths are held to the CUDA-core
+    kernels, bf16 ones to the tensor cores."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = ["phase_serving_daemon_r3b(example_ar_model)", "phase_tools_prepare_ar_patch14l()", "phase_tools_eval_r3b()",
+             "phase_tools_demos_r3b()", "phase_int8_study_patch14l()", "phase_native_packing()"]
+    assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
+    assert order[-1] in main.split("for path, impls in PATH_IMPLS.items()")[0]
+    for path in ("tools_prepare_ar", "tools_eval_patch14l", "int8_study"):
+        assert chip_smoke.PATH_IMPLS[path] == ("mma", "mma"), path
+    for path in ("tools_eval_r3b", "tools_decode_gif", "tools_diagnose"):
+        assert chip_smoke.PATH_IMPLS[path] == ("simt", "simt"), path
+    assert "tools_testpipe" not in chip_smoke.PATH_IMPLS  # no model, no attention
+    assert (chip_smoke.MAX_EVAL_PSNR_DELTA_DB, chip_smoke.MAX_EVAL_PERPLEXITY_REL) == (0.2, 0.02)
+    assert (chip_smoke.MAX_DIAGNOSE_PSNR_DELTA_DB, chip_smoke.MAX_TESTPIPE_STAT_DELTA) == (0.1, 1e-3)
+    assert chip_smoke.MIN_GIF_FRAME_PSNR_DB == 40.0
+    sig = lambda fn: {k: v.default for k, v in inspect.signature(fn).parameters.items()}  # noqa: E731
+    assert sig(chip_smoke.phase_tools_prepare_ar_patch14l) == {"n_images": 64, "batch_size": 32, "beta": 0.01, "n_eval": 16}
+    assert sig(chip_smoke.phase_tools_eval_r3b) == {"n_images": 8, "size": 448}
+    assert sig(chip_smoke.phase_tools_demos_r3b)["n_frames"] == 8
+    assert sig(chip_smoke.phase_native_packing)["n_images"] == 1000
+    needles = {
+        chip_smoke.phase_tools_prepare_ar_patch14l: (
+            "PATCH14_L", "save_pretrained", "captions=True", "process_count=2", "caption_of(int(k))",
+            "cfg.vq_codebook_size", "pipe.decode(", "device_busy_share", "tool_eval.main(", "n_eval"),
+        chip_smoke.phase_tools_eval_r3b: (
+            "MIN_CODE_AGREEMENT", "MAX_EVAL_PSNR_DELTA_DB", "MAX_EVAL_PERPLEXITY_REL", 'device="cpu"',
+            "len(built.calls) == 1", "nvcc.results", '"ckpt_000001", "model"', 'dtype="float32"'),
+        chip_smoke.phase_tools_demos_r3b: (
+            "MIN_GIF_FRAME_PSNR_DB", "frame_psnr[-1] > frame_psnr[0]", "MAX_DIAGNOSE_PSNR_DELTA_DB",
+            "MAX_TESTPIPE_STAT_DELTA", 'tl["attention"] == 0'),
+        chip_smoke.phase_int8_study_patch14l: ("int8_study.main([])", "INT8_STUDY_DYNAMIC", '"int_mm_calls"'),
+        chip_smoke.phase_native_packing: ("native.available", "np.array_equal(a, b)", "build_attn_mask"),
+    }
+    for fn, wants in needles.items():
+        src = inspect.getsource(fn)
+        for needle in wants:
+            assert needle in src, (fn.__name__, needle)
+
+
+def test_ar_shards_carry_captions_and_sizes_the_phase_names(tmp_path):
+    from dct_autoencoder_torch.data.shards import WebDatasetReader
+
+    n = len(chip_smoke.AR_IMAGE_SIZES) + 3
+    chip_smoke.write_image_shards(str(tmp_path / "raw"), n, sizes=chip_smoke.AR_IMAGE_SIZES, captions=True,
+                                  maxsize=2e6)
+    assert len(os.listdir(tmp_path / "raw")) >= 2
+    got = list(WebDatasetReader(str(tmp_path / "raw")))
+    assert [s["__key__"] for s in got] == [f"{i:08d}" for i in range(n)]
+    for i, s in enumerate(got):
+        h, w = chip_smoke.AR_IMAGE_SIZES[i % len(chip_smoke.AR_IMAGE_SIZES)]
+        assert s["txt"] == chip_smoke.caption_of(i) and s["png"].shape == (3, h, w)
+    assert len({chip_smoke.caption_of(i) for i in range(n)}) == n
+    sides = [x for size in chip_smoke.AR_IMAGE_SIZES for x in size]
+    assert min(sides) >= 336 and max(sides) <= 768  # above the resolution floor, within the cap
+    paths = chip_smoke._pngs_from_shards(str(tmp_path / "raw" / "*.tar"), str(tmp_path / "png"), 5)
+    assert len(paths) == 5 and all(os.path.isfile(p) for p in paths)
+
+
+def test_recorder_wraps_and_restores(monkeypatch):
+    import types
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+    class Thing:
+        @classmethod
+        def make(cls, x):
+            return (cls, x)
+
+        def twice(self, x):
+            return 2 * x
+
+    mod = types.SimpleNamespace(f=lambda x: x + 1)
+    raw_make = Thing.__dict__["make"]
+    with chip_smoke.Recorder(Thing, "make") as made, chip_smoke.Recorder(Thing, "twice") as tw, \
+            chip_smoke.Recorder(mod, "f") as fr:
+        assert Thing.make(3) == (Thing, 3) and Thing().twice(4) == 8 and mod.f(1) == 2
+    assert made.results == [(Thing, 3)] and tw.results == [8] and fr.results == [2]
+    assert made.calls[0] == ((3,), {}) and len(made.seconds) == 1
+    assert Thing.__dict__["make"] is raw_make and Thing().twice(1) == 2 and mod.f(1) == 2
+    assert len(tw.results) == 1  # unwrapped after the block
+
+
+def test_printed_numbers_are_parsed():
+    text = "a.png: PSNR 12.27 dB, per-channel L1 [0.1, 2e-05]\nb.png: PSNR -1.5 dB\n"
+    assert chip_smoke._psnr_lines(text) == [12.27, -1.5]
+    assert chip_smoke._numbers("std 0.971 mean 0.123 max 2.775 min -2.794") == [0.971, 0.123, 2.775, -2.794]
+
+
+def test_native_packing_phase_runs_on_the_host(monkeypatch, capsys):
+    """The phase is host work only: here it runs whole, native against numpy."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "_card", lambda: "no card: the host alone")
+    chip_smoke.phase_native_packing(n_images=200, reps=1)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "native_packing" and line["images"] == 200 and line["rows"] > 1
+    assert set(line["host_ms"]) == {"greedy_pack_native", "greedy_pack_numpy_grouping", "pack_and_fill_native",
+                                    "group_and_fill_numpy", "attn_mask_native", "attn_mask_numpy"}
