@@ -70,7 +70,15 @@ also against a float64 plain version), and then drives the paths themselves:
   * the int8 study (tools/int8_study.py) at its defaults: patch14-L at
     random init, bf16, 16 x 256 synthetic patches, every variant;
   * the native packing library (ext/packing.cpp, built with g++) against
-    the port's numpy packing, bit for bit, on 1,000 images' token counts.
+    the port's numpy packing, bit for bit, on 1,000 images' token counts;
+  * data, tensor and sequence parallelism at world 1: a process group of one
+    over NCCL and a (1, 1) mesh, 8 patch14-L train steps (64 x 256, bf16)
+    through the sharded step with ZeRO-1 and sequence parallelism beside 8
+    unsharded steps from the same init and batches (the same bits: the
+    largest loss and parameter differences are printed and must be 0);
+    DCTPipeline(data_parallel=True) on r3b against data_parallel=False; the
+    two-process check (parallel/multiproc_check.py) over NCCL where there
+    are two cards, else a line that says why it did not run.
 The kernels' phase also runs the fp32 attention backward 20 times in each
 mask mode after filling the allocator's free memory with NaN, and requires
 the same bits every time.
@@ -2817,6 +2825,313 @@ def phase_native_packing(n_images=1000, beta=0.02, max_seq_len=256, reps=5):
     })
 
 
+# ---------------------------------------------------------------- data, tensor and sequence parallelism
+
+
+# the sharded step on a (1, 1) mesh against the unsharded step: every sum it
+# adds runs over one rank and the row-parallel bias enters as one device adds
+# it, so no reduction is reordered and the bits must be the same
+MAX_SHARDED_VS_UNSHARDED_DIFF = 0.0
+
+
+def _train_steps(cfg, batches, sharded: bool, learning_rate=1e-4):
+    """Steps of make_train_step from the seeded patch14-L init: unsharded, or
+    sharded on a (1, 1) mesh with ZeRO-1 and the config's sequence
+    parallelism.  Returns (losses, ms a step, peak GB, parameters on the host)."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import train as T
+    from dct_autoencoder_torch.parallel import mesh as pm
+
+    model, _ = dt.get_model_and_processor(cfg, dtype=torch.bfloat16, sample_patches_beta=0.02, seed=0)
+    mesh = None
+    if sharded:
+        mesh = pm.make_mesh(1, model.device)
+        pm.shard_params(model.module, mesh)
+    tx = T.make_optimizer(learning_rate, 10000)
+    state = T.TrainState.create(model.module, tx, mesh=mesh, zero1=sharded)
+    step = T.make_train_step(model.module, tx, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step(state, model.patchnorm, batch)
+        losses.append(float(metrics["loss"]))  # reading it synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = {k: v.detach().to("cpu", copy=True) for k, v in model.module.state_dict().items()}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return losses, ms, peak, params
+
+
+def _largest_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def phase_parallel_patch14l(steps=8, rows=64, n_images=16, size=448):
+    """The multi-device slice's paths at world 1 on the card: a process group
+    of one over NCCL, the sharded train step with ZeRO-1 and sequence
+    parallelism on a (1, 1) mesh beside the unsharded step (patch14-L,
+    64 x 256, bf16, beta 0.02, the same init and batches), then
+    DCTPipeline(data_parallel=True) on r3b against data_parallel=False, and
+    the two-process check over NCCL where there are two cards."""
+    import torch.distributed as dist
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+    from dct_autoencoder_torch.models.config import with_sequence_parallel
+    from dct_autoencoder_torch.parallel import mesh as pm
+
+    check(not dist.is_initialized(), "a process group exists before the parallel phase")
+    pm.initialize_distributed("cuda", f"tcp://127.0.0.1:{pm.free_port()}", world_size=1, rank=0)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, f"backend {dist.get_backend()}")
+        cfg = with_sequence_parallel(dt.DCTAutoencoderConfig.from_json_file(PATCH14_L))
+        n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
+        packed = [packed_batch(cfg, 256, rows, 0.02, seed=100 + i) for i in range(steps)]
+        batches = [T.prepare_train_batch(b)[0] for b, _ in packed]
+        images_per_batch = [n for _, n in packed]
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        plain = _train_steps(cfg, batches, sharded=False)
+        sharded = _train_steps(cfg, batches, sharded=True)
+        torch.cuda.synchronize()
+        train_launches = path_launches()
+        for name in ("attention", "attention_dq", "attention_dkv"):
+            check(train_launches[name] == 2 * steps * n_layers,
+                  f"{train_launches[name]} {name} launches for 2 runs x {steps} steps x {n_layers} layers")
+        loss_diff = max(abs(a - b) for a, b in zip(plain[0], sharded[0]))
+        param_diff = _largest_diff(plain[3], sharded[3])
+        rerun = None
+        if loss_diff or param_diff:  # tell a reordered sum from a step that differs from itself
+            again = _train_steps(cfg, batches, sharded=False)
+            rerun = {"loss_diff": max(abs(a - b) for a, b in zip(plain[0], again[0])),
+                     "param_diff": _largest_diff(plain[3], again[3])}
+        check(all(math.isfinite(x) for x in plain[0] + sharded[0]), f"losses {plain[0]} {sharded[0]}")
+        ms_plain, ms_sharded = statistics.median(plain[1][1:]), statistics.median(sharded[1][1:])
+        emit({
+            "phase": "parallel_patch14l", "mesh": [1, 1], "backend": "nccl", "zero1": True,
+            "sequence_parallel": True, "dtype": "bfloat16 compute, float32 masters", "rows": rows, "seq_len": 256,
+            "images_per_batch": images_per_batch, "steps": steps, "losses_unsharded": plain[0],
+            "losses_sharded": sharded[0], "max_loss_diff": loss_diff, "max_param_diff": param_diff,
+            "limit": MAX_SHARDED_VS_UNSHARDED_DIFF, "unsharded_rerun": rerun,
+            "ms_per_step_unsharded": ms_plain, "ms_per_step_sharded": ms_sharded,
+            "ms_steps_unsharded": plain[1], "ms_steps_sharded": sharded[1],
+            "peak_gb_unsharded": plain[2], "peak_gb_sharded_zero1": sharded[2],
+        })
+        check(loss_diff <= MAX_SHARDED_VS_UNSHARDED_DIFF and param_diff <= MAX_SHARDED_VS_UNSHARDED_DIFF,
+              f"sharded vs unsharded: loss {loss_diff}, parameters {param_diff}, rerun {rerun}")
+        del plain, sharded
+
+        # DCTPipeline(data_parallel=True): one block a visible card (one here)
+        ims = smooth_images(n_images, size, seed=12)
+        pipe = dt.DCTPipeline.from_pretrained(R3B)
+        dp = dt.DCTPipeline(pipe.model, pipe.processor, data_parallel=True)
+
+        def encode(p):  # the token budget's draws (beta 0.02) from one seed for both pipelines
+            p.processor.rng = random.Random(12)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            records = p.encode(ims)
+            torch.cuda.synchronize()
+            return records, (time.perf_counter() - t0) * 1e3
+
+        encode(pipe)  # warm-up
+        want, plain_ms = encode(pipe)
+        got, dp_ms = encode(dp)
+        same = [[c["data"] for c in a["codes"]] == [c["data"] for c in b["codes"]] for a, b in zip(got, want)]
+        emit({
+            "phase": "pipeline_data_parallel_r3b", "images": n_images, "size": size, "copies": len(dp._replicas),
+            "records_equal": all(same) and len(got) == len(want) == n_images, "encode_ms_data_parallel": dp_ms,
+            "encode_ms_plain": plain_ms,
+        })
+        check(all(same) and len(got) == n_images, "data_parallel=True encoded other codes than data_parallel=False")
+    finally:
+        dist.destroy_process_group()
+    launches = path_launches()
+    for name in ("attention", "attention_dq", "attention_dkv", "dct_patchify"):
+        check(launches[name] > 0, f"{name} was not launched on the parallel path")
+
+    if torch.cuda.device_count() >= 2:
+        import tempfile
+
+        from dct_autoencoder_torch.parallel.multiproc_check import run_two_process_check
+
+        r3b = dt.DCTAutoencoderConfig.from_json_file(os.path.join(R3B, "config.json"))
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res = run_two_process_check(tmp, timeout=600, config=r3b, n_images=8, image_size=448)
+            emit({"phase": "parallel_two_process_r3b", "ran": True, "backend": "nccl", "loss": res["loss"],
+                  "grad_norm": res["grad_norm"], "s": time.perf_counter() - t0,
+                  "outputs": [o.strip().splitlines()[-1] for o in res["outputs"]]})
+    else:
+        emit({"phase": "parallel_two_process_r3b", "ran": False,
+              "why": f"{torch.cuda.device_count()} card: NCCL takes one rank a device, so the two-rank check "
+                     "needs two cards; the CPU tests hold the multi-rank numbers (gloo)"})
+    return launches
+
+
+# ---------------------------------------------------------------- four cards
+
+# (n_model, sequence parallelism, ZeRO-1, 8-bit moments) of the four-card
+# check: dp4, dp2 x tp2, with sequence parallelism, ZeRO-1, both, and 8-bit
+FOUR_CARD_CASES = ((1, False, False, False), (2, False, False, False), (2, True, False, False),
+                   (1, False, True, False), (2, True, True, False), (2, True, True, True))
+# fp32 against one card over the steps: tests/test_parallel.py's limits on
+# JAX's sharded step (bf16 is printed, not held: its roundings follow the order)
+MAX_FOUR_CARD_LOSS_REL, MAX_FOUR_CARD_GRAD_NORM_REL = 1e-4, 1e-3
+
+
+def sharded_steps_rank(steps=3, rows=32, seq=256):
+    """One rank of the four-card check, started by phase_parallel_four_cards
+    as `torch.distributed.run --nproc_per_node 4 chip_smoke.py
+    --sharded-steps-rank`: r3b's widths at random init, `steps` steps of each
+    FOUR_CARD_CASES case in fp32 and bf16 beside the unsharded step on one
+    card, from one init and the same batches; rank 0 prints a JSON line a
+    case (the largest relative loss and grad-norm differences, the largest
+    parameter difference after the steps, the attention launches, rank 0's
+    optimizer state and peak memory)."""
+    import torch.distributed as dist
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+    from dct_autoencoder_torch.models.config import with_sequence_parallel
+    from dct_autoencoder_torch.parallel import mesh as pm
+    from dct_autoencoder_torch.train.opt8bit import opt_state_bytes
+
+    pm.initialize_distributed("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    base = dt.DCTAutoencoderConfig.from_json_file(os.path.join(R3B, "config.json"))
+    batches = [
+        pm.pad_batch_rows(T.prepare_train_batch(packed_batch(base, seq, rows, 0.02, seed=50 + i, device=dev)[0])[0], 4)
+        for i in range(steps)
+    ]
+
+    def run(n_model, sp, zero1, opt_8bit, dtype, sharded=True):
+        cfg = with_sequence_parallel(base) if sp else base
+        model, _ = dt.get_model_and_processor(cfg, dtype=dtype, sample_patches_beta=0.0, seed=0, device=dev)
+        mesh = None
+        if sharded:
+            mesh = pm.make_mesh(n_model, dev)
+            if n_model > 1 or sp:
+                pm.shard_params(model.module, mesh)
+        tx = T.make_optimizer(1e-4, 1000, warmup_steps=0, opt_8bit=opt_8bit)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = T.TrainState.create(model.module, tx, mesh=mesh, zero1=zero1)
+        step = T.make_train_step(model.module, tx, mesh=mesh)
+        out = []
+        for b in batches:
+            state, m = step(state, model.patchnorm, b)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        memory = {"opt_state_mb": opt_state_bytes(state.adamw.inner if sharded else state.adamw) / 1e6,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        full = pm.gather_params(model.module, mesh) if sharded else model.module.state_dict()
+        return out, {k: v.float().cpu() for k, v in full.items()}, memory
+
+    for dtype in (torch.float32, torch.bfloat16):
+        refs = {b8: run(1, False, False, b8, dtype, sharded=False) for b8 in (False, True)}
+        for n_model, sp, zero1, opt_8bit in FOUR_CARD_CASES:
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            got, got_p, memory = run(n_model, sp, zero1, opt_8bit, dtype)
+            ref, ref_p, ref_memory = refs[opt_8bit]
+            line = {
+                "phase": "parallel_four_cards_case", "dtype": str(dtype), "n_model": n_model, "sp": sp,
+                "zero1": zero1, "opt_8bit": opt_8bit, "steps": steps, "rows": rows, "seq_len": seq,
+                "loss_rel": max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref)),
+                "grad_norm_rel": max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, ref)),
+                "param_max_diff": _largest_diff(got_p, ref_p), "attention_launches": K.launch_counts()["attention"],
+                **memory, "one_card_opt_state_mb": ref_memory["opt_state_mb"], "s": time.perf_counter() - t0,
+            }
+            if dist.get_rank() == 0:
+                emit(line)
+    dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(args, timeout):
+    """`python -m torch.distributed.run --nproc_per_node 4 <args>` from this
+    checkout; returns its output, raises with its tail if it failed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "4",
+           "--master_port", str(_free_port()), *args]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0, f"{' '.join(args[:3])} failed ({proc.returncode}):\n{(proc.stdout + proc.stderr)[-6000:]}")
+    return proc.stdout
+
+
+def _free_port() -> int:
+    from dct_autoencoder_torch.parallel.mesh import free_port
+
+    return free_port()
+
+
+def phase_parallel_four_cards(n_images=96, size=448, cli_steps=4):
+    """The multi-rank paths over NCCL where there are four cards: the sharded
+    steps of FOUR_CARD_CASES on four ranks against one card (held in fp32 to
+    JAX's limits for its sharded step), then the training CLI under
+    torch.distributed.run with dp2 x tp2, sequence parallelism, ZeRO-1 and
+    8-bit moments at r3b's widths, whose checkpoint must load on one card
+    with the whole parameters.  On fewer cards it says that it did not run."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        emit({"phase": "parallel_four_cards", "ran": False,
+              "why": f"{n} card(s): the four-rank check takes one rank a card; the CPU tests hold the "
+                     "multi-rank numbers (gloo)"})
+        return
+    import glob
+    import tempfile
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch.kernels import _build
+
+    _build.build_all()  # once, before the ranks start
+    t0 = time.perf_counter()
+    out = _torchrun([os.path.join(HERE, "chip_smoke.py"), "--sharded-steps-rank"], timeout=900)
+    cases = [json.loads(l) for l in out.splitlines() if l.startswith("{") and "parallel_four_cards_case" in l]
+    for c in cases:
+        print(json.dumps(c), flush=True)
+    check(len(cases) == 2 * len(FOUR_CARD_CASES), f"{len(cases)} case lines from the four ranks")
+    fp32 = [c for c in cases if c["dtype"] == "torch.float32"]
+    check(all(c["attention_launches"] > 0 for c in cases), "a four-card case launched no attention kernel")
+    steps_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shards, out_base = os.path.join(tmp, "shards"), os.path.join(tmp, "out")
+        os.makedirs(shards)
+        write_image_shards(shards, n_images, seed=3, sizes=[(size, size), (size, size + size // 4), (size + size // 4, size)])
+        t1 = time.perf_counter()
+        _torchrun(["-m", "dct_autoencoder_torch.train.cli", "--image_dataset_path_or_url", os.path.join(shards, "*.tar"),
+                   "--model_config_path", os.path.join(R3B, "config.json"), "--batch_size", "16",
+                   "--max_iters", str(cli_steps), "--n_model_parallel", "2", "--sequence_parallel", "--zero1",
+                   "--opt_8bit", "--train_norm_iters", "1", "--save_every", "2", "--log_every", "1",
+                   "--out_base", out_base, "--epochs", "4", "--log_images_every", "2"], timeout=900)
+        cli_s = time.perf_counter() - t1
+        run = sorted(glob.glob(os.path.join(out_base, "*")))[-1]
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            logged = [d for d in map(json.loads, f) if "loss" in d]
+        model = dt.DCTAutoencoder.from_pretrained(os.path.join(run, "model"))
+        state = torch.load(os.path.join(run, "train_state.pt"), map_location="cpu", weights_only=True)
+        whole = all(torch.equal(state["params"][k], v.cpu()) for k, v in model.module.state_dict().items())
+        emit({
+            "phase": "parallel_four_cards", "ran": True, "backend": "nccl", "card": _card(),
+            "steps_s": steps_s, "fp32_within_limits": all(
+                c["loss_rel"] <= MAX_FOUR_CARD_LOSS_REL and c["grad_norm_rel"] <= MAX_FOUR_CARD_GRAD_NORM_REL
+                for c in fp32),
+            "cli": {"mesh": [2, 2], "steps": [(d["step"], d["loss"], d["grad_norm"]) for d in logged],
+                    "s": cli_s, "checkpoint_step": state["step"], "checkpoint_whole_on_one_card": whole},
+        })
+        check(logged and all(math.isfinite(d["loss"]) for d in logged), f"CLI losses {logged}")
+        check(whole, "the four-rank CLI's checkpoint does not hold the whole parameters")
+    for c in fp32:
+        check(c["loss_rel"] <= MAX_FOUR_CARD_LOSS_REL and c["grad_norm_rel"] <= MAX_FOUR_CARD_GRAD_NORM_REL,
+              f"four-card case against one card: {c}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2859,6 +3174,7 @@ PATH_IMPLS = {
     "sweep": ("simt", "simt"),
     "tools_prepare_ar": ("mma", "mma"), "tools_eval_patch14l": ("mma", "mma"), "int8_study": ("mma", "mma"),
     "tools_eval_r3b": ("simt", "simt"), "tools_decode_gif": ("simt", "simt"), "tools_diagnose": ("simt", "simt"),
+    "parallel_patch14l": ("mma", "mma"),
 }
 
 
@@ -2885,6 +3201,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 2
+    if "--sharded-steps-rank" in sys.argv[1:]:  # one rank of phase_parallel_four_cards
+        return sharded_steps_rank()
     smi = phase_environment()
     only = kernels_only(sys.argv[1:])
     cases = phase_kernels(only or "all")
@@ -2931,6 +3249,9 @@ def main() -> int:
     launches["int8_study"] = phase_int8_study_patch14l()
     torch.cuda.empty_cache()
     phase_native_packing()
+    launches["parallel_patch14l"] = phase_parallel_patch14l()
+    torch.cuda.empty_cache()
+    phase_parallel_four_cards()
 
     for path, impls in PATH_IMPLS.items():
         check_impl_launches(launches[path], *impls)

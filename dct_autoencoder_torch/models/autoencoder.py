@@ -93,7 +93,7 @@ class DCTAutoencoderModule(nn.Module):
 
     def encode(
         self, x: DCTPatches, training: bool = False, generator: Optional[torch.Generator] = None,
-        vq_generator: Optional[torch.Generator] = None, update_vq_stats: bool = False,
+        vq_generator: Optional[torch.Generator] = None, update_vq_stats: bool = False, shard=None,
     ):
         """Normalized patches -> (x with quantized fp32 features, codes (b, s, c),
         commit_loss, distances, vq_z); commit_loss and distances are zeros
@@ -102,17 +102,24 @@ class DCTAutoencoderModule(nn.Module):
 
         VQ only: in training, vq_generator samples the codes with gumbel
         noise (temperature 20) and update_vq_stats=True updates the EMA
-        statistics (JAX: apply with rngs={'vq': key}, mutable=['vq_stats'])."""
+        statistics (JAX: apply with rngs={'vq': key}, mutable=['vq_stats']).
+
+        shard (parallel/mesh.py's DataShard): x is this rank's rows of a
+        data-parallel batch, and the quantizer's statistics are summed over
+        the shard's group."""
         feats = self.patch_embed_norm(self.patch_embed_linear(x.patches.to(self.dtype)))
         feats = feats + self._pos_embedding("encoder", x)
         feats = self._stack(self.encoder, feats, x, training, generator)
         mask = ~x.key_pad_mask
         if self.config.vq_type == "vq":
             quantized, codes, commit_loss, vq_z = self.vq_model(
-                feats, mask=mask, training=training, generator=vq_generator, update_stats=update_vq_stats
+                feats, mask=mask, training=training, generator=vq_generator, update_stats=update_vq_stats,
+                shard=shard,
             )
             return x.replace(patches=quantized), codes, commit_loss, quantized.new_zeros(()), vq_z
-        quantized, codes, commit_loss, distances = self.vq_model(feats, mask=mask, training=training)
+        quantized, codes, commit_loss, distances = self.vq_model(
+            feats, mask=mask, training=training, group=None if shard is None else shard.group
+        )
         return x.replace(patches=quantized), codes, commit_loss, distances, None
 
     def decode(self, x: DCTPatches) -> DCTPatches:
@@ -129,9 +136,11 @@ class DCTAutoencoderModule(nn.Module):
 
     def forward(
         self, x: DCTPatches, training: bool = False, generator: Optional[torch.Generator] = None,
-        vq_generator: Optional[torch.Generator] = None, update_vq_stats: bool = False,
+        vq_generator: Optional[torch.Generator] = None, update_vq_stats: bool = False, shard=None,
     ) -> Dict[str, Any]:
-        q, codes, commit_loss, distances, vq_z = self.encode(x, training, generator, vq_generator, update_vq_stats)
+        q, codes, commit_loss, distances, vq_z = self.encode(
+            x, training, generator, vq_generator, update_vq_stats, shard
+        )
         out = dict(dct_patches=self.decode(q), commit_loss=commit_loss, codes=codes, distances=distances)
         if vq_z is not None:
             out["vq_z"] = vq_z
@@ -201,15 +210,16 @@ class DCTAutoencoder:
         x = DCTPatches(patches=torch.zeros(()), **dct_patches_kwargs).to(self.device)
         return self.module.decode_from_codes(torch.as_tensor(codes, device=self.device), x)
 
-    def save_pretrained(self, path: str) -> None:
+    def save_pretrained(self, path: str, state_dict: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """Write config.json, params.npz (flat '/' paths), patchnorm.npz and,
         for VQ, vq_stats.npz in the JAX package's checkpoint format, so either
-        package loads it."""
+        package loads it.  `state_dict` replaces the module's (the whole
+        weights of a tensor-parallel module, parallel.gather_params)."""
         from .convert import jax_arrays_from_state_dict, vq_stats_from_state_dict
 
         os.makedirs(path, exist_ok=True)
         self.config.to_json_file(os.path.join(path, "config.json"))
-        state = self.module.state_dict()
+        state = self.module.state_dict() if state_dict is None else state_dict
         np.savez(os.path.join(path, "params.npz"), **jax_arrays_from_state_dict(state, self.config))
         stats = vq_stats_from_state_dict(state)
         if stats:

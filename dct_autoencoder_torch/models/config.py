@@ -1,10 +1,10 @@
 """Model configuration, JSON-compatible with the JAX package's config.
 
 Nested `encoder_config` / `decoder_config` blocks use CLIPVisionConfig
-field names, so conf/*.json and saved checkpoints load unchanged.  Fields
-that only the JAX package acts on (sequence parallelism, int8 serving,
-attention_impl) are kept so a config round-trips; the port runs
-its attention kernel on the card whatever `attention_impl` says.
+field names, so conf/*.json and saved checkpoints load unchanged.
+`sequence_parallel` acts under tensor parallelism (models/transformer.py,
+parallel/mesh.py); `attention_impl` is kept so a config round-trips, and the
+port runs its attention kernel on the card whatever it says.
 """
 from __future__ import annotations
 
@@ -92,3 +92,13 @@ class DCTAutoencoderConfig:
     def to_json_file(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.to_dict(), f, indent=2, sort_keys=True)
+
+
+def with_sequence_parallel(cfg: DCTAutoencoderConfig) -> DCTAutoencoderConfig:
+    """The config with Megatron sequence parallelism on in both transformer
+    stacks (JAX: models/config.py's with_sequence_parallel)."""
+    return dataclasses.replace(
+        cfg,
+        encoder_config=dataclasses.replace(cfg.encoder_config, sequence_parallel=True),
+        decoder_config=dataclasses.replace(cfg.decoder_config, sequence_parallel=True),
+    )

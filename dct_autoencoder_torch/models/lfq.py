@@ -59,8 +59,9 @@ class LFQ(nn.Module):
             x = self.project_in(x)
         return x.reshape(*x.shape[:-1], self.num_codebooks, self.codebook_dim)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, training: bool = False):
-        """x: (b, n, dim); mask: (b, n) bool, False where padding.
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, training: bool = False, group=None):
+        """x: (b, n, dim); mask: (b, n) bool, False where padding; the commit
+        loss's count is summed over the process `group` (data parallelism).
 
         Returns (quantized (b, n, dim) fp32, ids (b, n, c) int64, commit_loss
         scalar, distances (b, n, c, codebook_size)); the last two are zeros
@@ -76,7 +77,7 @@ class LFQ(nn.Module):
             distances = torch.einsum("bncd,zd->bncz", original, self.neg2_codebook)
             se = (original - quantized) ** 2
             if mask is not None:
-                commit_loss = masked_mean(se, mask, dim=0).sum(dim=0).mean()
+                commit_loss = masked_mean(se, mask, dim=0, group=group).sum(dim=0).mean()
             else:
                 commit_loss = se.mean()
         else:

@@ -32,6 +32,18 @@ the JAX package that path is an einsum outside any Pallas kernel, so here it
 is plain PyTorch.  The cache is explicit state that the caller owns, and its
 index is a device tensor, so a decode step does no host read and can be
 captured in a CUDA graph and replayed.
+
+Tensor and sequence parallelism (parallel/mesh.py): after
+``parallel.shard_params`` a stack holds a `ModelParallel` and each rank
+keeps its block of the column-parallel q/k/v and fc1 and of the
+row-parallel out_proj and fc2, so a layer runs num_heads // n_model heads of
+the same head_dim and intermediate_size // n_model hidden units; the
+row-parallel bias enters the sum over the model group once (model rank 0
+adds it to its partial product).  With ``sequence_parallel`` the residual stream, the
+LayerNorms and the residual adds run on this rank's tokens: the stream is
+gathered before q/k/v and fc1 and reduce-scattered after out_proj and fc2,
+as JAX's sp_gather / sp_scatter pair lowers; the token count must divide by
+n_model.  Without a ModelParallel the stack is the single-device one.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import NEG_INF, packed_flash_attention
+from ..parallel.mesh import copy_to_model, gather_tokens, reduce_from_model, sp_gather, sp_scatter, split_tokens
 from .config import TransformerConfig
 from .quant import dense
 
@@ -103,6 +116,23 @@ class KVCache:
             t.zero_()
 
 
+def row_parallel(layer: nn.Linear, x: torch.Tensor, mp) -> torch.Tensor:
+    """A row-parallel product: this rank's partial product, summed over the
+    model group (reduce-scattered onto this rank's tokens under sequence
+    parallelism).  The whole bias enters once: model rank 0 adds it inside
+    its partial product, as the single-device layer adds it, so that a group
+    of one gives the single-device bits."""
+    bias = layer.bias.to(layer.compute_dtype) if mp.rank == 0 else None
+    y = F.linear(x, layer.weight.to(layer.compute_dtype), bias)
+    return sp_scatter(y, mp) if mp.sequence_parallel else reduce_from_model(y, mp)
+
+
+def column_input(x: torch.Tensor, mp) -> torch.Tensor:
+    """The input of a column-parallel block: the whole token axis (gathered
+    under sequence parallelism), its gradient summed over the model group."""
+    return sp_gather(x, mp) if mp.sequence_parallel else copy_to_model(x, mp)
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, dtype: torch.dtype):
         super().__init__()
@@ -113,21 +143,26 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = dense(cfg, d, d, dtype)
         self.v_proj = dense(cfg, d, d, dtype)
         self.out_proj = dense(cfg, d, d, dtype)
+        self.mp = None  # parallel.mesh.ModelParallel, set by TransformerEncoder.set_model_parallel
 
     def _qkv(self, x: torch.Tensor):
         b, s, _ = x.shape
-        split = lambda t: t.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+        heads = self.num_heads // (self.mp.size if self.mp is not None else 1)
+        split = lambda t: t.reshape(b, s, heads, self.head_dim).transpose(1, 2)
         return split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
 
     def forward(
         self, x: torch.Tensor, image_ids: torch.Tensor, key_pad_mask: torch.Tensor, mode: str, causal: bool = False
     ) -> torch.Tensor:
-        b, s, d = x.shape
+        if self.mp is not None:
+            x = column_input(x, self.mp)
+        b, s, _ = x.shape
         q, k, v = self._qkv(x)
         out = packed_flash_attention(
             q, k, v, image_ids, key_pad_mask, self.head_dim**-0.5, mode=mode, causal=causal
         )
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
+        out = out.transpose(1, 2).reshape(b, s, q.shape[1] * self.head_dim)
+        return self.out_proj(out) if self.mp is None else row_parallel(self.out_proj, out, self.mp)
 
     def decode_step(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """One token (b, 1, d) against the cache: k and v are written at `idx`
@@ -159,12 +194,16 @@ class EncoderLayer(nn.Module):
         self.layer_norm2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
         self.fc1 = dense(cfg, cfg.hidden_size, cfg.intermediate_size, dtype)
         self.fc2 = dense(cfg, cfg.intermediate_size, cfg.hidden_size, dtype)
+        self.mp = None  # parallel.mesh.ModelParallel, set by TransformerEncoder.set_model_parallel
 
     def _mlp(self, x, training: bool = False, generator=None):
-        y = self.act(self.fc1(self.layer_norm2(x)))
+        y = self.layer_norm2(x)
+        if self.mp is not None:
+            y = column_input(y, self.mp)
+        y = self.act(self.fc1(y))
         if training and self.dropout > 0.0:
             y = dropout(y, self.dropout, generator)
-        return x + self.fc2(y)
+        return x + (self.fc2(y) if self.mp is None else row_parallel(self.fc2, y, self.mp))
 
     def forward(self, x, image_ids, key_pad_mask, mode, training: bool = False, generator=None, causal: bool = False):
         if training and self.attention_dropout > 0.0:
@@ -184,12 +223,21 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.config = cfg
         self.remat = cfg.remat
+        self.mp = None
         # int8 serving form: layers listed in quantize_int8_bf16_layers keep float weights
         layer_cfg = lambda i: (
             dataclasses.replace(cfg, quantize_int8=False) if i in cfg.quantize_int8_bf16_layers else cfg
         )
         self.layers = nn.ModuleList(EncoderLayer(layer_cfg(i), dtype) for i in range(cfg.num_hidden_layers))
+
+    def set_model_parallel(self, mp) -> None:
+        """Run the layers on this rank's heads and hidden units (a
+        parallel.mesh.ModelParallel), or on one device again (None)."""
+        self.mp = mp
+        for layer in self.layers:
+            layer.mp = layer.self_attn.mp = mp
 
     def forward(
         self, x, image_ids, key_pad_mask, mode: str = "block", training: bool = False, generator=None,
@@ -200,6 +248,13 @@ class TransformerEncoder(nn.Module):
             # a recomputed layer must redraw the same mask; checkpoint restores
             # only the default generators' state
             raise ValueError("remat with dropout draws from the default generator: pass generator=None")
+        sp = self.mp is not None and self.mp.sequence_parallel
+        if sp:
+            if x.shape[1] % self.mp.size:
+                raise ValueError(
+                    f"sequence_parallel: {x.shape[1]} tokens a row do not divide over n_model_parallel={self.mp.size}"
+                )
+            x = split_tokens(x, self.mp)
         for layer in self.layers:
             if remat:
                 x = checkpoint(
@@ -207,6 +262,8 @@ class TransformerEncoder(nn.Module):
                 )
             else:
                 x = layer(x, image_ids, key_pad_mask, mode, training, generator, causal)
+        if sp:
+            x = gather_tokens(x, self.mp)
         return x
 
     def decode_step(self, x: torch.Tensor, cache: KVCache) -> torch.Tensor:

@@ -31,8 +31,15 @@ builds it so (models/autoencoder.py).
     by `draw_*` from a generator, or handed in, e.g. JAX's own draws in a
     test), so the arithmetic is separate from the stream.
 
-JAX's `sync_axis` (statistics summed over a device mesh) has no counterpart:
-the port trains on one device.
+Under data parallelism (JAX's `sync_axis`; here the `shard` that the
+sharded step passes, parallel/mesh.py's DataShard) the affine statistics'
+sums and counts, the EMA code usage and the EMA codebook's bins and sums are
+summed over the data group, differentiably where JAX differentiates them,
+and gumbel sampling
+gives each rank's rows the noise that one process draws for those rows (the
+draws of the whole micro-batch, sliced).  The surgery gathers the
+projections of the whole batch (train/loop.py) and draws as one process
+does.  The standalone `ema_codebook_update` takes the group as an argument.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.stats import masked_mean
+from ..ops.stats import group_size, group_sum, group_sum_grad, masked_mean
 
 # elements of one chunk of distances (and of gumbel noise): 2^27 fp32 = 512 MiB
 _CHUNK_ELEMENTS = 1 << 27
@@ -71,12 +78,18 @@ def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 @torch.no_grad()
 def choose_codes(
     z: torch.Tensor, codebook: torch.Tensor, temperature: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, shard=None,
 ) -> torch.Tensor:
     """Ids (b, n, h) of z (b, n, h, d) against a shared (z, d) or per-head
     (h, z, d) codebook: the argmin of the squared distances, or with a
     generator and temperature > 0 the argmax of -dist / temperature + gumbel.
-    Computed a chunk of tokens at a time: 512 MiB of distances."""
+    Computed a chunk of tokens at a time: 512 MiB of distances.
+
+    Sampling with a `shard` (parallel/mesh.py's DataShard: z holds rows
+    [row_start, row_start + b) of a micro-batch of total_rows) draws the
+    noise of every chunk of the whole micro-batch up to this rank's last
+    row, chunk by chunk as one process does, and uses the slice of this
+    rank's tokens."""
     b, n, h, d = z.shape
     zsize = codebook.shape[-2]
     flat = z.reshape(b * n, h, d).float()
@@ -85,18 +98,26 @@ def choose_codes(
     token_chunk = max(1, _CHUNK_ELEMENTS // (h * zsize))
     sample = generator is not None and temperature > 0.0
     out = torch.empty((b * n, h), dtype=torch.int64, device=z.device)
-    for s in range(0, b * n, token_chunk):
-        x = flat[s : s + token_chunk]
+
+    def ids(x, noise):
         x2 = torch.sum(x * x, dim=-1, keepdim=True)
         if cb.ndim == 2:
             xc = torch.matmul(x, cb.T)
         else:
             xc = torch.einsum("thd,hzd->thz", x, cb)
         dists = x2 + c2 - 2.0 * xc
-        if sample:
-            out[s : s + token_chunk] = torch.argmax(-dists / temperature + _gumbel(dists.shape, generator, z.device), dim=-1)
-        else:
-            out[s : s + token_chunk] = torch.argmin(dists, dim=-1)
+        if noise is None:
+            return torch.argmin(dists, dim=-1)
+        return torch.argmax(-dists / temperature + noise, dim=-1)
+
+    shard = shard if sample else None
+    lo, total = (shard.row_start * n, shard.total_rows * n) if shard is not None else (0, b * n)
+    for s in range(0, min(total, lo + b * n), token_chunk):
+        e = min(s + token_chunk, total)
+        noise = _gumbel((e - s, h, zsize), generator, z.device) if sample else None
+        a, c = max(s, lo), min(e, lo + b * n)  # this rank's tokens of the chunk
+        if a < c:
+            out[a - lo : c - lo] = ids(flat[a - lo : c - lo], None if noise is None else noise[a - s : c - s])
     return out.reshape(b, n, h)
 
 
@@ -199,10 +220,11 @@ class VectorQuantize(nn.Module):
             cb = cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-8)
         return cb
 
-    def _new_affine_stats(self, z: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _new_affine_stats(self, z: torch.Tensor, mask: torch.Tensor, group=None) -> Dict[str, torch.Tensor]:
         """EMA of the codebook's statistics (from the raw codebook), then of
-        the batch's (from the masked encoder outputs), as autograd tensors.
-        Variances are population variances (ddof 0), as JAX's."""
+        the batch's (from the masked encoder outputs, summed over `group`),
+        as autograd tensors.  Variances are population variances (ddof 0),
+        as JAX's."""
 
         def ema(old, new, decay):
             return old * decay + new.float() * (1 - decay)
@@ -214,25 +236,26 @@ class VectorQuantize(nn.Module):
             "codebook_variance": ema(self.codebook_variance, cb.var(dim=0, correction=0), cdec),
         }
         m = mask[..., None, None].float()  # (b, n, 1, 1)
-        denom = torch.clamp(m.sum() * self.heads, min=1.0)
+        denom = torch.clamp(group_sum(m.sum(), group) * self.heads, min=1.0)
         z32 = z.float()
-        mean = (z32 * m).sum(dim=(0, 1, 2)) / denom
-        vsum = (((z32 - mean) ** 2) * m).sum(dim=(0, 1, 2))
+        mean = group_sum_grad((z32 * m).sum(dim=(0, 1, 2)), group) / denom
+        vsum = group_sum_grad((((z32 - mean) ** 2) * m).sum(dim=(0, 1, 2)), group)
         out["batch_mean"] = ema(self.batch_mean, mean, bdec)
         out["batch_variance"] = ema(self.batch_variance, vsum / denom, bdec)
         return out
 
     @torch.no_grad()
-    def _update_cluster_size(self, indices: torch.Tensor, mask: torch.Tensor) -> None:
+    def _update_cluster_size(self, indices: torch.Tensor, mask: torch.Tensor, group=None) -> None:
         """EMA code usage over the valid tokens (it feeds dead-code expiry)."""
         bins = code_bins(indices, mask, self.codebook_size)
         if not self.separate_codebook_per_head:
             bins = bins.sum(dim=0)  # a shared codebook counts every head
+        bins = group_sum(bins, group)
         d = self.ema_cluster_decay
         self.cluster_size.copy_(self.cluster_size * d + bins * (1 - d))
 
     @torch.no_grad()
-    def _ema_update_codebook(self, z: torch.Tensor, indices: torch.Tensor, mask: torch.Tensor) -> None:
+    def _ema_update_codebook(self, z: torch.Tensor, indices: torch.Tensor, mask: torch.Tensor, group=None) -> None:
         """EMA codebook step (ema_update=True): cluster sizes and per-code
         sums of the assigned encoder outputs decay toward the batch's; the
         embed is their Laplace-smoothed ratio."""
@@ -244,6 +267,7 @@ class VectorQuantize(nn.Module):
         sums = sums.reshape(h, zs, d)
         if not self.separate_codebook_per_head:
             bins, sums = bins.sum(dim=0), sums.sum(dim=0)
+        bins, sums = group_sum(bins, group), group_sum(sums, group)
         dec = self.ema_decay
         cluster = self.ema_cluster_size * dec + bins * (1 - dec)
         embed_avg = self.embed_avg * dec + sums * (1 - dec)
@@ -267,8 +291,11 @@ class VectorQuantize(nn.Module):
         training: bool = False,
         generator: Optional[torch.Generator] = None,
         update_stats: bool = False,
+        shard=None,
     ):
-        """x: (b, n, dim); mask: (b, n) bool, False where padding.
+        """x: (b, n, dim); mask: (b, n) bool, False where padding; with a
+        `shard` (parallel/mesh.py's DataShard) x is this rank's rows of a
+        data-parallel micro-batch.
 
         Returns (quantized (b, n, dim) fp32, ids (b, n, heads) int64, loss
         scalar (0 unless training), z (b, n, heads, codebook_dim), the
@@ -285,36 +312,39 @@ class VectorQuantize(nn.Module):
         if self.use_cosine_sim:
             z = z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-8)
 
+        group = None if shard is None else shard.group
         updating = training and update_stats
-        new_stats = self._new_affine_stats(z, mask) if updating and self.affine_param else None
+        new_stats = self._new_affine_stats(z, mask, group) if updating and self.affine_param else None
         codebook = self._normed_codebook(new_stats)
         temperature = self.sample_codebook_temp if training else 0.0
-        indices = choose_codes(z, codebook, temperature, generator)
+        indices = choose_codes(z, codebook, temperature, generator, shard)
 
         if new_stats is not None:
             with torch.no_grad():
                 for k, v in new_stats.items():
                     getattr(self, k).copy_(v)
         if updating and self.threshold_ema_dead_code > 0:
-            self._update_cluster_size(indices, mask)
+            self._update_cluster_size(indices, mask, group)
         if updating and self.ema_update:
-            self._ema_update_codebook(z.detach(), indices, mask)
+            self._ema_update_codebook(z.detach(), indices, mask, group)
 
         quantized = _gather_codes(codebook, indices)  # (b, n, h, d)
         if training:
             # commitment: pull the encoder output toward the frozen codes
-            commit = masked_mean((z - quantized.detach()) ** 2, mask, dim=0).sum(dim=0).mean()
+            commit = masked_mean((z - quantized.detach()) ** 2, mask, dim=0, group=group).sum(dim=0).mean()
             loss = self.commitment_weight * commit
             if not self.ema_update:
                 # codebook: pull the codes toward the frozen encoder output
-                cb_loss = masked_mean((z.detach() - quantized) ** 2, mask, dim=0).sum(dim=0).mean()
+                cb_loss = masked_mean((z.detach() - quantized) ** 2, mask, dim=0, group=group).sum(dim=0).mean()
                 loss = loss + self.codebook_weight * cb_loss
             if self.orthogonal_reg_weight > 0.0:
                 cb2 = codebook.reshape(-1, d)
                 cbn = cb2 / (torch.linalg.vector_norm(cb2, dim=-1, keepdim=True) + 1e-8)
                 gram = cbn @ cbn.T
                 eye = torch.eye(gram.shape[0], dtype=gram.dtype, device=gram.device)
-                loss = loss + self.orthogonal_reg_weight * torch.sum((gram - eye) ** 2) / gram.shape[0] ** 2
+                # alike on every rank of a data group: each share takes its part
+                ortho = torch.sum((gram - eye) ** 2) / gram.shape[0] ** 2
+                loss = loss + self.orthogonal_reg_weight * ortho / group_size(group)
             zq = z + (quantized - z).detach()  # straight-through
         else:
             loss = x.new_zeros(())
@@ -503,14 +533,18 @@ class EMACodebookState:
 
 @torch.no_grad()
 def ema_codebook_update(
-    state: EMACodebookState, flat_x: torch.Tensor, valid: torch.Tensor, decay: float = 0.8, eps: float = 1e-5
+    state: EMACodebookState, flat_x: torch.Tensor, valid: torch.Tensor, decay: float = 0.8, eps: float = 1e-5,
+    group=None,
 ) -> EMACodebookState:
-    """One EMA codebook step over flat_x (m, d) with a (m,) validity mask."""
+    """One EMA codebook step over flat_x (m, d) with a (m,) validity mask;
+    with a process `group` (JAX: sync_axis) the bins and sums are summed over
+    it, so each rank's rows give the step of all the ranks' rows."""
     zsize = state.embed.shape[0]
     idx = torch.argmin(euclidean_sq_dist(flat_x, state.embed), dim=-1)
     w = valid.to(flat_x.dtype)
     bins = torch.zeros(zsize, dtype=flat_x.dtype, device=flat_x.device).index_add_(0, idx, w)
     embed_sum = torch.zeros_like(state.embed).index_add_(0, idx, flat_x * w[:, None])
+    bins, embed_sum = group_sum(bins, group), group_sum(embed_sum, group)
     cluster_size = state.cluster_size * decay + bins * (1 - decay)
     embed_avg = state.embed_avg * decay + embed_sum * (1 - decay)
     n = cluster_size.sum()

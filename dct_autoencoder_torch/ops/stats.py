@@ -9,12 +9,56 @@ separates over heads (a per-head masked mean of the probabilities, averaged
 over heads at the end; a sum over heads of per-token entropies), so each
 head runs under torch.utils.checkpoint and only about one head's worth of
 temporaries (0.5 GB a copy) is alive at a time.
+
+Under data parallelism each statistic takes the step's data `group` (a
+torch.distributed process group; JAX's `sync_axis`): the masked counts, the
+averaged code probabilities and the perplexity histogram are summed over
+it, so each rank's entropy loss is its share of the global batch's, and the
+code-probability entropy, alike on every rank, enters each share divided
+by the group's size.  group=None is one device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
+
+
+def group_size(group=None) -> int:
+    """The number of ranks in a process group (1 for None)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed over a process group, without a gradient (counts,
+    histograms); x itself for None."""
+    if group is None:
+        return x
+    with torch.no_grad():
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_sum(g, ctx.group), None
+
+
+def group_sum_grad(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed over a process group, differentiably.  The sum is consumed
+    on every rank, by each rank's share of the loss, so its gradient is the
+    sum of the ranks' gradients: the backward sums too.  A term computed
+    from it alike on every rank (the entropy of the averaged code
+    probabilities, say) enters each share divided by group_size(group)."""
+    return x if group is None else _GroupSum.apply(x, group)
 
 
 def mult_along_first_dims(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -22,14 +66,15 @@ def mult_along_first_dims(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return x * m.reshape(m.shape + (1,) * (x.ndim - m.ndim))
 
 
-def masked_mean(x: torch.Tensor, m: torch.Tensor, dim=None) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, m: torch.Tensor, dim=None, group=None) -> torch.Tensor:
     """Mean of x over entries where m (a 0/1 or bool mask on leading dims) is set.
 
     With `dim` given the division is still by the *total* mask count (the
-    reference's convention).  An all-zero mask yields 0, not 0/0.
+    reference's convention), summed over `group`.  An all-zero mask yields
+    0, not 0/0.
     """
     m = m.to(x.dtype)
-    x = mult_along_first_dims(x, m) / torch.clamp(m.sum(), min=1)
+    x = mult_along_first_dims(x, m) / torch.clamp(group_sum(m.sum(), group), min=1)
     return x.sum() if dim is None else x.sum(dim=dim)
 
 
@@ -45,7 +90,7 @@ def _head_entropy_terms(affinity: torch.Tensor, weights: torch.Tensor, temperatu
 
 
 def compute_entropy_loss(
-    affinity: torch.Tensor, mask: torch.Tensor, temperature: float = 0.01, eps: float = 1e-9
+    affinity: torch.Tensor, mask: torch.Tensor, temperature: float = 0.01, eps: float = 1e-9, group=None
 ) -> torch.Tensor:
     """MaskGIT-style codebook entropy loss: sample_entropy - avg_entropy, in fp32.
 
@@ -55,7 +100,7 @@ def compute_entropy_loss(
     og_dtype = affinity.dtype
     b, s = mask.shape
     m = mask.reshape(b * s).to(torch.float32)
-    weights = m / torch.clamp(m.sum(), min=1)
+    weights = m / torch.clamp(group_sum(m.sum(), group), min=1)
     need_grad = torch.is_grad_enabled() and affinity.requires_grad
 
     sample_sum = None
@@ -69,20 +114,21 @@ def compute_entropy_loss(
             neg_ent, probs = _head_entropy_terms(head, weights, temperature, eps)
         sample_sum = neg_ent if sample_sum is None else sample_sum + neg_ent
         avg_probs = probs if avg_probs is None else avg_probs + probs
-    avg_probs = avg_probs / len(heads)
+    avg_probs = group_sum_grad(avg_probs / len(heads), group)
 
     avg_entropy = -torch.sum(avg_probs * torch.log(avg_probs + eps))
     sample_entropy = -sample_sum
-    return (sample_entropy - avg_entropy).to(og_dtype)
+    return (sample_entropy - avg_entropy / group_size(group)).to(og_dtype)
 
 
-def calculate_perplexity(codes: torch.Tensor, codebook_size: int, null_index: int = -1) -> torch.Tensor:
-    """2^H(p) over the empirical code histogram; entries equal to `null_index` are left out."""
+def calculate_perplexity(codes: torch.Tensor, codebook_size: int, null_index: int = -1, group=None) -> torch.Tensor:
+    """2^H(p) over the empirical code histogram (summed over `group`);
+    entries equal to `null_index` are left out."""
     codes = codes.reshape(-1)
     valid = codes != null_index
     bucket = torch.where(valid, codes, torch.full_like(codes, codebook_size)).long()
-    counts = torch.bincount(bucket, minlength=codebook_size + 1)[:codebook_size].float()
-    probs = counts / torch.clamp(valid.sum(), min=1)
+    counts = group_sum(torch.bincount(bucket, minlength=codebook_size + 1)[:codebook_size].float(), group)
+    probs = counts / torch.clamp(group_sum(valid.sum(), group), min=1)
     logits = torch.where(probs > 0.0, torch.log2(torch.clamp(probs, min=1e-30)), torch.zeros_like(probs))
     return 2.0 ** (-torch.sum(probs * logits))
 

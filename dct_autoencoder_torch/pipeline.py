@@ -21,9 +21,19 @@ each record's tokens to a multiple (masked tokens).  The port compiles no
 program per shape, but it keeps them so that a daemon configured for either
 package runs the same shapes and the same records come out; padding is
 masked everywhere, so records and images equal the unpadded path's.
+
+``data_parallel=True`` (JAX: rows sharded over every local device, one
+process) copies the module to each visible card (or to each of `devices`)
+at construction; a packed batch, its rows padded to the number of copies,
+is cut into contiguous blocks, one forward a card launched in turn from one
+thread, and the outputs are gathered on the model's device.  Eval rows are
+independent, so the records equal the single-device ones; on one card it is
+one block.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 from typing import List, Optional, Sequence
@@ -36,8 +46,8 @@ from .models.autoencoder import DCTAutoencoder
 from .models.config import DCTAutoencoderConfig
 from .models.factory import get_model_and_processor
 from .patches.container import from_dict, to_dict
+from .parallel.mesh import pad_batch_rows, take_rows
 from .patches.extractor import DCTAutoencoderFeatureExtractor
-from .train.loop import pad_batch_rows
 from .train.pixel_loss import row_image_layout, unpatch_to_planes
 
 
@@ -68,9 +78,19 @@ class DCTPipeline:
         data_parallel: bool = False,
         pad_rows_to: int = 0,
         pad_tokens_to: int = 0,
+        devices: Optional[Sequence] = None,
     ):
+        """devices: where data_parallel puts the copies (default: every
+        visible card for a model on the card, else the model's device)."""
+        self._replicas = None
         if data_parallel:
-            raise NotImplementedError("data_parallel (encode rows sharded over several devices) is not ported yet")
+            if devices is None:
+                on_card = model.device.type == "cuda"
+                devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())] if on_card else [model.device]
+            devices = [torch.device(d) for d in devices]
+            self._replicas = [(model.module, model.device)] + [
+                (copy.deepcopy(model.module).to(d), d) for d in devices[1:]
+            ]
         self.model = model
         self.processor = processor
         self.pad_rows_to = pad_rows_to
@@ -146,7 +166,7 @@ class DCTPipeline:
         for batch in self.processor.iter_batches(iter([cols]), batch_size=batch_size, drain=batch_size is not None):
             if self.pad_rows_to:
                 batch = pad_batch_rows(batch, self.pad_rows_to)
-            out = self.model.forward(self.model.normalize_(batch))
+            out = self._forward(self.model.normalize_(batch))
             records.extend(to_dict(out["dct_patches"], out["codes"]))
         return records
 
@@ -180,6 +200,25 @@ class DCTPipeline:
             images.append(np.clip(self.processor.postprocess(decoded)[0], 0.0, 1.0))
         return images
 
+    @torch.no_grad()
+    def _forward(self, batch) -> dict:
+        """The eval forward of a normalized batch: dct_patches and codes, over
+        the copies under data_parallel."""
+        if self._replicas is None:
+            return self.model.forward(batch)
+        batch = batch.to(self.model.device)
+        b, n = batch.patches.shape[0], len(self._replicas)
+        padded = pad_batch_rows(batch, n)
+        rows = padded.patches.shape[0] // n
+        outs = []
+        for i, (module, device) in enumerate(self._replicas):
+            # the hand kernels launch on the current card
+            with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+                outs.append(module(take_rows(padded, i * rows, (i + 1) * rows).to(device), training=False))
+        patches = torch.cat([o["dct_patches"].patches.to(self.model.device) for o in outs])[:b]
+        codes = torch.cat([o["codes"].to(self.model.device) for o in outs])[:b]
+        return {"dct_patches": batch.replace(patches=patches), "codes": codes}
+
     def reconstruct(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         """encode + decode in one step (keeps the image order)."""
         return self.decode(self.encode(images))
@@ -204,7 +243,7 @@ class DCTPipeline:
         for batch in self.processor.iter_batches(iter([cols]), batch_size=None):
             if self.pad_rows_to:
                 batch = pad_batch_rows(batch, self.pad_rows_to)
-            out = self.model.forward(self.model.normalize_(batch))
+            out = self._forward(self.model.normalize_(batch))
             decoded = self.model.inv_normalize_(out["dct_patches"])
             n_images = len(batch.patch_sizes)
             if len(set(batch.patch_sizes)) == 1 and len(set(batch.original_sizes)) == 1:

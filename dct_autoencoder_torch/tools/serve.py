@@ -444,7 +444,7 @@ def main(argv=None):
     p.add_argument("--max_batch", type=int, default=16)
     p.add_argument("--batch_timeout_ms", type=float, default=5.0)
     p.add_argument("--sample_patches_beta", type=float, default=0.02)
-    p.add_argument("--data_parallel", action="store_true", help="not ported: raises")
+    p.add_argument("--data_parallel", action="store_true", help="encode rows over every visible card")
     p.add_argument("--pad_rows_to", type=int, default=8)
     p.add_argument("--pad_tokens_to", type=int, default=128)
     p.add_argument("--max_queue", type=int, default=64)

@@ -1,4 +1,4 @@
-"""Autoencoder training on one device, LFQ or VQ: losses (the pixel loss
+"""Autoencoder training, LFQ or VQ, on one device or over a mesh: losses (the pixel loss
 included), optimizers (AdamW, 8-bit AdamW), step (with VQ's codebook
 surgery and the sweep's dynamic hyper-parameters), loop, checkpoints, the
 CLI and the hyper-parameter sweep (train/sweep.py)."""

@@ -6,13 +6,23 @@ Usage:
       --model_config_path conf/patch14-l.json --batch_size 32 \
       --opt_8bit --use_pixel_loss
 
+Over several cards, one process a card:
+  torchrun --nproc_per_node 4 -m dct_autoencoder_torch.train.cli \
+      --image_dataset_path_or_url 'shards/*.tar' --model_config_path conf/patch14-l.json \
+      --batch_size 64 --n_model_parallel 2 --sequence_parallel --zero1
+
 Counterpart of dct_autoencoder_tpu/train/cli.py with the same flags and
 defaults, plus --device (cuda unless --device cpu).  Metrics go to
 out/<timestamp>/metrics.jsonl, with image grids and checkpoints beside them.
 A VQ config (vq_type 'vq') trains with k-means init and dead-code expiry
 (--vq_kmeans_init, --vq_expire_threshold, --vq_expire_every, JAX's
-defaults).  Not ported, and refused by name when set: --n_model_parallel,
---pipeline_microbatches, --sequence_parallel, --zero1.
+defaults).  --n_model_parallel (tensor parallelism), --sequence_parallel
+and --zero1 train over the torchrun world, a (world / n_model_parallel,
+n_model_parallel) mesh (train/loop.py's train()); without torchrun the
+world is one process, and --n_model_parallel 2 raises by name.  Every rank
+reads the same stream with the same seeds and packs the same global batch,
+then runs its rows of it; rank 0 writes the metrics, grids and checkpoints.
+Not ported, and refused by name when set: --pipeline_microbatches.
 --profile_dir writes a torch.profiler trace (trace.json) of the main
 training phase.  One default differs from JAX: --rss_limit_gb is 0 (off).
 """
@@ -29,7 +39,7 @@ from typing import Optional
 import numpy as np
 
 from ..data.dataset import batched, load_and_transform_dataset, load_preprocessed_dataset
-from ..models.config import DCTAutoencoderConfig
+from ..models.config import DCTAutoencoderConfig, with_sequence_parallel
 from ..models.factory import get_model_and_processor
 from ..train.loop import RssLimitExceeded, _refuse_unported, train, train_patch_norm
 
@@ -127,8 +137,9 @@ def main(
     log_images_every: int = 0,
     profile_dir: str = None,
     grad_accumulation_steps: int = 1,
-    # not ported: refused when set (multi-device parallelism)
+    # tensor parallelism over this many ranks of the torchrun world
     n_model_parallel: int = 1,
+    # GPipe / 1F1B pipelines: not ported, refused when set
     pipeline_microbatches: int = 0,
     sequence_parallel: bool = False,
     zero1: bool = False,
@@ -182,145 +193,187 @@ def main(
     # where the model and the preprocess run: the card unless 'cpu'
     device: str = "cuda",
 ):
-    import torch
+    _refuse_unported(pipeline_microbatches=(pipeline_microbatches, 0, "pipeline parallelism"))
+    with _process_group(zero1 or n_model_parallel > 1 or sequence_parallel, device):
+        import torch
+        import torch.distributed as dist
 
-    _refuse_unported(
-        n_model_parallel=(n_model_parallel, 1, "model parallelism"),
-        pipeline_microbatches=(pipeline_microbatches, 0, "pipeline parallelism"),
-        sequence_parallel=(sequence_parallel, False, "sequence parallelism"),
-        zero1=(zero1, False, "ZeRO-1 optimizer sharding"),
-    )
-    model_config = DCTAutoencoderConfig.from_json_file(model_config_path)
-    loss_weights = dict(
-        rec_loss=rec_loss,
-        rec_loss_unnormalized=rec_loss_unnormalized,
-        commit_loss=commit_loss,
-        entropy_loss=entropy_loss,
-        pixel_loss=pixel_loss,
-    )
+        from ..parallel.mesh import check_model_parallel, is_main_process
 
-    random.seed(seed)
-    np.random.seed(seed)
+        distributed = dist.is_initialized()
+        # before any data is read
+        check_model_parallel(n_model_parallel, dist.get_world_size() if distributed else 1)
+        main_rank = is_main_process()
+        model_config = DCTAutoencoderConfig.from_json_file(model_config_path)
+        if sequence_parallel:
+            model_config = with_sequence_parallel(model_config)
+        loss_weights = dict(
+            rec_loss=rec_loss,
+            rec_loss_unnormalized=rec_loss_unnormalized,
+            commit_loss=commit_loss,
+            entropy_loss=entropy_loss,
+            pixel_loss=pixel_loss,
+        )
 
-    tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
-    model, processor = get_model_and_processor(
-        model_config, dtype=tdtype, sample_patches_beta=sample_patches_beta,
-        resume_path=model_resume_path, seed=seed, device=device,
-    )
-    processor.rng = random.Random(seed)
+        random.seed(seed)
+        np.random.seed(seed)
 
-    data_seed = seed + 1000003 * restart_count  # fresh shuffle per restart
-    epoch_counter = [0]  # fresh shuffle + augmentation draws per epoch
+        tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+        model, processor = get_model_and_processor(
+            model_config, dtype=tdtype, sample_patches_beta=sample_patches_beta,
+            resume_path=model_resume_path, seed=seed, device=device,
+        )
+        processor.rng = random.Random(seed)
 
-    def make_data():
-        stream_seed = data_seed + 7919 * epoch_counter[0]
-        epoch_counter[0] += 1
-        if image_dataset_path_or_url is not None:
-            aug = None
-            if augment:
-                from ..data.augment import AugmentConfig, Augmenter
+        data_seed = seed + 1000003 * restart_count  # fresh shuffle per restart
+        epoch_counter = [0]  # fresh shuffle + augmentation draws per epoch
 
-                aug = Augmenter(
-                    AugmentConfig(
-                        scale=(augment_scale_min, 1.0),
-                        hflip=augment_hflip,
-                        color_jitter=augment_color_jitter,
-                    ),
-                    seed=stream_seed,
+        def make_data():
+            stream_seed = data_seed + 7919 * epoch_counter[0]
+            epoch_counter[0] += 1
+            if image_dataset_path_or_url is not None:
+                aug = None
+                if augment:
+                    from ..data.augment import AugmentConfig, Augmenter
+
+                    aug = Augmenter(
+                        AugmentConfig(
+                            scale=(augment_scale_min, 1.0),
+                            hflip=augment_hflip,
+                            color_jitter=augment_color_jitter,
+                        ),
+                        seed=stream_seed,
+                    )
+                return load_and_transform_dataset(
+                    image_dataset_path_or_url, processor, shuffle_buffer=1000,
+                    seed=stream_seed, augment=aug,
                 )
-            return load_and_transform_dataset(
-                image_dataset_path_or_url, processor, shuffle_buffer=1000,
-                seed=stream_seed, augment=aug,
+            if preprocessed_dataset_path_or_url is None:
+                raise ValueError("pass --image_dataset_path_or_url or --preprocessed_dataset_path_or_url")
+            return load_preprocessed_dataset(
+                preprocessed_dataset_path_or_url, shuffle_buffer=1000, seed=stream_seed
             )
-        if preprocessed_dataset_path_or_url is None:
-            raise ValueError("pass --image_dataset_path_or_url or --preprocessed_dataset_path_or_url")
-        return load_preprocessed_dataset(
-            preprocessed_dataset_path_or_url, shuffle_buffer=1000, seed=stream_seed
-        )
 
-    if resume_out_dir:
-        out_dir = resume_out_dir
-    else:
-        out_dir = create_output_directory(out_base) if should_save else None
-    run_info = dict(
-        sample_patches_beta=sample_patches_beta,
-        max_seq_len=processor.max_seq_len,
-        learning_rate=learning_rate,
-        n_params=model.n_params,
-        grad_accumulation_steps=grad_accumulation_steps,
-        patch_size=model_config.patch_size,
-        vq_num_codebooks=model_config.vq_num_codebooks,
-        vq_codebook_size=model_config.vq_codebook_size,
-        device=str(model.device),
-        **loss_weights,
-    )
-    print("starting run:", run_info)
-
-    metrics_path = os.path.join(out_dir, "metrics.jsonl") if out_dir else None
-
-    def log(d):
-        print(d)
-        if metrics_path and isinstance(d, dict):
-            with open(metrics_path, "a") as f:
-                f.write(json.dumps({k: v for k, v in d.items() if not hasattr(v, "shape")}) + "\n")
-
-    # ----------- Norm calibration phase (reference main.py:388-404) --------
-    # skipped on a watchdog self-restart: train() restores the checkpointed
-    # patchnorm anyway
-    if train_norm_iters > 0 and not resume_out_dir:
-        print("training norm")
-        train_patch_norm(
-            model,
-            processor,
-            batched(make_data(), min(batch_size, 32)),
-            steps=train_norm_iters,
-            batch_size=min(batch_size, 32),
-        )
-        print("done training norm")
-
-    # --------------------------- Main training ----------------------------
-    def epoch_stream():
-        # re-open the (shuffled) stream each epoch (reference main.py:174-181)
-        for _ in range(max(epochs, 1)):
-            yield from batched(make_data(), batch_size)
-
-    with _profiler(profile_dir, model.device):
-        # RssLimitExceeded propagates: cli_entry exec-restarts this CLI from
-        # the checkpoint; a library caller catches it and resumes itself
-        model, _ = train(
-            model,
-            processor,
-            epoch_stream(),
-            batch_size=batch_size,
+        if resume_out_dir:
+            out_dir = resume_out_dir
+        else:
+            out_dir = create_output_directory(out_base) if should_save and main_rank else None
+            if distributed:  # rank 0's timestamped directory for every rank
+                box = [out_dir]
+                dist.broadcast_object_list(box, src=0)
+                out_dir = box[0]
+        run_info = dict(
+            sample_patches_beta=sample_patches_beta,
+            max_seq_len=processor.max_seq_len,
             learning_rate=learning_rate,
-            max_iters=max_iters,
+            n_params=model.n_params,
             grad_accumulation_steps=grad_accumulation_steps,
-            loss_weights=loss_weights,
-            opt_8bit=opt_8bit,
-            use_pixel_loss=use_pixel_loss,
-            pixel_loss_max_images=pixel_loss_max_images,
-            prefetch_batches=prefetch_batches,
-            nan_policy=nan_policy,
-            rss_limit_gb=rss_limit_gb,
-            stall_timeout_s=stall_timeout_s,
-            on_stall=_make_stall_handler(out_dir) if stall_timeout_s > 0 else None,
-            log_every=log_every,
-            save_every=save_every,
-            keep_checkpoints=keep_checkpoints,
-            log_images_every=log_images_every,
-            out_dir=out_dir,
-            resume_path=train_state_resume_path,
-            seed=seed,
-            vq_kmeans_init=vq_kmeans_init,
-            vq_expire_threshold=vq_expire_threshold,
-            vq_expire_every=vq_expire_every,
-            log=log,
+            patch_size=model_config.patch_size,
+            vq_num_codebooks=model_config.vq_num_codebooks,
+            vq_codebook_size=model_config.vq_codebook_size,
+            device=str(model.device),
+            world_size=dist.get_world_size() if distributed else 1,
+            n_model_parallel=n_model_parallel,
+            sequence_parallel=sequence_parallel,
+            zero1=zero1,
+            **loss_weights,
         )
-    if out_dir:
-        model.save_pretrained(os.path.join(out_dir, "model"))
-        print("saved", out_dir)
-    print("done with all training")
-    return model
+        if main_rank:
+            print("starting run:", run_info)
+
+        metrics_path = os.path.join(out_dir, "metrics.jsonl") if out_dir else None
+
+        def log(d):
+            if not main_rank:
+                return
+            print(d)
+            if metrics_path and isinstance(d, dict):
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps({k: v for k, v in d.items() if not hasattr(v, "shape")}) + "\n")
+
+        # ----------- Norm calibration phase (reference main.py:388-404) --------
+        # skipped on a watchdog self-restart: train() restores the checkpointed
+        # patchnorm anyway
+        if train_norm_iters > 0 and not resume_out_dir:
+            if main_rank:
+                print("training norm")
+            train_patch_norm(
+                model,
+                processor,
+                batched(make_data(), min(batch_size, 32)),
+                steps=train_norm_iters,
+                batch_size=min(batch_size, 32),
+                log=print if main_rank else (lambda _: None),
+            )
+            if distributed:  # every rank normalizes with rank 0's statistics
+                for t in (model.patchnorm.n, model.patchnorm.median, model.patchnorm.b):
+                    dist.broadcast(t, src=0)
+            if main_rank:
+                print("done training norm")
+
+        # --------------------------- Main training ----------------------------
+        def epoch_stream():
+            # re-open the (shuffled) stream each epoch (reference main.py:174-181)
+            for _ in range(max(epochs, 1)):
+                yield from batched(make_data(), batch_size)
+
+        with _profiler(profile_dir, model.device):
+            # RssLimitExceeded propagates: cli_entry exec-restarts this CLI from
+            # the checkpoint; a library caller catches it and resumes itself
+            model, _ = train(
+                model,
+                processor,
+                epoch_stream(),
+                batch_size=batch_size,
+                learning_rate=learning_rate,
+                max_iters=max_iters,
+                grad_accumulation_steps=grad_accumulation_steps,
+                n_model_parallel=n_model_parallel,
+                zero1=zero1,
+                loss_weights=loss_weights,
+                opt_8bit=opt_8bit,
+                use_pixel_loss=use_pixel_loss,
+                pixel_loss_max_images=pixel_loss_max_images,
+                prefetch_batches=prefetch_batches,
+                nan_policy=nan_policy,
+                rss_limit_gb=rss_limit_gb,
+                stall_timeout_s=stall_timeout_s,
+                on_stall=_make_stall_handler(out_dir) if stall_timeout_s > 0 else None,
+                log_every=log_every,
+                save_every=save_every,
+                keep_checkpoints=keep_checkpoints,
+                log_images_every=log_images_every,
+                out_dir=out_dir,
+                resume_path=train_state_resume_path,
+                seed=seed,
+                vq_kmeans_init=vq_kmeans_init,
+                vq_expire_threshold=vq_expire_threshold,
+                vq_expire_every=vq_expire_every,
+                log=log,
+            )
+        if out_dir and main_rank:
+            model.save_pretrained(os.path.join(out_dir, "model"))
+            print("saved", out_dir)
+        if main_rank:
+            print("done with all training")
+        return model
+
+
+@contextlib.contextmanager
+def _process_group(wanted: bool, device):
+    """Join the process group for the block (torchrun's, or a world of one
+    when parallelism is asked for without torchrun); a group made here is
+    destroyed after it."""
+    from ..parallel import mesh as pm
+
+    own = pm.initialize_distributed(device) if wanted or pm.launched_by_torchrun() else False
+    try:
+        yield
+    finally:
+        if own:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 @contextlib.contextmanager

@@ -1,4 +1,5 @@
-"""Training loop on one device: optimizer, train step, calibration, checkpoints.
+"""Training loop: optimizer, train step, calibration, checkpoints, on one
+device or over a (data, model) mesh of processes.
 
 Counterpart of the JAX package's train/loop.py, for LFQ and VQ models:
   * AdamW(0.9, 0.99, eps 1e-8, weight decay 0.1 on every parameter) behind a
@@ -20,7 +21,18 @@ Counterpart of the JAX package's train/loop.py, for LFQ and VQ models:
   * the norm-calibration phase with beta forced to 0 and full sequences;
   * the loop itself: batch prefetch on a host thread, logging, image grids,
     periodic and final checkpoints, exact resume, NaN abort or restore, and
-    the stall and host-RSS watchdogs.
+    the stall and host-RSS watchdogs;
+  * over several processes (make_train_step(mesh=...), train() under
+    torchrun): data, tensor and sequence parallelism and ZeRO-1 (JAX:
+    make_sharded_train_step, model_state_sharding, zero1_state_sharding).
+    Every rank gets the same global batch and runs its data block of each
+    micro-batch; every batch statistic of the losses is summed over the data
+    group (a parallel/mesh.py DataShard handed to the losses, JAX's
+    sync_axis), so each rank's loss is its share
+    of the global loss, the gradients are summed over the data group and the
+    optimizer is parallel/optim.py's ShardedOptimizer.  Rank 0 alone logs,
+    writes grids and writes checkpoints, which hold the whole state in the
+    single-device files.
 
 Where JAX returns new pytrees, the port updates the module's fp32
 parameters, its VQ statistics and the optimizer's moments in place.  The
@@ -28,7 +40,7 @@ port's random draws (gumbel, k-means, expiry) are its own, not JAX's
 streams; each is a function of (seed, step), as JAX's fold_in is, so a
 resumed run draws what the uninterrupted run drew.
 
-Not ported: attention dropout and everything multi-device; they raise
+Not ported: attention dropout and pipeline parallelism; they raise
 NotImplementedError by name.  One default differs from JAX on purpose: the
 RSS watchdog is off (rss_limit_gb=0), since it works around a memory leak
 of the TPU client that this runtime does not have.
@@ -47,6 +59,7 @@ import torch
 
 from ..models.autoencoder import DCTAutoencoder, DCTAutoencoderModule
 from ..models.patchnorm import PatchNormState, apply_patchnorm, calibrate_patchnorm_batch
+from ..parallel.mesh import DataShard, Mesh, all_gather_rows, pad_batch_rows, take_rows
 from ..patches.container import DCTPatches
 from ..patches.extractor import DCTAutoencoderFeatureExtractor
 from .losses import step_autoencoder, weighted_total
@@ -75,16 +88,17 @@ class Optimizer:
         return self.learning_rate * 0.5 * (1.0 + math.cos(math.pi * t / span))
 
     def init(self, module: torch.nn.Module) -> torch.optim.Optimizer:
+        return self.init_params(list(module.parameters()))
+
+    def init_params(self, params: List[torch.Tensor]) -> torch.optim.Optimizer:
         if self.opt_8bit:
             from .opt8bit import AdamW8bit
 
             return AdamW8bit(
-                list(module.parameters()), lr=self.schedule(0), betas=(self.b1, self.b2), eps=self.eps,
-                weight_decay=self.weight_decay,
+                params, lr=self.schedule(0), betas=(self.b1, self.b2), eps=self.eps, weight_decay=self.weight_decay,
             )
         return torch.optim.AdamW(
-            list(module.parameters()), lr=self.schedule(0), betas=(self.b1, self.b2), eps=self.eps,
-            weight_decay=self.weight_decay,
+            params, lr=self.schedule(0), betas=(self.b1, self.b2), eps=self.eps, weight_decay=self.weight_decay,
         )
 
     def apply(
@@ -133,15 +147,28 @@ def make_optimizer(
 @dataclasses.dataclass
 class TrainState:
     module: DCTAutoencoderModule  # its fp32 parameters (and VQ's statistics) are the trained state
-    adamw: torch.optim.Optimizer  # first and second moments (AdamW or AdamW8bit)
+    # first and second moments (AdamW or AdamW8bit; on a mesh, a ShardedOptimizer)
+    adamw: torch.optim.Optimizer
     step: int = 0
     # VQ: the codebook rows that the last step's surgery replaced (bool,
     # the codebook's shape without its last dim), None if it replaced none
     vq_replaced: Optional[torch.Tensor] = None
+    # the mesh the module is sharded on (parallel.shard_params), None on one device
+    mesh: Optional[Mesh] = None
 
     @staticmethod
-    def create(module: DCTAutoencoderModule, tx: Optimizer) -> "TrainState":
-        return TrainState(module=module, adamw=tx.init(module), step=0)
+    def create(
+        module: DCTAutoencoderModule, tx: Optimizer, mesh: Optional[Mesh] = None, zero1: bool = False,
+        zero1_min_size: int = 2**13,
+    ) -> "TrainState":
+        """A fresh state; with a mesh the optimizer is a ShardedOptimizer
+        (zero1: this rank updates its slices of the parameters that
+        parallel.zero1_partition splits, JAX's min_size gating)."""
+        if mesh is None:
+            return TrainState(module=module, adamw=tx.init(module), step=0)
+        from ..parallel.optim import ShardedOptimizer
+
+        return TrainState(module=module, adamw=ShardedOptimizer(module, tx, mesh, zero1, zero1_min_size), mesh=mesh)
 
     @property
     def vq_stats(self) -> Dict[str, torch.Tensor]:
@@ -238,28 +265,6 @@ def prepare_train_batch(
     return batch.replace(patch_sizes=(), original_sizes=(), _data=None), grid_sizes
 
 
-def _tensor_fields(batch: DCTPatches) -> List[str]:
-    return [f.name for f in dataclasses.fields(batch) if isinstance(getattr(batch, f.name), torch.Tensor)]
-
-
-def pad_batch_rows(batch: DCTPatches, multiple: int) -> DCTPatches:
-    """Right-pad packed rows to a multiple; padding rows are fully masked."""
-    b = batch.patches.shape[0]
-    pad_rows = (-b) % multiple
-    if pad_rows == 0:
-        return batch
-    padded = {}
-    for name in _tensor_fields(batch):
-        x = getattr(batch, name)
-        padded[name] = torch.cat([x, x.new_zeros((pad_rows, *x.shape[1:]))], dim=0)
-    padded["key_pad_mask"][b:] = True
-    return batch.replace(**padded)
-
-
-def _rows(batch: DCTPatches, start: int, stop: int) -> DCTPatches:
-    return batch.replace(**{name: getattr(batch, name)[start:stop] for name in _tensor_fields(batch)})
-
-
 # losses that are means over valid tokens: under accumulation each micro-batch
 # re-weights them by its token share, so the uniform micro average gives the
 # whole-batch mean (entropy_loss is left out: it is nonlinear in the split)
@@ -278,6 +283,7 @@ def make_train_step(
     vq_expire_threshold: float = 15.0,
     vq_expire_every: int = 50,
     dynamic_hparams: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Build the train-step fn (state, patchnorm, batch[, grid_sizes[, hparams]]) -> (state, metrics).
 
@@ -317,6 +323,19 @@ def make_train_step(
         8-bit state's blocks do not have).  With no valid token in that
         window the surgery does nothing.  state.vq_replaced holds the
         replaced rows.
+
+    mesh (parallel.make_mesh; the state from TrainState.create(..., mesh))
+    makes it the sharded step, JAX's make_sharded_train_step: every rank is
+    given the same global batch, whose rows must divide by accum_steps x
+    n_data (pad_batch_rows), and runs its data block of each micro-batch
+    (micro-batch i is rows [i mb, (i + 1) mb) of the global batch, as JAX's
+    dynamic_slice; rank d takes its d-th block of those) with a
+    parallel.DataShard, whose group sums every batch statistic, and with the
+    weights of the accumulation taken over the global rows.  The gradients are summed over the data group by the
+    ShardedOptimizer, and the loss metrics too; the metrics and the
+    grad norm are the global ones on every rank.  VQ's surgery runs on the
+    projections of the whole last micro-batch, gathered, so every rank
+    edits its codebook as one process does.
     """
     _refuse_attention_dropout(module.config)
     if accum_steps < 1:
@@ -334,7 +353,8 @@ def make_train_step(
     is_vq = module.config.vq_type == "vq"
 
     def backward(
-        patchnorm, batch, step, micro, lw, grid_sizes=None, pixel_rows=None, pixel_weight=None, token_weight=None
+        patchnorm, batch, step, micro, lw, grid_sizes=None, pixel_rows=None, pixel_weight=None, token_weight=None,
+        shard=None,
     ):
         normalized = batch.replace(patches=apply_patchnorm(patchnorm, batch))
         device = batch.patches.device
@@ -342,6 +362,7 @@ def make_train_step(
             module, patchnorm, batch, normalized, training=True, generator=dropout_generator(device),
             pixel_grid_sizes=grid_sizes, pixel_rows=pixel_rows,
             vq_generator=step_generator(seed, step, micro, device) if is_vq else None, update_vq_stats=is_vq,
+            shard=shard,
         )
         if pixel_weight is not None:
             losses["pixel_loss"] = losses["pixel_loss"] * pixel_weight
@@ -368,16 +389,23 @@ def make_train_step(
         if hparams is not None:
             lw = dict(loss_weights or {})
             lw.update({k: v for k, v in hparams.items() if k != "lr_scale"})
+        if (state.mesh is None) != (mesh is None):
+            raise ValueError("the state and the step must be made for the same mesh (TrainState.create(..., mesh))")
         params = [p for p in module.parameters() if p.requires_grad]
         state.adamw.zero_grad(set_to_none=True)
-        if accum_steps == 1:
+        if accum_steps == 1 and mesh is None:
             metrics, vq_z = backward(patchnorm, batch, state.step, 0, lw, grid_sizes)
             surgery_mask = ~batch.key_pad_mask
         else:
             b = batch.patches.shape[0]
-            if b % accum_steps:
-                raise ValueError(f"batch rows ({b}) must divide by accum_steps ({accum_steps}): pad_batch_rows first")
+            n_data, d = (mesh.n_data, mesh.data_rank) if mesh is not None else (1, 0)
+            if b % (accum_steps * n_data):
+                raise ValueError(
+                    f"batch rows ({b}) must divide by accum_steps x n_data ({accum_steps} x {n_data}): "
+                    "pad_batch_rows first"
+                )
             mb = b // accum_steps
+            local = mb // n_data  # this rank's rows of each micro-batch
             tokens_per_row = (~batch.key_pad_mask).sum(dim=1).float()
             total_tokens = torch.clamp(tokens_per_row.sum(), min=1.0)
             if grid_sizes is not None:
@@ -390,18 +418,20 @@ def make_train_step(
                 total_images = torch.clamp(n_per_row.sum(), max=max_images).float()
             metrics = None
             for i in range(accum_steps):
-                rows = slice(i * mb, (i + 1) * mb)
-                token_weight = tokens_per_row[rows].sum() * accum_steps / total_tokens
+                lo = i * mb + d * local
+                mine = slice(lo, lo + local)
+                token_weight = tokens_per_row[i * mb : (i + 1) * mb].sum() * accum_steps / total_tokens
                 pixel_rows = pixel_weight = None
                 if grid_sizes is not None:
-                    row_off, counts = g_offsets[rows], n_per_row[rows]
+                    row_off, counts = g_offsets[mine], n_per_row[mine]
                     start = row_off[0]
                     slot_mask = (slots >= start) & (slots < start + counts.sum())
                     pixel_rows = (row_off, slot_mask)
                     pixel_weight = slot_mask.sum().float() * accum_steps / torch.clamp(total_images, min=1.0)
+                shard = None if mesh is None else DataShard(mesh.data_group, d * local, mb)
                 m, vq_z = backward(
-                    patchnorm, _rows(batch, i * mb, (i + 1) * mb), state.step, i, lw, grid_sizes, pixel_rows,
-                    pixel_weight, token_weight,
+                    patchnorm, take_rows(batch, lo, lo + local), state.step, i, lw, grid_sizes, pixel_rows,
+                    pixel_weight, token_weight, shard,
                 )
                 metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
             metrics = {k: v / accum_steps for k, v in metrics.items()}
@@ -410,9 +440,15 @@ def make_train_step(
             surgery_mask = ~batch.key_pad_mask[(accum_steps - 1) * mb :]
 
         lr_scale = float(hparams["lr_scale"]) if dynamic_hparams else 1.0
-        grad_norm = tx.apply(state.adamw, params, state.step, lr_scale=lr_scale)
+        if mesh is None:
+            grad_norm = tx.apply(state.adamw, params, state.step, lr_scale=lr_scale)
+        else:
+            grad_norm = state.adamw.step(tx, state.step, lr_scale=lr_scale)
+            metrics = _sum_loss_metrics(metrics, mesh)
         state.adamw.zero_grad(set_to_none=True)
         state.vq_replaced = None
+        if is_vq and mesh is not None:
+            vq_z = all_gather_rows(vq_z, mesh.data_group, mesh.n_data)
         if is_vq:
             state.vq_replaced = _vq_codebook_surgery(
                 module.vq_model, state.adamw, vq_z, surgery_mask, state.step, seed,
@@ -423,6 +459,17 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def _sum_loss_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The loss metrics (each rank's share) summed over the data group;
+    perplexity, of the global histogram, is global already."""
+    import torch.distributed as dist
+
+    keys = [k for k in metrics if k != "perplexity"]
+    flat = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(flat, group=mesh.data_group)
+    return {**metrics, **{k: flat[j].to(metrics[k].dtype) for j, k in enumerate(keys)}}
 
 
 # generator streams of one step: gumbel sampling uses the micro-batch index
@@ -445,6 +492,9 @@ def _zero_codebook_moments(adamw: torch.optim.Optimizer, codebook: torch.Tensor,
     moments are those shaped like the codebook: fp32 AdamW's exp_avg and
     exp_avg_sq.  AdamW8bit keeps its moments as (n_blocks, 256) codes and
     absmax, which JAX's search by shape does not find either, so they stay."""
+    if hasattr(adamw, "zero_moment_rows"):  # a ShardedOptimizer: the moments may be slices
+        adamw.zero_moment_rows(codebook, replaced)
+        return
     state = adamw.state.get(codebook, {})
     keep = (~replaced).to(torch.float32)[..., None]
     for name in ("exp_avg", "exp_avg_sq"):
@@ -579,7 +629,10 @@ def train(
     grad_accumulation_steps: int = 1,
     loss_weights: Optional[Dict[str, float]] = None,
     warmup_dict: Optional[Dict[str, int]] = None,
+    # tensor parallelism over this many ranks (the model axis; the data axis
+    # is the rest of the world), and ZeRO-1 over the data axis; see below
     n_model_parallel: int = 1,
+    # GPipe / 1F1B pipelines: not ported, refused by name
     pipeline_microbatches: int = 0,
     zero1: bool = False,
     # 8-bit Adam moments (train/opt8bit.py; the reference's PagedAdamW8bit)
@@ -629,33 +682,97 @@ def train(
     use_pixel_loss=True trains with the differentiable RGB pixel loss in the
     objective, weighted by loss_weights.get('pixel_loss', 1.0); at most
     pixel_loss_max_images images of a batch enter it.
+
+    Several processes: under torchrun (one process a card), or with
+    n_model_parallel > 1, zero1 or a config with sequence_parallel, train()
+    joins the process group (a world of one without torchrun, then torn
+    down again), makes the (world // n_model_parallel, n_model_parallel)
+    mesh, shards the module and trains with the sharded step.  Every rank
+    must be given the same stream, with the same seeds: each packs the same
+    global batch and runs its rows.  Rows are padded to a multiple of
+    grad_accumulation_steps x n_data (JAX pads to their lcm; the port's
+    ranks each hold an equal block of every micro-batch).  Rank 0 alone logs,
+    writes grids and checkpoints (the single-device files); the NaN policy
+    reads the global loss and the RSS watchdog the largest rank's, so all
+    ranks act together.  On return the module holds the whole parameters
+    on every rank again.
     """
-    _refuse_unported(
-        n_model_parallel=(n_model_parallel, 1, "model parallelism"),
-        pipeline_microbatches=(pipeline_microbatches, 0, "pipeline parallelism"),
-        zero1=(zero1, False, "ZeRO-1 optimizer sharding"),
-    )
+    _refuse_unported(pipeline_microbatches=(pipeline_microbatches, 0, "pipeline parallelism"))
     _refuse_attention_dropout(model.config)
     if nan_policy not in ("abort", "restore"):
         raise ValueError(f"nan_policy must be 'abort' or 'restore', got {nan_policy!r}")
+    from ..parallel import mesh as pm
+
+    cfg = model.config
+    sp_on = cfg.encoder_config.sequence_parallel or cfg.decoder_config.sequence_parallel
+    mesh, own_group = None, False
+    if zero1 or n_model_parallel > 1 or sp_on or pm.launched_by_torchrun():
+        own_group = pm.initialize_distributed(model.device)
+        try:
+            mesh = pm.make_mesh(n_model_parallel, model.device)
+            if n_model_parallel > 1 or sp_on:
+                pm.shard_params(model.module, mesh)
+        except Exception:
+            if own_group:
+                torch.distributed.destroy_process_group()
+            raise
+    try:
+        out = _train(
+            model, proc, data_iter, mesh, zero1, batch_size, learning_rate, max_iters, grad_accumulation_steps,
+            loss_weights, warmup_dict, opt_8bit, use_pixel_loss, pixel_loss_max_images, prefetch_batches, nan_policy,
+            rss_limit_gb, stall_timeout_s, on_stall, log_every, save_every, keep_checkpoints, log_images_every,
+            n_log_images, out_dir, resume_path, seed, vq_kmeans_init, vq_expire_threshold, vq_expire_every,
+            log if pm.is_main_process() else (lambda _: None),
+        )
+        if mesh is not None:  # a collective: only on the way every rank takes
+            pm.unshard_params(model.module, mesh)
+        return out
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(
+    model, proc, data_iter, mesh, zero1, batch_size, learning_rate, max_iters, grad_accumulation_steps,
+    loss_weights, warmup_dict, opt_8bit, use_pixel_loss, pixel_loss_max_images, prefetch_batches, nan_policy,
+    rss_limit_gb, stall_timeout_s, on_stall, log_every, save_every, keep_checkpoints, log_images_every,
+    n_log_images, out_dir, resume_path, seed, vq_kmeans_init, vq_expire_threshold, vq_expire_every, log,
+):
+    """train()'s loop, on one device (mesh None) or on this rank of a mesh."""
+    from ..parallel.mesh import gather_params, is_main_process
     from .checkpoint import has_train_state, load_train_state, save_train_state
 
     tx = make_optimizer(learning_rate, max_iters, opt_8bit=opt_8bit)
-    state = TrainState.create(model.module, tx)
+    state = TrainState.create(model.module, tx, mesh=mesh, zero1=zero1)
     if resume_path is not None and has_train_state(resume_path):
         state, model.patchnorm = load_train_state(resume_path, state, model.patchnorm)
         log({"resumed_from": resume_path, "step": state.step})
     step_fn = make_train_step(
         model.module, tx, loss_weights, warmup_dict, grad_accumulation_steps, use_pixel_loss=use_pixel_loss, seed=seed,
         vq_kmeans_init=vq_kmeans_init, vq_expire_threshold=vq_expire_threshold, vq_expire_every=vq_expire_every,
+        mesh=mesh,
     )
     clip_grid = (model.config.max_patch_h, model.config.max_patch_w)
+    # rows divide by the micro-batches and, in each, by the data ranks
+    row_multiple = grad_accumulation_steps * (mesh.n_data if mesh is not None else 1)
 
     def save(gstep: Optional[int] = None) -> None:
-        model.save_pretrained(f"{out_dir}/model")
+        # every rank joins the gathers; rank 0 writes
+        weights = gather_params(model.module, mesh) if mesh is not None else None
         save_train_state(out_dir, state, model.patchnorm)
-        if gstep is not None and keep_checkpoints:
-            model.save_pretrained(f"{out_dir}/ckpt_{gstep:06d}")
+        if is_main_process():
+            model.save_pretrained(f"{out_dir}/model", state_dict=weights)
+            if gstep is not None and keep_checkpoints:
+                model.save_pretrained(f"{out_dir}/ckpt_{gstep:06d}", state_dict=weights)
+
+    def host_rss_gb() -> float:
+        rss = _rss_gb()
+        if mesh is None:
+            return rss
+        # the largest of every rank's, so that all ranks act together
+        t = torch.tensor([rss], dtype=torch.float64, device=model.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        return float(t)
 
     if rss_limit_gb < 0:
         rss_limit_gb = _auto_rss_limit_gb()
@@ -678,9 +795,11 @@ def train(
             gstep = start_step + i  # global step across restarts
             batch, grid_sizes = prepare_train_batch(raw_batch, pixel_loss_max_images if use_pixel_loss else 0, clip_grid)
             # padding rows are fully masked, so grid sizes built before the pad stay aligned
-            batch = pad_batch_rows(batch.to(model.device), grad_accumulation_steps)
+            batch = pad_batch_rows(batch.to(model.device), row_multiple)
             if grid_sizes is not None:
                 grid_sizes = grid_sizes.to(model.device)
+            if mesh is not None and i % log_every == 0:
+                _check_same_batch(batch, mesh)
             state, metrics = step_fn(state, model.patchnorm, batch, grid_sizes)
             stall_progress["t"] = time.monotonic()
 
@@ -702,7 +821,8 @@ def train(
                 log(metrics)
 
             if out_dir and log_images_every and gstep % log_images_every == 0:
-                _log_image_grid(model, proc, raw_batch, gstep, n_log_images, out_dir, log)
+                # the forward needs every rank of the model group; rank 0 writes
+                _log_image_grid(model, proc, raw_batch, gstep, n_log_images, out_dir, log, write=is_main_process())
 
             if out_dir and save_every and i > 0 and gstep % save_every == 0:
                 # never checkpoint a poisoned state: 'restore' would restore it forever
@@ -714,7 +834,7 @@ def train(
             # its own cadence, not log_every; i > 0: a restarted process makes
             # at least one step of progress before it may restart again
             if rss_limit_gb and i > 0 and i % min(log_every, 50) == 0:
-                rss = _rss_gb()
+                rss = host_rss_gb()
                 if rss > rss_limit_gb:
                     if not out_dir:
                         log({"step": gstep, "warning": f"RSS {rss:.1f} GB over limit but no out_dir to checkpoint to: continuing at risk"})
@@ -738,12 +858,38 @@ def train(
 
 
 @torch.no_grad()
-def _log_image_grid(model, proc, raw_batch, gstep, n_log_images, out_dir, log) -> None:
+def _check_same_batch(batch: DCTPatches, mesh: Mesh) -> None:
+    """Raise unless every rank holds the same global batch (a checksum of its
+    rows, tokens and values, compared across the world): the sharded step
+    takes each rank's rows of it, and ranks that read different streams would
+    train on a batch no rank has."""
+    import torch.distributed as dist
+
+    valid = ~batch.key_pad_mask
+    local = torch.stack([
+        torch.tensor(float(batch.patches.shape[0]), dtype=torch.float64, device=batch.patches.device),
+        valid.sum().double(), batch.patches.double().sum(), (batch.batched_image_ids.double() * valid).sum(),
+    ])
+    lo, hi = local.clone(), local.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    if not torch.equal(lo, hi):
+        raise RuntimeError(
+            "the ranks were given different batches: every rank must read the same stream with the same seeds"
+        )
+
+
+@torch.no_grad()
+def _log_image_grid(model, proc, raw_batch, gstep, n_log_images, out_dir, log, write: bool = True) -> None:
     """Original-vs-reconstruction grid and the batch's RGB pixel MSE (a metric
     only: the host-side unpatch is not differentiated).  proc.postprocess
-    launches the IDCT kernel on the card."""
+    launches the IDCT kernel on the card.  write=False runs the forward only
+    (a rank other than 0 of a model group)."""
     from ..tools.viz import make_image_grid
 
+    if not write:
+        model.forward(model.normalize_(raw_batch.to(model.device)), training=False)
+        return
     os.makedirs(out_dir, exist_ok=True)
     out = model.forward(model.normalize_(raw_batch.to(model.device)), training=False)
     rec = model.inv_normalize_(out["dct_patches"])

@@ -6,6 +6,11 @@ codebook loss), MaskGIT entropy loss (0.1, LFQ only; 0 for VQ), plus
 codebook perplexity as a metric, and optionally the differentiable RGB
 pixel loss (train/pixel_loss.py).  DCT features are treated as Laplace
 distributed, hence L1.
+
+Under data parallelism (a `shard`, parallel/mesh.py's DataShard) every
+mean's count is summed over the data group, so each rank's loss is its share
+of the global batch's loss and the shares sum to it (JAX computes each
+statistic over the global batch under pjit).
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 
 from ..models.autoencoder import DCTAutoencoderModule
 from ..models.patchnorm import PatchNormState, inverse_patchnorm
-from ..ops.stats import calculate_perplexity, compute_entropy_loss
+from ..ops.stats import calculate_perplexity, compute_entropy_loss, group_sum
 from ..patches.container import DCTPatches
 
 DEFAULT_LOSS_WEIGHTS = dict(
@@ -26,10 +31,11 @@ DEFAULT_LOSS_WEIGHTS = dict(
 )
 
 
-def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean |pred - target| over valid tokens (== F.l1_loss(pred[mask], target[mask]))."""
+def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean |pred - target| over valid tokens (== F.l1_loss(pred[mask], target[mask])),
+    the count summed over the process `group` (the step's data group)."""
     diff = (pred - target).abs() * mask[..., None]
-    denom = torch.clamp(mask.sum() * pred.shape[-1], min=1)
+    denom = torch.clamp(group_sum(mask.sum(), group) * pred.shape[-1], min=1)
     return diff.sum() / denom
 
 
@@ -44,6 +50,7 @@ def step_autoencoder(
     pixel_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     vq_generator: Optional[torch.Generator] = None,
     update_vq_stats: bool = False,
+    shard=None,
 ) -> Dict[str, torch.Tensor]:
     """One forward pass and the loss dict.
 
@@ -62,23 +69,28 @@ def step_autoencoder(
     (JAX: vq_stats passed in, applied with mutable=['vq_stats']; here they
     are read from module.vq_stats()); then the projections before
     quantization come back under 'vq_z', detached.
+
+    shard (parallel/mesh.py's DataShard, the sharded step's): this rank's
+    rows of a data-parallel batch; every batch statistic is summed over its
+    group (JAX: sync_axis).
     """
+    group = None if shard is None else shard.group
     out = module(
         normalized_batch, training=training, generator=generator, vq_generator=vq_generator,
-        update_vq_stats=update_vq_stats,
+        update_vq_stats=update_vq_stats, shard=shard,
     )
     output_patches: DCTPatches = out["dct_patches"]
     mask = ~output_patches.key_pad_mask
 
     losses: Dict[str, torch.Tensor] = {}
     if training and module.config.vq_type == "lfq":
-        losses["entropy_loss"] = compute_entropy_loss(out["distances"], mask)
+        losses["entropy_loss"] = compute_entropy_loss(out["distances"], mask, group=group)
     else:
         losses["entropy_loss"] = out["distances"].new_zeros(())
-    losses["rec_loss"] = masked_l1(output_patches.patches, normalized_batch.patches, mask)
+    losses["rec_loss"] = masked_l1(output_patches.patches, normalized_batch.patches, mask, group)
     losses["commit_loss"] = out["commit_loss"]
     unnormalized = inverse_patchnorm(patchnorm, output_patches)
-    losses["rec_loss_unnormalized"] = masked_l1(unnormalized, batch.patches, mask)
+    losses["rec_loss_unnormalized"] = masked_l1(unnormalized, batch.patches, mask, group)
 
     if pixel_grid_sizes is not None:
         from .pixel_loss import packed_pixel_loss
@@ -98,7 +110,7 @@ def step_autoencoder(
     codes = out["codes"]
     with torch.no_grad():
         null_codes = torch.where(mask[..., None], codes, torch.full_like(codes, -1))
-        losses["perplexity"] = calculate_perplexity(null_codes, module.config.vq_codebook_size)
+        losses["perplexity"] = calculate_perplexity(null_codes, module.config.vq_codebook_size, group=group)
     losses["codes"] = codes
     losses["rec_patches"] = output_patches.patches
     if update_vq_stats and "vq_z" in out:

@@ -482,3 +482,51 @@ def test_native_packing_phase_runs_on_the_host(monkeypatch, capsys):
     assert line["phase"] == "native_packing" and line["images"] == 200 and line["rows"] > 1
     assert set(line["host_ms"]) == {"greedy_pack_native", "greedy_pack_numpy_grouping", "pack_and_fill_native",
                                     "group_and_fill_numpy", "attn_mask_native", "attn_mask_numpy"}
+
+
+def test_parallel_slice_phase_and_limits():
+    """The multi-device slice's phase runs last, over a process group of one:
+    the sharded step beside the unsharded one must give the same bits, its
+    path is held to the tensor cores, and it reads the attention and DCT
+    launches of the path."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = ["phase_native_packing()", "phase_parallel_patch14l()"]
+    assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
+    assert order[-1] in main.split("for path, impls in PATH_IMPLS.items()")[0]
+    assert 'launches["parallel_patch14l"]' in main
+    assert chip_smoke.PATH_IMPLS["parallel_patch14l"] == ("mma", "mma")
+    assert chip_smoke.MAX_SHARDED_VS_UNSHARDED_DIFF == 0.0
+    sig = {k: v.default for k, v in inspect.signature(chip_smoke.phase_parallel_patch14l).parameters.items()}
+    assert sig == {"steps": 8, "rows": 64, "n_images": 16, "size": 448}
+    src = inspect.getsource(chip_smoke.phase_parallel_patch14l)
+    for needle in ('initialize_distributed("cuda"', "world_size=1", 'dist.get_backend() == "nccl"',
+                   "with_sequence_parallel", "sharded=True", "data_parallel=True", "run_two_process_check",
+                   "torch.cuda.device_count() >= 2", "destroy_process_group", '"dct_patchify"'):
+        assert needle in src, needle
+    assert "zero1=sharded" in inspect.getsource(chip_smoke._train_steps)
+
+
+def test_four_card_phase_says_it_did_not_run_on_fewer_cards(capsys):
+    """The four-rank check runs after the parallel phase and only where there
+    are four cards; elsewhere it prints why, and a rank of it (started with
+    --sharded-steps-rank) runs nothing else of the script."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = ["phase_parallel_patch14l()", "phase_parallel_four_cards()", "for path, impls in PATH_IMPLS.items()"]
+    assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
+    assert main.index('"--sharded-steps-rank"') < main.index("phase_environment()")
+    assert chip_smoke.MAX_FOUR_CARD_LOSS_REL == 1e-4 and chip_smoke.MAX_FOUR_CARD_GRAD_NORM_REL == 1e-3
+    assert len(chip_smoke.FOUR_CARD_CASES) == 6
+    chip_smoke.phase_parallel_four_cards()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "parallel_four_cards" and line["ran"] is False and "card" in line["why"]
+
+
+def test_largest_diff_reads_every_tensor():
+    a = {"x": torch.zeros(3), "y": torch.ones(2, 2)}
+    b = {"x": torch.tensor([0.0, -0.5, 0.25]), "y": torch.ones(2, 2)}
+    assert chip_smoke._largest_diff(a, b) == 0.5
+    assert chip_smoke._largest_diff(a, a) == 0.0

@@ -34,12 +34,10 @@ Tolerances:
 """
 import os
 import random
-import threading
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -50,7 +48,6 @@ from dct_autoencoder_torch.models.factory import get_model_and_processor as torc
 from dct_autoencoder_torch.models.lfq import LFQ as TorchLFQ
 from dct_autoencoder_torch.models.patchnorm import PatchNormState as TorchPatchNorm
 from dct_autoencoder_torch.models.patchnorm import calibrate_patchnorm_batch as torch_calibrate
-from dct_autoencoder_torch.train import checkpoint as tckpt
 from dct_autoencoder_torch.train import loop as tloop
 from dct_autoencoder_torch.train import losses as tlosses
 from dct_autoencoder_tpu.models.autoencoder import DCTAutoencoder as JaxAE
@@ -260,21 +257,6 @@ def test_masked_l1_and_weighted_total_match_jax():
 # ---------------------------------------------------------------- optimizer and step
 
 
-@pytest.mark.parametrize("max_iters,warmup", [(40, 8), (10000, 200), (5, 200), (30, 0), (1, 200)])
-def test_learning_rate_schedule_matches_optax(max_iters, warmup):
-    """make_optimizer's schedule, its clamps on warmup_steps and decay_steps included."""
-    lr = 3e-4
-    tx = tloop.make_optimizer(lr, max_iters, warmup)
-    w = min(warmup, max(max_iters - 1, 0))
-    sched = optax.warmup_cosine_decay_schedule(0.0, lr, w, max(max_iters, w + 1), 0.0)
-    steps = list(range(0, min(max_iters, 400) + 5))
-    got = np.array([tx.schedule(i) for i in steps])
-    want = np.array([float(sched(i)) for i in steps])
-    np.testing.assert_allclose(got, want, atol=1e-7 * lr, rtol=1e-5)
-    if w > 0:
-        assert got[0] == 0.0
-
-
 def _assert_params_close(tm, jparams, lr_sum, what):
     got, want = jax_arrays_from_state_dict(tm.module.state_dict(), tm.config), flat(jparams)
     assert got.keys() == want.keys()
@@ -287,92 +269,6 @@ def _assert_params_close(tm, jparams, lr_sum, what):
             assert off <= max(2, 0.01 * diff.size), f"{what} {k}: {off} of {diff.size} entries differ by more than 1e-5"
         assert diff.max() <= 2 * lr_sum + 1e-5, f"{what} {k}: max diff {diff.max()}"
     assert n_off <= 2e-3 * sum(v.size for v in want.values()), f"{what}: {n_off} entries differ by more than 1e-5"
-
-
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_steps_match_jax(accum):
-    """Parameters, losses and the pre-clip grad norm over 3 steps (warmup 2: rates 0, 5e-5, 1e-4)."""
-    jm, batch = make_case("tiny_block")
-    tm = port_of(jm)
-    tb = to_torch_batch(batch)
-    kw = dict(learning_rate=1e-4, max_iters=100, warmup_steps=2)
-
-    jtx = jloop.make_optimizer(**kw)
-    jstate = jloop.TrainState.create(jm.params, jtx)
-    jstep = jax.jit(jloop.make_train_step(jm.module, jtx, accum_steps=accum))
-    ttx = tloop.make_optimizer(**kw)
-    tstate = tloop.TrainState.create(tm.module, ttx)
-    tstep = tloop.make_train_step(tm.module, ttx, accum_steps=accum)
-
-    lr_sum = 0.0
-    for i in range(3):
-        jstate, jmet = jstep(jstate, jm.patchnorm, batch)
-        tstate, tmet = tstep(tstate, tm.patchnorm, tb)
-        lr_sum += ttx.schedule(i)
-        assert tmet.keys() == jmet.keys()
-        for k in jmet:
-            np.testing.assert_allclose(tmet[k].item(), float(jmet[k]), rtol=1e-3, err_msg=f"step {i} {k}")
-        _assert_params_close(tm, jstate.params, lr_sum, f"step {i}")
-    assert tstate.step == int(jstate.step) == 3
-
-
-def test_clip_scales_like_optax():
-    """A gradient above the limit is scaled to the limit; grad_norm reports the norm before."""
-    jm, batch = make_case("tiny_block")
-    tm = port_of(jm)
-    tx = tloop.make_optimizer(learning_rate=0.0, max_iters=10, warmup_steps=0, grad_clip=1e-3)
-    state = tloop.TrainState.create(tm.module, tx)
-    seen = {}
-    orig = state.adamw.step
-    state.adamw.step = lambda: seen.update(norm=torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in tm.module.parameters()]))) or orig()
-    _, met = tloop.make_train_step(tm.module, tx)(state, tm.patchnorm, to_torch_batch(batch))
-    assert met["grad_norm"].item() > 1e-3
-    assert seen["norm"].item() == pytest.approx(1e-3, rel=1e-4)
-
-
-def test_train_step_reduces_loss():
-    jm, batch = make_case("tiny_block")
-    tm = port_of(jm)
-    tx = tloop.make_optimizer(learning_rate=3e-3, max_iters=100, warmup_steps=0)
-    state = tloop.TrainState.create(tm.module, tx)
-    step = tloop.make_train_step(tm.module, tx)
-    tb = to_torch_batch(batch)
-    losses = []
-    for _ in range(12):
-        state, metrics = step(state, tm.patchnorm, tb)
-        losses.append(metrics["loss"].item())
-    assert all(np.isfinite(losses))
-    assert losses[-1] < losses[0], losses
-    assert state.step == 12
-
-
-def test_accumulation_pads_and_weights_by_tokens():
-    """Uneven token counts per micro-batch: the token-mean losses of accum=2 equal accum=1."""
-    jm, _ = make_case("tiny_block")
-    proc = jax_model_and_processor(tiny_config(), sample_patches_beta=0.0)[1]
-    rng = np.random.default_rng(0)
-    ims = [rng.uniform(0.1, 0.9, size=(3, s, s)).astype(np.float32) for s in (32, 16, 16, 32, 16)]
-    ds = [proc.preprocess(im) for im in ims]
-    batch = next(proc.iter_batches(iter([{k: [d[k] for d in ds] for k in ds[0]}]), batch_size=None))
-    tb = to_torch_batch(batch)
-    assert tb.patches.shape[0] == 4
-    tok = (~tb.key_pad_mask).sum(dim=1)
-    assert tok[:2].sum() != tok[2:].sum()
-    mets = {}
-    for accum in (1, 2):
-        tm = port_of(jm)
-        tx = tloop.make_optimizer(learning_rate=0.0, max_iters=10, warmup_steps=0)
-        _, mets[accum] = tloop.make_train_step(tm.module, tx, accum_steps=accum)(
-            tloop.TrainState.create(tm.module, tx), tm.patchnorm, tb
-        )
-    for k in ("rec_loss", "rec_loss_unnormalized", "commit_loss"):
-        np.testing.assert_allclose(mets[2][k].item(), mets[1][k].item(), rtol=1e-5, err_msg=k)
-    padded = tloop.pad_batch_rows(tb, 3)
-    assert padded.patches.shape[0] == 6 and padded.key_pad_mask[4:].all() and not padded.key_pad_mask[:4].all()
-    with pytest.raises(ValueError, match="accum_steps"):
-        tm = port_of(jm)
-        tx = tloop.make_optimizer()
-        tloop.make_train_step(tm.module, tx, accum_steps=3)(tloop.TrainState.create(tm.module, tx), tm.patchnorm, tb)
 
 
 # ---------------------------------------------------------------- fp32 masters, dropout, remat
@@ -450,54 +346,6 @@ def _stream(proc, n_pulls, seed=1, n_images=4, poison_at=None):
         yield {k: [d[k] for d in ds] for k in ds[0]}
 
 
-def test_train_patch_norm_phase():
-    model, proc = _port_setup(beta=0.05)
-    proc.max_seq_len = 64
-    logs = []
-    state = tloop.train_patch_norm(model, proc, _stream(proc, 3), steps=3, batch_size=None, log=logs.append)
-    assert state.n.max().item() > 0 and model.patchnorm is state
-    assert len(logs) == 3
-    assert proc.sample_patches_beta == 0.05 and proc.max_seq_len == 64
-    # restored after a failure inside the phase as well
-    with pytest.raises(ZeroDivisionError):
-        tloop.train_patch_norm(model, proc, _stream(proc, 1), log=lambda _: 1 / 0, batch_size=None)
-    assert proc.sample_patches_beta == 0.05 and proc.max_seq_len == 64
-
-
-def test_train_writes_a_checkpoint_the_jax_package_loads(tmp_path):
-    """A few steps of train(); the saved model gives the same codes in both packages."""
-    model, proc = _port_setup()
-    tloop.train_patch_norm(model, proc, _stream(proc, 2), steps=2, batch_size=None, log=lambda _: None)
-    before = {k: v.clone() for k, v in model.module.state_dict().items()}
-    logs = []
-    model, state = tloop.train(
-        model, proc, _stream(proc, 5, seed=2), batch_size=None, learning_rate=1e-3, max_iters=4, log_every=1,
-        save_every=2, keep_checkpoints=True, out_dir=str(tmp_path), log=logs.append,
-    )
-    assert state.step == 4
-    assert [m["step"] for m in logs] == [0, 1, 2, 3] and all(np.isfinite(m["loss"]) for m in logs)
-    assert any(not torch.equal(before[k], v) for k, v in model.module.state_dict().items())
-    assert sorted(os.listdir(tmp_path)) == ["ckpt_000002", "model", "train_state.pt"]
-    assert sorted(os.listdir(tmp_path / "model")) == ["config.json", "params.npz", "patchnorm.npz"]
-
-    jm = JaxAE.from_pretrained(str(tmp_path / "model"), dtype=jnp.float32)
-    want = flat(jm.params)
-    got = jax_arrays_from_state_dict(model.module.state_dict(), model.config)
-    assert want.keys() == got.keys() and all(np.array_equal(want[k], got[k]) for k in want)
-    np.testing.assert_array_equal(np.asarray(jm.patchnorm.median), model.patchnorm.median.numpy())
-
-    jproc = jax_model_and_processor(tiny_config(), sample_patches_beta=0.0)[1]
-    batch = make_batch(jproc, np.random.default_rng(9), n_images=3)
-    jcodes = np.asarray(jm.forward(jm.normalize_(batch), training=False)["codes"])
-    tb = to_torch_batch(batch)
-    tcodes = model.forward(model.normalize_(tb))["codes"].numpy()
-    valid = ~np.asarray(batch.key_pad_mask)
-    # equal; a bit may differ only where JAX's pre-sign value is within 1e-4 of 0
-    assert_codes_match(tcodes, jcodes, jax_pre_sign(jm, jm.normalize_(batch)), model.module.vq_model.codebook_dim, valid)
-    reloaded = TorchAE.from_pretrained(str(tmp_path / "model"), device="cpu")
-    np.testing.assert_array_equal(reloaded.forward(reloaded.normalize_(tb))["codes"].numpy(), tcodes)
-
-
 @pytest.fixture
 def deterministic():
     """Bit-identical CPU runs: scatter-adds in a fixed order."""
@@ -506,218 +354,7 @@ def deterministic():
     torch.use_deterministic_algorithms(False)
 
 
-def test_resume_is_exact(tmp_path, deterministic):
-    """train 4 == train 2 + resume 2, bit for bit: parameters, moments and step."""
-    kw = dict(batch_size=None, learning_rate=1e-3, log_every=1, log=lambda _: None)
-
-    def fresh():
-        model, proc = _port_setup(seed=3)
-        model.patchnorm = TorchPatchNorm.create(3, 8, 8, model.config.patch_dim)
-        return model, proc
-
-    pulls = list(_stream(_port_setup()[1], 4, seed=4))
-    m4, p4 = fresh()
-    m4, s4 = tloop.train(m4, p4, iter(pulls), max_iters=4, **kw)
-
-    m2, p2 = fresh()
-    # max_iters counts total steps: the schedule must be the 4-step one in both legs
-    tx = tloop.make_optimizer(1e-3, 4)
-    state = tloop.TrainState.create(m2.module, tx)
-    step = tloop.make_train_step(m2.module, tx)
-    for pull in pulls[:2]:
-        batch = next(p2.iter_batches(iter([pull]), batch_size=None))
-        state, _ = step(state, m2.patchnorm, tloop.prepare_train_batch(batch)[0])
-    tckpt.save_train_state(str(tmp_path), state, m2.patchnorm)
-    assert tckpt.has_train_state(str(tmp_path)) and not tckpt.has_train_state(str(tmp_path / "nowhere"))
-
-    m3, p3 = _port_setup(seed=7)  # other weights: the checkpoint must replace them
-    logs = []
-    m3, s3 = tloop.train(m3, p3, iter(pulls[2:]), max_iters=4, resume_path=str(tmp_path), **{**kw, "log": logs.append})
-    assert logs[0] == {"resumed_from": str(tmp_path), "step": 2}
-    assert s3.step == s4.step == 4
-    for (k, a), b in zip(m4.module.state_dict().items(), m3.module.state_dict().values()):
-        assert torch.equal(a, b), k
-    sa, sb = s4.adamw.state_dict()["state"], s3.adamw.state_dict()["state"]
-    for i in sa:
-        assert torch.equal(sa[i]["exp_avg"], sb[i]["exp_avg"]) and torch.equal(sa[i]["exp_avg_sq"], sb[i]["exp_avg_sq"])
-
-
-@pytest.mark.parametrize("policy", ["abort", "restore"])
-def test_nan_policy(policy, tmp_path):
-    """A poisoned batch: 'abort' stops there; 'restore' rolls back to the last save and goes on."""
-    model, proc = _port_setup()
-    logs = []
-    _, state = tloop.train(
-        model, proc, _stream(proc, 6, poison_at=3), batch_size=None, max_iters=6, log_every=1, save_every=2,
-        nan_policy=policy, out_dir=str(tmp_path), log=logs.append,
-    )
-    errors = [m for m in logs if "error" in m]
-    warnings = [m for m in logs if "warning" in m]
-    if policy == "abort":
-        assert errors == [{"step": 3, "error": "NAN LOSS: aborting"}] and state.step == 4
-    else:
-        assert not errors and len(warnings) == 1 and "restored last checkpoint (step 3)" in warnings[0]["warning"]
-        assert state.step == 5 and all(torch.isfinite(p).all() for p in model.module.parameters())
-
-
-def test_restore_without_a_checkpoint_aborts():
-    model, proc = _port_setup()
-    logs = []
-    tloop.train(model, proc, _stream(proc, 3, poison_at=0), batch_size=None, max_iters=3, log_every=1,
-                nan_policy="restore", log=logs.append)
-    assert len(logs) == 1 and "needs a checkpoint" in logs[0]["error"]
-
-
-def test_zero_batches_is_reported():
-    model, proc = _port_setup()
-    logs = []
-    tloop.train(model, proc, iter([]), log=logs.append)
-    assert len(logs) == 1 and "ZERO batches" in logs[0]["error"]
-
-
-def _write_cfg(tmp_path, cfg) -> str:
-    path = str(tmp_path / "cfg.json")
-    cfg.to_json_file(path)
-    return path
-
-
-def _cli(tmp_path, **flags):
-    from dct_autoencoder_torch.train import cli
-
-    return cli.main(
-        preprocessed_dataset_path_or_url=str(tmp_path / "none"), model_config_path=_write_cfg(tmp_path, tiny_config()),
-        should_save=False, device="cpu", **flags,
-    )
-
-
-# what is still not ported: refused by name, in train() and in the CLI
-REFUSED = {
-    "n_model_parallel": lambda m, p, t: tloop.train(m, p, iter([]), n_model_parallel=2),
-    "pipeline_microbatches": lambda m, p, t: tloop.train(m, p, iter([]), pipeline_microbatches=2),
-    "zero1": lambda m, p, t: tloop.train(m, p, iter([]), zero1=True),
-    "cli_n_model_parallel": lambda m, p, t: _cli(t, n_model_parallel=2),
-    "cli_pipeline_microbatches": lambda m, p, t: _cli(t, pipeline_microbatches=2),
-    "cli_sequence_parallel": lambda m, p, t: _cli(t, sequence_parallel=True),
-    "cli_zero1": lambda m, p, t: _cli(t, zero1=True),
-}
-
-
-@pytest.mark.parametrize("what", list(REFUSED))
-def test_train_refuses_what_is_not_ported(what, tmp_path):
-    model, proc = _port_setup()
-    name = what.removeprefix("cli_")
-    with pytest.raises(NotImplementedError, match=name):
-        REFUSED[what](model, proc, tmp_path)
-
-
 # ---------------------------------------------------------------- the loop's host machinery
-
-
-def test_train_loop_with_pixel_loss_and_8bit_moments():
-    model, proc = _port_setup()
-    logs = []
-    _, state = tloop.train(
-        model, proc, _stream(proc, 3, seed=11, n_images=3), batch_size=None, max_iters=3, learning_rate=1e-4,
-        use_pixel_loss=True, pixel_loss_max_images=8, opt_8bit=True, log_every=1, save_every=0, log=logs.append,
-    )
-    from dct_autoencoder_torch.train.opt8bit import AdamW8bit
-
-    assert isinstance(state.adamw, AdamW8bit) and state.adamw.param_groups[0]["count"] == 3
-    px = [d["pixel_loss"] for d in logs if "pixel_loss" in d]
-    assert len(px) == 3 and all(np.isfinite(px)), logs
-
-
-def test_train_loop_with_prefetch_equals_without(tmp_path):
-    """Batches made on the prefetch thread train exactly as batches made inline."""
-    runs = {}
-    for n in (0, 2):
-        model, proc = _port_setup(seed=5)
-        logs = []
-        tloop.train(model, proc, iter(list(_stream(_port_setup()[1], 3, seed=21, n_images=3))), batch_size=None,
-                    max_iters=3, learning_rate=1e-4, prefetch_batches=n, log_every=1, save_every=0, log=logs.append)
-        runs[n] = [d["loss"] for d in logs]
-        assert not any(t.name == "batch-prefetch" and t.is_alive() for t in threading.enumerate())
-    assert len(runs[2]) == 3 and runs[2] == runs[0]
-
-
-def test_prefetch_worker_error_reaches_the_loop():
-    model, proc = _port_setup()
-
-    def broken():
-        yield from _stream(proc, 1)
-        raise OSError("shard vanished")
-
-    with pytest.raises(OSError, match="vanished"):
-        tloop.train(model, proc, broken(), batch_size=None, max_iters=5, prefetch_batches=2, log=lambda _: None)
-    assert not any(t.name == "batch-prefetch" and t.is_alive() for t in threading.enumerate())
-
-
-def _jax_grid_pixel_mse(jm, jproc, batch) -> float:
-    """The JAX loop's image-grid metric (its train/loop.py, log_images_every) on a JAX model."""
-    out = jm.forward(jm.normalize_(batch), training=False)
-    rec = jm.inv_normalize_(out["dct_patches"]).replace(patch_sizes=batch.patch_sizes, original_sizes=batch.original_sizes)
-    recs, origs = jproc.postprocess(rec), jproc.postprocess(batch)
-    return float(np.mean([np.mean((np.clip(r, 0, 1) - o) ** 2) for r, o in zip(recs, origs)]))
-
-
-def test_image_grid_logging_matches_jax(tmp_path):
-    """train(log_images_every=1) writes a grid a step; the logged RGB pixel
-    MSE of a batch equals the JAX loop's on the same weights (rtol 1e-3:
-    fp32 IDCTs and forwards summed in other orders)."""
-    from dct_autoencoder_torch.train.loop import _log_image_grid
-
-    jm, batch = make_case("tiny_block")
-    tm = port_of(jm)
-    jproc = jax_model_and_processor(tiny_config(), sample_patches_beta=0.0)[1]
-    tproc = torch_model_and_processor(TorchConfig.from_dict(tiny_config().to_dict()), sample_patches_beta=0.0,
-                                      device="cpu")[1]
-    logs = []
-    _log_image_grid(tm, tproc, to_torch_batch(batch), 7, 2, str(tmp_path), logs.append)
-    assert logs[0]["step"] == 7 and os.path.exists(tmp_path / "train_image_000007.png")
-    np.testing.assert_allclose(logs[0]["pixel_loss"], _jax_grid_pixel_mse(jm, jproc, batch), rtol=1e-3)
-
-    model, proc = _port_setup()
-    out_dir = tmp_path / "run"
-    logs = []
-    tloop.train(model, proc, _stream(proc, 2, seed=9, n_images=3), batch_size=None, max_iters=2,
-                log_images_every=1, n_log_images=2, save_every=0, out_dir=str(out_dir), log=logs.append)
-    assert sorted(f for f in os.listdir(out_dir) if f.startswith("train_image_")) == [
-        "train_image_000000.png", "train_image_000001.png"]
-    assert all(np.isfinite(d["pixel_loss"]) for d in logs if "pixel_loss" in d)
-
-
-def test_rss_watchdog_checkpoints_and_raises(tmp_path):
-    """rss_limit_gb below any process's RSS: a resumable checkpoint after at
-    least one step, then RssLimitExceeded; off by default (0)."""
-    model, proc = _port_setup()
-    logs = []
-    with pytest.raises(tloop.RssLimitExceeded) as e:
-        tloop.train(model, proc, _stream(proc, 5, n_images=3), batch_size=None, max_iters=5, rss_limit_gb=0.001,
-                    log_every=1, save_every=0, out_dir=str(tmp_path), log=logs.append)
-    assert e.value.step >= 1 and e.value.out_dir == str(tmp_path)
-    assert tckpt.has_train_state(str(tmp_path))
-    assert any("checkpointed" in str(d.get("warning", "")) for d in logs)
-    assert not any(t.name == "batch-prefetch" and t.is_alive() for t in threading.enumerate())
-    assert tloop._rss_gb() > 0 and tloop._auto_rss_limit_gb() > 0
-    import inspect
-
-    assert inspect.signature(tloop.train).parameters["rss_limit_gb"].default == 0.0
-
-
-def test_stall_watchdog_fires_on_wedged_step():
-    """No step completes within stall_timeout_s after the first: on_stall
-    fires from the watchdog thread."""
-    model, proc = _port_setup()
-    fired = threading.Event()
-
-    def batches():
-        yield from _stream(proc, 2, n_images=3)
-        while not fired.wait(0.1):  # the stream blocks: no step completes
-            pass
-
-    tloop.train(model, proc, batches(), batch_size=2, max_iters=10, prefetch_batches=0, stall_timeout_s=1.0,
-                on_stall=fired.set, log=lambda _: None)
-    assert fired.is_set(), "stall watchdog never fired"
 
 
 # ---------------------------------------------------------------- the reverse parameter map
@@ -773,15 +410,3 @@ def test_attention_dropout_is_refused_by_name(where):
             model.module(model.normalize_(batch), training=True, generator=torch.Generator().manual_seed(0))
 
 
-def test_attention_dropout_zero_trains_and_serves_as_before():
-    """With attention_dropout 0 the same config trains (MLP dropout from the
-    generator) and serving ignores dropout, as in JAX."""
-    model, proc = torch_model_and_processor(_dropout_config(0.0), sample_patches_beta=0.0, device="cpu")
-    proc.rng = random.Random(0)
-    logs = []
-    model, state = tloop.train(model, proc, _stream(proc, 3), batch_size=None, max_iters=3, log_every=1, log=logs.append)
-    assert state.step == 3 and all(np.isfinite(m["loss"]) for m in logs)
-    served = _dropout_config(0.3)  # serving (training=False) never reads the rate
-    model, proc = torch_model_and_processor(served, sample_patches_beta=0.0, device="cpu")
-    batch = model.normalize_(next(proc.iter_batches(_stream(proc, 1), batch_size=None)))
-    assert torch.equal(model.forward(batch)["codes"], model.forward(batch)["codes"])
