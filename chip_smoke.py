@@ -78,7 +78,16 @@ also against a float64 plain version), and then drives the paths themselves:
     largest loss and parameter differences are printed and must be 0);
     DCTPipeline(data_parallel=True) on r3b against data_parallel=False; the
     two-process check (parallel/multiproc_check.py) over NCCL where there
-    are two cards, else a line that says why it did not run.
+    are two cards, else a line that says why it did not run;
+  * pipeline parallelism at world 1: 8 patch14-L train steps as a pipeline
+    of one stage with 4 microbatches (ZeRO-1, 8-bit moments) beside 8
+    unsharded steps (the largest loss and parameter differences within
+    stated limits, ms a step, peak GB, device time), 1F1B against GPipe on
+    one patch14-L stack, tools/pp_memory_study.py and tools/compile_probe.py;
+    the two-process check as a two-stage pipeline where there are two cards;
+  * on four cards only: the sharded and pipelined steps of several layouts
+    against one card, patch14-L's pipelines timed, and the training CLI
+    under torch.distributed.run, tensor-parallel and pipelined.
 The kernels' phase also runs the fp32 attention backward 20 times in each
 mask mode after filling the allocator's free memory with NaN, and requires
 the same bits every time.
@@ -101,10 +110,13 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+
+from dct_autoencoder_torch.patches.synthetic import packed_batch, token_items
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 R3B = os.path.join(HERE, "docs", "calibrated_run_r3b", "model")
@@ -957,34 +969,6 @@ def phase_serving():
 
 
 # ---------------------------------------------------------------- phase 4
-
-
-def token_items(cfg, max_seq_len, rows, beta, rng, nprng):
-    """Random tokens of images with TruncExp(beta) token counts, a little more than `rows` rows' worth."""
-    items, total = [], 0
-    while total < rows * max_seq_len * 1.05:
-        k = min(max(1, round(-1.0 / beta * math.log(rng.random()))), max_seq_len)
-        items.append((
-            nprng.standard_normal((k, cfg.patch_dim)).astype(np.float32),
-            nprng.integers(0, 32, size=(k, 2)).astype(np.int32),
-            nprng.integers(0, 3, size=(k,)).astype(np.int32),
-        ))
-        total += k
-    return items
-
-
-def packed_batch(cfg, max_seq_len=256, rows=64, beta=0.02, seed=0, device="cuda"):
-    """TruncExp(beta) token counts packed into `rows` rows by the port's packer."""
-    from dct_autoencoder_torch.patches.packing import batch_groups, group_patches_by_max_seq_len
-
-    items = token_items(cfg, max_seq_len, rows, beta, random.Random(seed), np.random.default_rng(seed))
-    groups = group_patches_by_max_seq_len(items, max_seq_len).groups[:rows]
-    n_images = sum(len(g) for g in groups)
-    batch = batch_groups(
-        groups, max_seq_len, patch_sizes=((32, 32),) * n_images, original_sizes=((448, 448),) * n_images,
-        device=device,
-    )
-    return batch, n_images
 
 
 def device_rows(prof) -> list:
@@ -2834,35 +2818,46 @@ def phase_native_packing(n_images=1000, beta=0.02, max_seq_len=256, reps=5):
 MAX_SHARDED_VS_UNSHARDED_DIFF = 0.0
 
 
-def _train_steps(cfg, batches, sharded: bool, learning_rate=1e-4):
+def _train_steps(cfg, batches, sharded: bool, learning_rate=1e-4, pipeline=0, opt_8bit=False, profile=False):
     """Steps of make_train_step from the seeded patch14-L init: unsharded, or
     sharded on a (1, 1) mesh with ZeRO-1 and the config's sequence
-    parallelism.  Returns (losses, ms a step, peak GB, parameters on the host)."""
+    parallelism, or (pipeline = M) as a pipeline of one stage with M
+    microbatches and ZeRO-1.  Returns (losses, ms a step, peak GB,
+    parameters on the host, grad norms, and with profile=True the device
+    time of two more steps on the first batch, after the parameters were read)."""
     import dct_autoencoder_torch as dt
     from dct_autoencoder_torch import train as T
     from dct_autoencoder_torch.parallel import mesh as pm
+    from dct_autoencoder_torch.parallel.pipeline import make_pipelined_module
 
     model, _ = dt.get_model_and_processor(cfg, dtype=torch.bfloat16, sample_patches_beta=0.02, seed=0)
     mesh = None
     if sharded:
         mesh = pm.make_mesh(1, model.device)
-        pm.shard_params(model.module, mesh)
-    tx = T.make_optimizer(learning_rate, 10000)
+        if pipeline:
+            make_pipelined_module(model.module, mesh, pipeline)
+        else:
+            pm.shard_params(model.module, mesh)
+    tx = T.make_optimizer(learning_rate, 10000, opt_8bit=opt_8bit)
     state = T.TrainState.create(model.module, tx, mesh=mesh, zero1=sharded)
     step = T.make_train_step(model.module, tx, mesh=mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, ms = [], []
+    losses, ms, norms = [], [], []
     for batch in batches:
         t0 = time.perf_counter()
         state, metrics = step(state, model.patchnorm, batch)
         losses.append(float(metrics["loss"]))  # reading it synchronises
         ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
     peak = torch.cuda.max_memory_allocated() / 1e9
     params = {k: v.detach().to("cpu", copy=True) for k, v in model.module.state_dict().items()}
+    prof = None
+    if profile:
+        prof = profile_device(lambda: step(state, model.patchnorm, batches[0]), reps=2, top=8)
     del model, state, step
     torch.cuda.empty_cache()
-    return losses, ms, peak, params
+    return losses, ms, peak, params, norms, prof
 
 
 def _largest_diff(a: dict, b: dict) -> float:
@@ -2973,6 +2968,316 @@ def phase_parallel_patch14l(steps=8, rows=64, n_images=16, size=448):
     return launches
 
 
+# ---------------------------------------------------------------- pipelines
+
+# The pipelined step at one stage (M = 4 microbatches of 16 rows) against the
+# unsharded step, both with 8-bit moments, from one init and the same batches.
+# The layers run on row subsets: with deterministic kernels (no atomics in the
+# attention kernels; cuBLAS's algorithm per shape) a token's forward is the
+# same, but each weight gradient is now 4 bf16-rounded partial products summed
+# in fp32 instead of one.
+# Steps 0 and 1 run from the same parameters in both runs (the schedule's
+# rate is 0 at step 0), so each is one function of one input: the loss read
+# the same bits and the grad norm 3.3e-6 apart (an H100 80GB at 700 W).  The
+# limits: 1e-5 of the loss, 1e-4 of the grad norm.  Clipping at 5.0 hides a
+# gradient's scale from the parameters (every step's norm is ~5.4), so these
+# are the readings that fail a gradient fault.  With faults planted on the
+# card (_planted_faults), a microbatch counted M times read 1.43 (grad
+# norm), microbatch 0 left out 0.043, each microbatch run with the next
+# one's ids and padding 6.4e-4 (loss) and 0.017.
+SHARED_STEPS = 2
+MAX_PIPELINE_SHARED_LOSS_REL = 1e-5
+MAX_PIPELINE_GRAD_NORM_REL = 1e-4
+# After 8 steps the 8-bit Adam updates have spread that rounding: the loss
+# within 1e-3 of the loss (read 6.8e-4), and the parameters' updates,
+# |params_pipelined - params_unsharded| / |params_unsharded - init| (L2 over
+# every entry), within 0.6.  The clean run reads 0.366 and a gradient fault
+# 0.37-0.56: no parameter reading tells those apart, the shared steps do.
+# This limit fails the optimizer's faults: ZeRO-1's updated slices not
+# written back read 1.00, each update applied twice 1.13 (the largest
+# entry's difference, 2.1e-5 and 3.8e-5 against the clean 2.3e-5, cannot
+# tell them); 0.6 is the geometric mean of 1.00 and the clean reading.
+MAX_PIPELINE_LOSS_REL = 1e-3
+MAX_PIPELINE_UPDATE_REL = 0.6
+# 1F1B against GPipe + autograd on the same stack and microbatches: the same
+# bf16 products (deterministic kernels, recomputed at the same shapes), so only
+# the fp32 order of the 4 microbatches' sums differs: within 1e-5 of the
+# largest magnitude (loss: rtol 1e-5)
+MAX_1F1B_VS_GPIPE_REL = 1e-5
+# the memory study: 1F1B's temporary memory flat in M within 10 %, GPipe's growing
+MAX_1F1B_TEMP_SPREAD = 0.10
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _init_params(cfg) -> dict:
+    """The seeded patch14-L init of _train_steps, on the host."""
+    import dct_autoencoder_torch as dt
+
+    model, _ = dt.get_model_and_processor(cfg, dtype=torch.bfloat16, sample_patches_beta=0.02, seed=0)
+    out = {k: v.detach().to("cpu", copy=True) for k, v in model.module.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_rel(params: dict, ref: dict, init: dict) -> float:
+    """|params - ref| / |ref - init| over every floating entry (L2 norms):
+    how far two runs' updates from one init point apart."""
+    num = den = 0.0
+    for k, v in ref.items():
+        if v.is_floating_point():
+            num += float(((params[k].double() - v.double()) ** 2).sum())
+            den += float(((v.double() - init[k].double()) ** 2).sum())
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
+
+
+def _planted_faults(cfg, batches, plain, init, microbatches):
+    """The pipelined step with one fault planted at a time (a method of
+    _GPipe or ShardedOptimizer replaced for the run, then restored), read
+    as the phase reads the clean run.  name -> readings."""
+    from dct_autoencoder_torch.parallel.optim import ShardedOptimizer
+    from dct_autoencoder_torch.parallel.pipeline import _GPipe
+
+    backward, init_run, opt_step = _GPipe.backward, _GPipe.__init__, ShardedOptimizer.step
+
+    def counted_m_times(self, g, params, need_dx):
+        return backward(self, g * self.spec.n_microbatches, params, need_dx)
+
+    def microbatch_left_out(self, g, params, need_dx):
+        g = g.clone()
+        g[: self.micro] = 0
+        return backward(self, g, params, need_dx)
+
+    def skewed_metadata(self, *args, **kwargs):  # each microbatch runs with the next one's ids and padding
+        init_run(self, *args, **kwargs)
+        self.ids, self.pad = self.ids[1:] + self.ids[:1], self.pad[1:] + self.pad[:1]
+
+    def update_twice(self, tx, count, lr_scale=1.0):
+        inner = self.inner.step
+        self.inner.step = lambda: (inner(), inner())
+        try:
+            return opt_step(self, tx, count, lr_scale)
+        finally:
+            del self.inner.step
+
+    def stale_zero1_slices(self, tx, count, lr_scale=1.0):  # the updated slices never written back
+        sliced = [i for i, c in enumerate(self.chunks) if c is not None]
+        before = [self.params[i].detach().clone() for i in sliced]
+        out = opt_step(self, tx, count, lr_scale)
+        with torch.no_grad():
+            for i, b in zip(sliced, before):
+                self.params[i].copy_(b)
+        return out
+
+    faults = [
+        ("counted_m_times", _GPipe, "backward", backward, counted_m_times),
+        ("microbatch_left_out", _GPipe, "backward", backward, microbatch_left_out),
+        ("skewed_metadata", _GPipe, "__init__", init_run, skewed_metadata),
+        ("update_twice", ShardedOptimizer, "step", opt_step, update_twice),
+        ("stale_zero1_slices", ShardedOptimizer, "step", opt_step, stale_zero1_slices),
+    ]
+    out = {}
+    for name, cls, attr, orig, fault in faults:
+        setattr(cls, attr, fault)
+        try:
+            run = _train_steps(cfg, batches, sharded=True, pipeline=microbatches, opt_8bit=True)
+        finally:
+            setattr(cls, attr, orig)
+        out[name] = {
+            "shared_loss_rel": max(_rel(run[0][i], plain[0][i]) for i in range(SHARED_STEPS)),
+            "shared_grad_norm_rel": max(_rel(run[4][i], plain[4][i]) for i in range(SHARED_STEPS)),
+            "max_loss_rel": max(_rel(a, b) for a, b in zip(run[0], plain[0])),
+            "update_rel": _update_rel(run[3], plain[3], init), "max_param_diff": _largest_diff(run[3], plain[3]),
+        }
+    return out
+
+
+def _f1b_vs_gpipe(cfg, rows=64, microbatches=4):
+    """pipeline_1f1b_loss_and_grad against pipeline_stack_apply + autograd on
+    patch14-L's encoder stack (bf16, one stage, the packed batch's ids and
+    padding): (loss, parameter gradients, dx) relative differences."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch.parallel import mesh as pm
+    from dct_autoencoder_torch.parallel.pipeline import PipelineSpec, pipeline_stack_apply
+    from dct_autoencoder_torch.parallel.pipeline_1f1b import pipeline_1f1b_loss_and_grad
+
+    model, _ = dt.get_model_and_processor(cfg, dtype=torch.bfloat16, sample_patches_beta=0.02, seed=0)
+    layers = list(model.module.encoder.layers)
+    batch, _ = packed_batch(cfg, 256, rows, 0.02, seed=300)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((rows, 256, cfg.encoder_config.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+    ids, pad = batch.batched_image_ids, batch.key_pad_mask
+    spec = PipelineSpec(pm.make_mesh(1, "cuda"), microbatches)
+    mode = cfg.attn_mask_mode
+
+    def layer_apply(layer, xm, i, p):
+        return layer(xm, i, p, mode, True)
+
+    def loss_fn(y, i, p):
+        keep = (~p)[..., None].float()
+        return (y.float() ** 2 * keep).sum() / (keep.sum() * y.shape[-1])
+
+    params = [p for layer in layers for p in layer.parameters()]
+    xg = x.clone().requires_grad_()
+    y = pipeline_stack_apply(layer_apply, layers, xg, ids, pad, spec)
+    k = rows // microbatches
+    loss = torch.stack([loss_fn(y[m * k:(m + 1) * k], ids[m * k:(m + 1) * k], pad[m * k:(m + 1) * k])
+                        for m in range(microbatches)]).mean()
+    *g_gpipe, dx_gpipe = torch.autograd.grad(loss, params + [xg])
+    loss_f, grads_f, dx_f = pipeline_1f1b_loss_and_grad(layer_apply, loss_fn, layers, x, ids, pad, spec)
+    g_f = [g for layer in grads_f for g in layer]
+    grad_scale = max(float(g.abs().max()) for g in g_gpipe)
+    out = {
+        "loss_rel": _rel(float(loss_f), float(loss.detach())),
+        "grad_rel": max(float((a.float() - b.float()).abs().max()) for a, b in zip(g_f, g_gpipe)) / grad_scale,
+        "dx_rel": float((dx_f.float() - dx_gpipe.float()).abs().max()) / float(dx_gpipe.float().abs().max()),
+        "loss": float(loss.detach()), "layers": len(layers), "rows": rows, "microbatches": microbatches,
+    }
+    del model, layers, params, y, g_gpipe, dx_gpipe, grads_f, dx_f
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline_patch14l(steps=8, rows=64, microbatches=4):
+    """Pipeline parallelism on the card, at world 1 over NCCL: the pipelined
+    train step (one stage, `microbatches` microbatches, ZeRO-1, 8-bit
+    moments) beside the unsharded step at patch14-L, 64 x 256, bf16, beta
+    0.02 (the same init and batches; a second unsharded run tells the
+    step's own noise; five planted faults, each of which the comparison must
+    fail), then 1F1B against GPipe + autograd on one patch14-L
+    stack, tools/pp_memory_study.py at M in {2, 4, 8, 16} and
+    tools/compile_probe.py at patch14-L (16 rows, bf16).  Where there are two
+    cards, the two-process check as a two-stage pipeline (r3b, fp32).
+    Returns the launch counts of the pipelined run alone (its timed and
+    profiled steps) and of the compile probe alone."""
+    import torch.distributed as dist
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+    from dct_autoencoder_torch.parallel import mesh as pm
+    from dct_autoencoder_torch.tools import compile_probe, pp_memory_study
+
+    check(not dist.is_initialized(), "a process group exists before the pipeline phase")
+    pm.initialize_distributed("cuda", f"tcp://127.0.0.1:{pm.free_port()}", world_size=1, rank=0)
+    try:
+        cfg = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+        n_layers = cfg.encoder_config.num_hidden_layers + cfg.decoder_config.num_hidden_layers
+        packed = [packed_batch(cfg, 256, rows, 0.02, seed=200 + i) for i in range(steps)]
+        batches = [T.prepare_train_batch(b)[0] for b, _ in packed]
+        tx = T.make_optimizer(1e-4, 10000)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        plain = _train_steps(cfg, batches, sharded=False, opt_8bit=True, profile=True)
+        torch.cuda.synchronize()
+        plain_launches = path_launches()
+        K.reset_launch_counts()
+        piped = _train_steps(cfg, batches, sharded=True, pipeline=microbatches, opt_8bit=True, profile=True)
+        torch.cuda.synchronize()
+        step_launches = path_launches()
+        for name in ("attention", "attention_dq", "attention_dkv"):  # 2 profiled steps beside the timed ones
+            check(plain_launches[name] == (steps + 2) * n_layers,
+                  f"{plain_launches[name]} {name} launches unsharded for {steps} + 2 steps x {n_layers} layers")
+            check(step_launches[name] == (steps + 2) * n_layers * microbatches,
+                  f"{step_launches[name]} {name} launches pipelined for {steps} + 2 steps x {n_layers} layers x "
+                  f"{microbatches} microbatches")
+        again = _train_steps(cfg, batches, sharded=False, opt_8bit=True)
+        init = _init_params(cfg)
+        rerun = {"loss_rel": max(_rel(a, b) for a, b in zip(again[0], plain[0])),
+                 "param_diff": _largest_diff(again[3], plain[3]), "update_rel": _update_rel(again[3], plain[3], init)}
+        loss_rel = max(_rel(a, b) for a, b in zip(piped[0], plain[0]))
+        param_diff = _largest_diff(piped[3], plain[3])
+        update_rel = _update_rel(piped[3], plain[3], init)
+        faults = _planted_faults(cfg, batches, plain, init, microbatches)
+        del init
+        check(tx.schedule(0) == 0.0, "the shared steps need the rate 0 at step 0")
+        shared_loss_rel = max(_rel(piped[0][i], plain[0][i]) for i in range(SHARED_STEPS))
+        shared_norm_rel = max(_rel(piped[4][i], plain[4][i]) for i in range(SHARED_STEPS))
+        check(all(math.isfinite(x) for x in plain[0] + piped[0]), f"losses {plain[0]} {piped[0]}")
+        ms_plain, ms_piped = statistics.median(plain[1][1:]), statistics.median(piped[1][1:])
+        f1b = _f1b_vs_gpipe(cfg, rows, microbatches)
+        emit({
+            "phase": "pipeline_patch14l", "stages": 1, "microbatches": microbatches, "backend": "nccl",
+            "zero1": True, "opt_8bit": True, "dtype": "bfloat16 compute, float32 masters", "rows": rows,
+            "seq_len": 256, "steps": steps, "losses_unsharded": plain[0], "losses_pipelined": piped[0],
+            "grad_norms_unsharded": plain[4], "grad_norms_pipelined": piped[4],
+            "max_loss_rel": loss_rel, "loss_rel_limit": MAX_PIPELINE_LOSS_REL,
+            "shared_steps": SHARED_STEPS, "shared_loss_rel": shared_loss_rel,
+            "shared_loss_rel_limit": MAX_PIPELINE_SHARED_LOSS_REL, "shared_grad_norm_rel": shared_norm_rel,
+            "shared_grad_norm_rel_limit": MAX_PIPELINE_GRAD_NORM_REL,
+            "max_param_diff": param_diff, "update_rel": update_rel, "update_rel_limit": MAX_PIPELINE_UPDATE_REL,
+            "unsharded_rerun": rerun,
+            "ms_per_step_unsharded": ms_plain, "ms_per_step_pipelined": ms_piped,
+            "ms_steps_unsharded": plain[1], "ms_steps_pipelined": piped[1],
+            "peak_gb_unsharded": plain[2], "peak_gb_pipelined": piped[2],
+            "ms_steps_unsharded_rerun": again[1], "profile_unsharded": plain[5], "profile_pipelined": piped[5],
+            "attention_launches_per_step_pipelined": step_launches["attention"] // (steps + 2),
+            "f1b_vs_gpipe": f1b, "f1b_limit": MAX_1F1B_VS_GPIPE_REL, "planted_faults": faults,
+        })
+        check(shared_loss_rel <= MAX_PIPELINE_SHARED_LOSS_REL and shared_norm_rel <= MAX_PIPELINE_GRAD_NORM_REL,
+              f"pipelined vs unsharded from the same parameters (steps 0-{SHARED_STEPS - 1}): loss {shared_loss_rel}, "
+              f"grad norm {shared_norm_rel}")
+        check(loss_rel <= MAX_PIPELINE_LOSS_REL and update_rel <= MAX_PIPELINE_UPDATE_REL,
+              f"pipelined vs unsharded after {steps} steps: loss {loss_rel}, updates {update_rel}, rerun {rerun}")
+        for name, r in faults.items():  # each planted fault fails a comparison
+            failed = (r["shared_loss_rel"] > MAX_PIPELINE_SHARED_LOSS_REL or r["update_rel"] > MAX_PIPELINE_UPDATE_REL
+                      or r["shared_grad_norm_rel"] > MAX_PIPELINE_GRAD_NORM_REL)
+            check(failed, f"the comparison passes the planted fault {name}: {r}")
+        check(f1b["loss_rel"] <= MAX_1F1B_VS_GPIPE_REL and f1b["grad_rel"] <= MAX_1F1B_VS_GPIPE_REL
+              and f1b["dx_rel"] <= MAX_1F1B_VS_GPIPE_REL, f"1F1B against GPipe: {f1b}")
+        del plain, piped, again
+
+        # 32 rows a microbatch: 1F1B's ~28 MB working set dwarfs the allocator's
+        # sub-MB jitter between runs (at the default 8 rows it read 7.0-7.6 MB)
+        study, _ = _quiet(lambda: pp_memory_study.main(["--micro_rows", "32", "--microbatches", "2", "4", "8", "16"]))
+        g = [r["gpipe_temp_mb"] for r in study["rows"]]
+        f = [r["f1b_temp_mb"] for r in study["rows"]]
+        spread = (max(f) - min(f)) / max(min(f), 1e-9)
+        emit({"phase": "pp_memory_study", **study, "f1b_temp_spread": spread, "f1b_spread_limit": MAX_1F1B_TEMP_SPREAD})
+        check(all(a < b for a, b in zip(g, g[1:])), f"GPipe's temporary memory does not grow with M: {g}")
+        check(spread <= MAX_1F1B_TEMP_SPREAD, f"1F1B's temporary memory is not flat in M: {f}")
+
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            probe, _ = _quiet(lambda: compile_probe.main(PATCH14_L, rows=16, seq_len=256, iters=10, dtype="bfloat16",
+                                                         profile_dir=os.path.join(tmp, "trace")))
+            probe["trace_bytes"] = os.path.getsize(probe.pop("trace"))
+        torch.cuda.synchronize()
+        probe_launches = path_launches()
+        emit({"phase": "compile_probe_patch14l", **probe, "attention_launches": probe_launches["attention"]})
+        check(math.isfinite(probe["ms_per_batch"]) and probe["trace_bytes"] > 0, f"compile probe {probe}")
+    finally:
+        dist.destroy_process_group()
+    phase_pipeline_two_cards()
+    return step_launches, probe_launches
+
+
+def phase_pipeline_two_cards():
+    """The two-process check as a two-stage pipeline over NCCL (r3b, fp32,
+    2 microbatches) against one card, where there are two cards."""
+    import dct_autoencoder_torch as dt
+
+    if torch.cuda.device_count() >= 2:
+        from dct_autoencoder_torch.parallel.multiproc_check import run_two_process_check
+
+        r3b = dt.DCTAutoencoderConfig.from_json_file(os.path.join(R3B, "config.json"))
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res = run_two_process_check(tmp, timeout=600, config=r3b, n_images=8, image_size=448,
+                                        pipeline_microbatches=2)
+            emit({"phase": "pipeline_two_process_r3b", "ran": True, "backend": "nccl", "loss": res["loss"],
+                  "grad_norm": res["grad_norm"], "s": time.perf_counter() - t0,
+                  "outputs": [o.strip().splitlines()[-1] for o in res["outputs"]]})
+    else:
+        emit({"phase": "pipeline_two_process_r3b", "ran": False,
+              "why": f"{torch.cuda.device_count()} card: a two-stage pipeline over NCCL takes one rank a card; "
+                     "the CPU tests hold the multi-rank numbers (gloo)"})
+
+
 # ---------------------------------------------------------------- four cards
 
 # (n_model, sequence parallelism, ZeRO-1, 8-bit moments) of the four-card
@@ -2982,17 +3287,24 @@ FOUR_CARD_CASES = ((1, False, False, False), (2, False, False, False), (2, True,
 # fp32 against one card over the steps: tests/test_parallel.py's limits on
 # JAX's sharded step (bf16 is printed, not held: its roundings follow the order)
 MAX_FOUR_CARD_LOSS_REL, MAX_FOUR_CARD_GRAD_NORM_REL = 1e-4, 1e-3
+# (pipeline stages, ZeRO-1, 8-bit moments) of the four-card pipeline check, 2
+# microbatches, fp32 against one card within the limits above: pp4, dp2 x pp2,
+# with ZeRO-1, with ZeRO-1 and 8-bit moments
+PIPELINE_FOUR_CARD_CASES = ((4, False, False), (2, False, False), (2, True, False), (2, True, True))
 
 
 def sharded_steps_rank(steps=3, rows=32, seq=256):
     """One rank of the four-card check, started by phase_parallel_four_cards
     as `torch.distributed.run --nproc_per_node 4 chip_smoke.py
     --sharded-steps-rank`: r3b's widths at random init, `steps` steps of each
-    FOUR_CARD_CASES case in fp32 and bf16 beside the unsharded step on one
+    FOUR_CARD_CASES case in fp32 and bf16, and of each
+    PIPELINE_FOUR_CARD_CASES case in fp32, beside the unsharded step on one
     card, from one init and the same batches; rank 0 prints a JSON line a
     case (the largest relative loss and grad-norm differences, the largest
     parameter difference after the steps, the attention launches, rank 0's
-    optimizer state and peak memory)."""
+    optimizer state and peak memory).  Then patch14-L in bf16 as pp4 and
+    dp2 x pp2 (4 microbatches, 64 x 256, 5 steps): ms a step and each
+    rank's peak GB."""
     import torch.distributed as dist
 
     import dct_autoencoder_torch as dt
@@ -3000,6 +3312,7 @@ def sharded_steps_rank(steps=3, rows=32, seq=256):
     from dct_autoencoder_torch import train as T
     from dct_autoencoder_torch.models.config import with_sequence_parallel
     from dct_autoencoder_torch.parallel import mesh as pm
+    from dct_autoencoder_torch.parallel.pipeline import make_pipelined_module
     from dct_autoencoder_torch.train.opt8bit import opt_state_bytes
 
     pm.initialize_distributed("cuda")
@@ -3010,13 +3323,15 @@ def sharded_steps_rank(steps=3, rows=32, seq=256):
         for i in range(steps)
     ]
 
-    def run(n_model, sp, zero1, opt_8bit, dtype, sharded=True):
-        cfg = with_sequence_parallel(base) if sp else base
+    def run(n_model, sp, zero1, opt_8bit, dtype, sharded=True, pipeline=0, cfg=None, steps_of=None):
+        cfg = cfg or (with_sequence_parallel(base) if sp else base)
         model, _ = dt.get_model_and_processor(cfg, dtype=dtype, sample_patches_beta=0.0, seed=0, device=dev)
         mesh = None
         if sharded:
             mesh = pm.make_mesh(n_model, dev)
-            if n_model > 1 or sp:
+            if pipeline:
+                make_pipelined_module(model.module, mesh, pipeline)
+            elif n_model > 1 or sp:
                 pm.shard_params(model.module, mesh)
         tx = T.make_optimizer(1e-4, 1000, warmup_steps=0, opt_8bit=opt_8bit)
         torch.cuda.synchronize()
@@ -3024,9 +3339,11 @@ def sharded_steps_rank(steps=3, rows=32, seq=256):
         state = T.TrainState.create(model.module, tx, mesh=mesh, zero1=zero1)
         step = T.make_train_step(model.module, tx, mesh=mesh)
         out = []
-        for b in batches:
+        for b in steps_of or batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             state, m = step(state, model.patchnorm, b)
-            out.append((float(m["loss"]), float(m["grad_norm"])))
+            out.append((float(m["loss"]), float(m["grad_norm"]), (time.perf_counter() - t0) * 1e3))
         memory = {"opt_state_mb": opt_state_bytes(state.adamw.inner if sharded else state.adamw) / 1e6,
                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         full = pm.gather_params(model.module, mesh) if sharded else model.module.state_dict()
@@ -3034,14 +3351,18 @@ def sharded_steps_rank(steps=3, rows=32, seq=256):
 
     for dtype in (torch.float32, torch.bfloat16):
         refs = {b8: run(1, False, False, b8, dtype, sharded=False) for b8 in (False, True)}
-        for n_model, sp, zero1, opt_8bit in FOUR_CARD_CASES:
+        cases = [(n, sp, z, b8, 0) for n, sp, z, b8 in FOUR_CARD_CASES]
+        if dtype == torch.float32:
+            cases += [(n, False, z, b8, 2) for n, z, b8 in PIPELINE_FOUR_CARD_CASES]
+        for n_model, sp, zero1, opt_8bit, pipeline in cases:
             K.reset_launch_counts()
             t0 = time.perf_counter()
-            got, got_p, memory = run(n_model, sp, zero1, opt_8bit, dtype)
+            got, got_p, memory = run(n_model, sp, zero1, opt_8bit, dtype, pipeline=pipeline)
             ref, ref_p, ref_memory = refs[opt_8bit]
             line = {
                 "phase": "parallel_four_cards_case", "dtype": str(dtype), "n_model": n_model, "sp": sp,
-                "zero1": zero1, "opt_8bit": opt_8bit, "steps": steps, "rows": rows, "seq_len": seq,
+                "zero1": zero1, "opt_8bit": opt_8bit, "pipeline_microbatches": pipeline, "steps": steps, "rows": rows,
+                "seq_len": seq,
                 "loss_rel": max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, ref)),
                 "grad_norm_rel": max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, ref)),
                 "param_max_diff": _largest_diff(got_p, ref_p), "attention_launches": K.launch_counts()["attention"],
@@ -3049,6 +3370,21 @@ def sharded_steps_rank(steps=3, rows=32, seq=256):
             }
             if dist.get_rank() == 0:
                 emit(line)
+
+    # patch14-L in bf16 as pp4 and dp2 x pp2 (4 microbatches, 64 x 256): ms a step, peak GB a rank
+    big = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    big_batches = [T.prepare_train_batch(packed_batch(big, 256, 64, 0.02, seed=400 + i, device=dev)[0])[0]
+                   for i in range(5)]
+    for n_stages in (4, 2):
+        got, _, memory = run(n_stages, False, False, False, torch.bfloat16, pipeline=4, cfg=big, steps_of=big_batches)
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, memory["peak_gb"])
+        if dist.get_rank() == 0:
+            emit({"phase": "parallel_four_cards_pipeline_patch14l", "mesh": [4 // n_stages, n_stages],
+                  "microbatches": 4, "rows": 64, "seq_len": 256, "dtype": "bfloat16 compute, float32 masters",
+                  "losses": [g[0] for g in got], "ms_steps": [g[2] for g in got],
+                  "ms_per_step": statistics.median([g[2] for g in got[1:]]), "peak_gb_by_rank": peaks,
+                  "opt_state_mb_rank0": memory["opt_state_mb"]})
     dist.destroy_process_group()
     return 0
 
@@ -3072,11 +3408,13 @@ def _free_port() -> int:
 
 def phase_parallel_four_cards(n_images=96, size=448, cli_steps=4):
     """The multi-rank paths over NCCL where there are four cards: the sharded
-    steps of FOUR_CARD_CASES on four ranks against one card (held in fp32 to
-    JAX's limits for its sharded step), then the training CLI under
-    torch.distributed.run with dp2 x tp2, sequence parallelism, ZeRO-1 and
-    8-bit moments at r3b's widths, whose checkpoint must load on one card
-    with the whole parameters.  On fewer cards it says that it did not run."""
+    steps of FOUR_CARD_CASES and the pipelines of PIPELINE_FOUR_CARD_CASES
+    on four ranks against one card (held in fp32 to JAX's limits for its
+    sharded step) and patch14-L's pipelined steps, then the training CLI
+    under torch.distributed.run with dp2 x tp2, sequence parallelism, ZeRO-1
+    and 8-bit moments at r3b's widths, and again as dp2 x pp2 with 2
+    pipeline microbatches, each checkpoint loading on one card with the
+    whole parameters.  On fewer cards it says that it did not run."""
     n = torch.cuda.device_count()
     if n < 4:
         emit({"phase": "parallel_four_cards", "ran": False,
@@ -3095,7 +3433,11 @@ def phase_parallel_four_cards(n_images=96, size=448, cli_steps=4):
     cases = [json.loads(l) for l in out.splitlines() if l.startswith("{") and "parallel_four_cards_case" in l]
     for c in cases:
         print(json.dumps(c), flush=True)
-    check(len(cases) == 2 * len(FOUR_CARD_CASES), f"{len(cases)} case lines from the four ranks")
+    check(len(cases) == 2 * len(FOUR_CARD_CASES) + len(PIPELINE_FOUR_CARD_CASES), f"{len(cases)} case lines from the four ranks")
+    big = [json.loads(l) for l in out.splitlines() if l.startswith("{") and "four_cards_pipeline_patch14l" in l]
+    for b in big:
+        print(json.dumps(b), flush=True)
+    check(len(big) == 2 and all(math.isfinite(x) for b in big for x in b["losses"]), f"patch14-L pipelines {big}")
     fp32 = [c for c in cases if c["dtype"] == "torch.float32"]
     check(all(c["attention_launches"] > 0 for c in cases), "a four-card case launched no attention kernel")
     steps_s = time.perf_counter() - t0
@@ -3127,6 +3469,27 @@ def phase_parallel_four_cards(n_images=96, size=448, cli_steps=4):
         })
         check(logged and all(math.isfinite(d["loss"]) for d in logged), f"CLI losses {logged}")
         check(whole, "the four-rank CLI's checkpoint does not hold the whole parameters")
+
+        # the CLI again, as dp2 x pp2 with 2 pipeline microbatches, ZeRO-1 and 8-bit moments
+        pp_base = os.path.join(tmp, "out_pp")
+        t1 = time.perf_counter()
+        _torchrun(["-m", "dct_autoencoder_torch.train.cli", "--image_dataset_path_or_url", os.path.join(shards, "*.tar"),
+                   "--model_config_path", os.path.join(R3B, "config.json"), "--batch_size", "16",
+                   "--max_iters", str(cli_steps), "--n_model_parallel", "2", "--pipeline_microbatches", "2", "--zero1",
+                   "--opt_8bit", "--train_norm_iters", "1", "--save_every", "2", "--log_every", "1",
+                   "--out_base", pp_base, "--epochs", "4"], timeout=900)
+        pp_s = time.perf_counter() - t1
+        run = sorted(glob.glob(os.path.join(pp_base, "*")))[-1]
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            pp_logged = [d for d in map(json.loads, f) if "loss" in d]
+        model = dt.DCTAutoencoder.from_pretrained(os.path.join(run, "model"))
+        state = torch.load(os.path.join(run, "train_state.pt"), map_location="cpu", weights_only=True)
+        pp_whole = all(torch.equal(state["params"][k], v.cpu()) for k, v in model.module.state_dict().items())
+        emit({"phase": "parallel_four_cards_pipeline_cli", "mesh": [2, 2], "pipeline_microbatches": 2,
+              "steps": [(d["step"], d["loss"], d["grad_norm"]) for d in pp_logged], "s": pp_s,
+              "checkpoint_step": state["step"], "checkpoint_whole_on_one_card": pp_whole})
+        check(pp_logged and all(math.isfinite(d["loss"]) for d in pp_logged), f"pipelined CLI losses {pp_logged}")
+        check(pp_whole, "the pipelined CLI's checkpoint does not hold the whole parameters")
     for c in fp32:
         check(c["loss_rel"] <= MAX_FOUR_CARD_LOSS_REL and c["grad_norm_rel"] <= MAX_FOUR_CARD_GRAD_NORM_REL,
               f"four-card case against one card: {c}")
@@ -3174,7 +3537,8 @@ PATH_IMPLS = {
     "sweep": ("simt", "simt"),
     "tools_prepare_ar": ("mma", "mma"), "tools_eval_patch14l": ("mma", "mma"), "int8_study": ("mma", "mma"),
     "tools_eval_r3b": ("simt", "simt"), "tools_decode_gif": ("simt", "simt"), "tools_diagnose": ("simt", "simt"),
-    "parallel_patch14l": ("mma", "mma"),
+    "parallel_patch14l": ("mma", "mma"), "pipeline_patch14l": ("mma", "mma"),
+    "compile_probe": ("mma", "mma"),
 }
 
 
@@ -3250,6 +3614,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_native_packing()
     launches["parallel_patch14l"] = phase_parallel_patch14l()
+    torch.cuda.empty_cache()
+    launches["pipeline_patch14l"], launches["compile_probe"] = phase_pipeline_patch14l()
     torch.cuda.empty_cache()
     phase_parallel_four_cards()
 

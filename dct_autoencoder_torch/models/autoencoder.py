@@ -18,6 +18,12 @@ and `from_pretrained` reads them back.
 
 The module's parameters are trainable (train/loop.py updates them in
 place); the wrapper's serving methods run without autograd.
+
+Under a pipeline (parallel/pipeline.py's make_pipelined_module) both stacks
+run through pipeline_stack_apply and hold their stage's layers only;
+everything between and after them (LFQ or VQ, the decoder's embeddings,
+proj_out) runs on every model rank on the stacks' broadcast output, as JAX
+runs it on the psum'd output.
 """
 from __future__ import annotations
 
@@ -214,7 +220,7 @@ class DCTAutoencoder:
         """Write config.json, params.npz (flat '/' paths), patchnorm.npz and,
         for VQ, vq_stats.npz in the JAX package's checkpoint format, so either
         package loads it.  `state_dict` replaces the module's (the whole
-        weights of a tensor-parallel module, parallel.gather_params)."""
+        weights of a tensor-parallel or pipelined module, parallel.gather_params)."""
         from .convert import jax_arrays_from_state_dict, vq_stats_from_state_dict
 
         os.makedirs(path, exist_ok=True)

@@ -44,11 +44,21 @@ LayerNorms and the residual adds run on this rank's tokens: the stream is
 gathered before q/k/v and fc1 and reduce-scattered after out_proj and fc2,
 as JAX's sp_gather / sp_scatter pair lowers; the token count must divide by
 n_model.  Without a ModelParallel the stack is the single-device one.
+
+Pipeline parallelism (parallel/pipeline.py): after
+``make_pipelined_module`` a stack holds only the layers that its rank's
+stage owns (a `StageLayers`, keyed by their indices in the whole stack) and
+runs them through ``pipeline_stack_apply``: microbatches of its rows stream
+through the stages and the output, broadcast from the last stage, is the
+whole stack's on every model rank.  As JAX's ``_pipelined`` asserts, the
+layers must be homogeneous (no per-layer int8/bf16 mix), a training forward
+must have no dropout and there is no KV-cached decode; each raises
+ValueError by name.  ``cfg.remat`` checkpoints each layer inside the stage.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -218,19 +228,65 @@ class EncoderLayer(nn.Module):
         return self._mlp(x)
 
 
+class StageLayers(nn.Module):
+    """The layers of a stack that one pipeline stage owns, registered under
+    their indices in the whole stack, so that their state_dict keys are the
+    single-device ones; iterated in order, as an nn.ModuleList is."""
+
+    def __init__(self, layers: Dict[int, nn.Module]):
+        super().__init__()
+        for i, layer in layers.items():
+            self.add_module(str(i), layer)
+        self.indices = range(min(layers), max(layers) + 1)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+
 class TransformerEncoder(nn.Module):
     """Stack of pre-LN CLIP encoder layers."""
 
     def __init__(self, cfg: TransformerConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = cfg
+        self.dtype = dtype
         self.remat = cfg.remat
         self.mp = None
+        self.pipeline = None  # parallel.pipeline.PipelineSpec, set by set_pipeline
+        self.layers = nn.ModuleList(EncoderLayer(self._layer_config(i), dtype) for i in range(cfg.num_hidden_layers))
+
+    def _layer_config(self, i: int) -> TransformerConfig:
         # int8 serving form: layers listed in quantize_int8_bf16_layers keep float weights
-        layer_cfg = lambda i: (
-            dataclasses.replace(cfg, quantize_int8=False) if i in cfg.quantize_int8_bf16_layers else cfg
-        )
-        self.layers = nn.ModuleList(EncoderLayer(layer_cfg(i), dtype) for i in range(cfg.num_hidden_layers))
+        cfg = self.config
+        return dataclasses.replace(cfg, quantize_int8=False) if i in cfg.quantize_int8_bf16_layers else cfg
+
+    def set_pipeline(self, spec) -> None:
+        """Keep only the layers that spec's stage owns (spec a
+        parallel.pipeline.PipelineSpec; parallel.pipeline.make_pipelined_module
+        checks the config first) and run them as a pipeline; or, with None,
+        hold every layer again (those of other stages rebuilt at their
+        initial values, for the caller to load)."""
+        from ..parallel.mesh import stage_layers
+
+        cfg = self.config
+        if spec is None:
+            if self.pipeline is not None:
+                own = dict(zip(self.layers.indices, self.layers))
+                device = next(self.parameters()).device
+                self.layers = nn.ModuleList(
+                    own[i] if i in own else EncoderLayer(self._layer_config(i), self.dtype).to(device)
+                    for i in range(cfg.num_hidden_layers)
+                )
+            self.pipeline = None
+            return
+        if self.mp is not None or self.pipeline is not None:
+            raise ValueError("a pipeline stages a whole stack: it was sharded or staged already")
+        own = stage_layers(cfg.num_hidden_layers, spec.n_stages, spec.stage)
+        self.layers = StageLayers({i: self.layers[i] for i in own})
+        self.pipeline = spec
 
     def set_model_parallel(self, mp) -> None:
         """Run the layers on this rank's heads and hidden units (a
@@ -244,6 +300,8 @@ class TransformerEncoder(nn.Module):
         causal: bool = False,
     ):
         remat = self.remat and torch.is_grad_enabled()
+        if self.pipeline is not None:
+            return self._pipelined(x, image_ids, key_pad_mask, mode, training, causal, remat)
         if remat and training and generator is not None and self.layers and self.layers[0].dropout > 0.0:
             # a recomputed layer must redraw the same mask; checkpoint restores
             # only the default generators' state
@@ -266,9 +324,22 @@ class TransformerEncoder(nn.Module):
             x = gather_tokens(x, self.mp)
         return x
 
+    def _pipelined(self, x, image_ids, key_pad_mask, mode, training, causal, remat):
+        from ..parallel.pipeline import check_no_dropout, pipeline_stack_apply
+
+        if training:
+            check_no_dropout(self.config)
+
+        def layer_apply(layer, xm, ids, pad):
+            return layer(xm, ids, pad, mode, training, None, causal)
+
+        return pipeline_stack_apply(layer_apply, list(self.layers), x, image_ids, key_pad_mask, self.pipeline, remat)
+
     def decode_step(self, x: torch.Tensor, cache: KVCache) -> torch.Tensor:
         """One token (b, 1, d) through every layer against `cache`, whose index
         then moves on by one.  No dropout: decoding is inference."""
+        if self.pipeline is not None:
+            raise ValueError("a pipelined stack is a training and encode path: it has no KV-cached decode")
         for layer, cache_k, cache_v in zip(self.layers, cache.k, cache.v):
             x = layer.decode_step(x, cache_k, cache_v, cache.idx)
         cache.idx += 1

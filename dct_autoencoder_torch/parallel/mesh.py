@@ -19,6 +19,16 @@ card under torchrun) and the collectives are explicit:
          ``_TP_RULES``.  With sequence parallelism the residual stream
          between the blocks is split on the token axis.
 
+  stage  pipeline parallelism (parallel/pipeline.py) uses the model axis
+         as the stage axis instead: stage s of S owns layers
+         [s L / S, (s + 1) L / S) of each stack (`stage_layers`) and holds
+         only their parameters; activations hop between neighbouring model
+         ranks (`hop`) and a stack's output is broadcast from the last stage
+         (`broadcast_from_stage`).  Layers are then not split by the
+         tensor-parallel rules, as in JAX.  gather_params and
+         load_full_state_dict gather and re-slice the stage-owned layers, so
+         checkpoints are the single-device files.
+
 Rank r sits at mesh coordinates (r // n_model, r % n_model): the model axis
 is the inner one, as in JAX's reshape of the device list.  The backend is
 NCCL for CUDA tensors and gloo for CPU tensors.
@@ -250,8 +260,9 @@ def _stacks(module: torch.nn.Module):
 
 
 def is_sharded(module: torch.nn.Module) -> bool:
-    """Whether shard_params split this module's transformer stacks."""
-    return any(stack.mp is not None for stack in _stacks(module))
+    """Whether shard_params split, or pipeline.make_pipelined_module staged,
+    this module's transformer stacks."""
+    return any(stack.mp is not None or stack.pipeline is not None for stack in _stacks(module))
 
 
 def shard_params(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
@@ -281,9 +292,13 @@ def shard_params(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
 
 
 def gather_params(module: torch.nn.Module, mesh: Mesh) -> Dict[str, torch.Tensor]:
-    """The full state_dict of a module sharded by shard_params (the same keys
-    and shapes as the unsharded module's); a collective over the model group."""
+    """The full state_dict of a module sharded by shard_params or staged by
+    make_pipelined_module (the same keys and shapes as the unsharded
+    module's); a collective over the model group."""
     state = module.state_dict()
+    stacks = staged_stacks(module)
+    if stacks:
+        return _gather_stages(state, stacks, mesh)
     spec = param_spec(state, is_sharded(module))
     split = [k for k, d in spec.items() if d is not None]
     full = all_gather_shards([state[k] for k in split], [spec[k] for k in split], mesh.model_group, mesh.n_model)
@@ -297,6 +312,9 @@ def load_full_state_dict(module: torch.nn.Module, state: Dict[str, torch.Tensor]
     if mesh is None or not is_sharded(module):
         module.load_state_dict(state)
         return
+    if staged_stacks(module):  # the stage-owned layers keep their single-device keys
+        module.load_state_dict({k: state[k] for k in module.state_dict()})
+        return
     spec = param_spec(state)
     n, r = mesh.n_model, mesh.model_rank
     local = {}
@@ -307,9 +325,15 @@ def load_full_state_dict(module: torch.nn.Module, state: Dict[str, torch.Tensor]
 
 
 def unshard_params(module: torch.nn.Module, mesh: Mesh) -> None:
-    """Undo shard_params: every rank gets the full parameters and the stacks
-    run on one device again."""
+    """Undo shard_params or make_pipelined_module: every rank gets the full
+    parameters and the stacks run on one device again."""
     full = gather_params(module, mesh)
+    stacks = staged_stacks(module)
+    if stacks:
+        for stack in stacks.values():
+            stack.set_pipeline(None)
+        module.load_state_dict(full)
+        return
     with torch.no_grad():
         for name, p in module.named_parameters():
             if p.shape != full[name].shape:
@@ -330,6 +354,117 @@ def all_gather_shards(shards: List[torch.Tensor], dims: List[int], group, n: int
         out.append(torch.cat(list(parts.unbind(0)), dim=d))
         off += s.numel()
     return out
+
+
+# ---------------------------------------------------------------- pipeline stages
+
+
+def stage_layers(n_layers: int, n_stages: int, stage: int) -> range:
+    """The layers of a stack that pipeline stage `stage` of `n_stages` owns,
+    [stage L / S, (stage + 1) L / S).  Raises ValueError naming the stage
+    count where L does not divide (JAX's pipeline_stack_apply check)."""
+    if n_stages < 1 or n_layers % n_stages:
+        raise ValueError(f"{n_layers} layers not divisible into {n_stages} pipeline stages")
+    k = n_layers // n_stages
+    return range(stage * k, (stage + 1) * k)
+
+
+def staged_stacks(module: torch.nn.Module) -> Dict[str, torch.nn.Module]:
+    """The module's pipelined transformer stacks by the prefix of their
+    layers' keys ('encoder.layers.')."""
+    return {
+        f"{name}.layers." if name else "layers.": m
+        for name, m in module.named_modules() if getattr(m, "pipeline", None) is not None
+    }
+
+
+def stage_key(name: str, stacks: Dict[str, torch.nn.Module], stage: int) -> Optional[str]:
+    """For the key of an entry of a stage-owned layer, the key of the same
+    entry at the same place among stage `stage`'s layers (its own key for
+    this rank's stage); None for a key outside the staged layers.  Every
+    stage of a stack holds the same number of layers of one structure."""
+    for head, stack in stacks.items():
+        if name.startswith(head):
+            index, rest = name[len(head):].split(".", 1)
+            own = stack.layers.indices
+            return f"{head}{int(index) - own.start + stage * len(own)}.{rest}"
+    return None
+
+
+def full_keys(keys: Sequence[str], stacks: Dict[str, torch.nn.Module], n_stages: int) -> List[str]:
+    """The keys of the whole (single-device) module in its order, from this
+    rank's keys of a staged module: each stack's block of stage-owned keys is
+    replaced by every stage's block, stage after stage."""
+    out, done = [], set()
+    for k in keys:
+        head = next((h for h in stacks if k.startswith(h)), None)
+        if head is None:
+            out.append(k)
+        elif head not in done:
+            done.add(head)
+            block = [j for j in keys if j.startswith(head)]
+            out += [stage_key(j, stacks, r) for r in range(n_stages) for j in block]
+    return out
+
+
+def gather_stages(values: List[torch.Tensor], mesh: Mesh) -> List[List[torch.Tensor]]:
+    """For each model rank, its `values` (tensors of the same shapes and
+    dtypes on every rank: a stage's share of homogeneous layers), in one
+    all-gather a dtype over the model group."""
+    out = [[None] * len(values) for _ in range(mesh.n_model)]
+    for dtype in sorted({v.dtype for v in values}, key=str):
+        idx = [i for i, v in enumerate(values) if v.dtype == dtype]
+        whole = all_gather_shards([values[i][None] for i in idx], [0] * len(idx), mesh.model_group, mesh.n_model)
+        for i, w in zip(idx, whole):
+            for r in range(mesh.n_model):
+                out[r][i] = w[r]
+    return out
+
+
+def _gather_stages(state: Dict[str, torch.Tensor], stacks, mesh: Mesh) -> Dict[str, torch.Tensor]:
+    owned = [k for k in state if stage_key(k, stacks, 0) is not None]
+    parts = gather_stages([state[k] for k in owned], mesh)
+    whole = dict(state)
+    for r in range(mesh.n_model):
+        whole.update({stage_key(k, stacks, r): v for k, v in zip(owned, parts[r])})
+    return {k: whole[k] for k in full_keys(list(state), stacks, mesh.n_model)}
+
+
+def model_peer(mesh: Mesh, model_rank: int) -> int:
+    """The global rank of model index `model_rank` in this rank's model group."""
+    return dist.get_global_rank(mesh.model_group, model_rank)
+
+
+def hop(mesh: Mesh, sends: Sequence, recvs: Sequence) -> None:
+    """One tick of point-to-point traffic between neighbouring model ranks:
+    sends and recvs are (tensor, model rank) pairs, posted together in one
+    batch_isend_irecv and waited for.  A pipeline schedule posts, on every
+    rank and tick, the sends and receives that match its neighbours' (each
+    a function of the tick, the stage and the microbatch count), so NCCL
+    pairs them and cannot deadlock.  The differentiable pipeline is one
+    autograd function around the whole schedule (parallel/pipeline.py),
+    whose backward hops the gradients upstream with this same call."""
+    ops = [dist.P2POp(dist.isend, t.contiguous(), model_peer(mesh, r), mesh.model_group) for t, r in sends]
+    ops += [dist.P2POp(dist.irecv, t, model_peer(mesh, r), mesh.model_group) for t, r in recvs]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+
+def broadcast_from_stage(x: torch.Tensor, mesh: Mesh, stage: int) -> torch.Tensor:
+    """x of model rank `stage` on every model rank, in place (JAX: the psum
+    of the collected outputs over the model axis)."""
+    if mesh.n_model > 1:
+        dist.broadcast(x, src=model_peer(mesh, stage), group=mesh.model_group)
+    return x
+
+
+def sync_model_group(mesh: Mesh) -> None:
+    """A one-value all-reduce over the model group: with NCCL the first call
+    of a group must include all its ranks, and a pipeline's first tick sends
+    between two of them only."""
+    if mesh.n_model > 1:
+        dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.model_group)
 
 
 # ---------------------------------------------------------------- collectives with their gradients

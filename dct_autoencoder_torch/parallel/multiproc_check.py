@@ -10,6 +10,11 @@ global packed batch and runs the sharded train step that train() runs
   * a data-parallel encode gives, on the rows each process owns, the token
     ids of the single-process encode.
 
+With pipeline_microbatches > 0 the two processes are instead the two stages
+of a GPipe pipeline (parallel/pipeline.py; each holds half of each stack's
+layers) over the whole batch: the same step within the same limits, and
+the pipelined encode of every row gives the single-process token ids.
+
 The parent (`run_two_process_check`) builds a payload (config, parameters,
 calibrated patchnorm, the packed batch, the single-process expectations),
 spawns the two workers (this module's __main__) and checks their output.
@@ -43,7 +48,8 @@ def _step(module, tx, patchnorm, batch, mesh=None):
     from ..train.loop import TrainState, make_train_step
 
     state = TrainState.create(module, tx, mesh=mesh)
-    _, metrics = make_train_step(module, tx, mesh=mesh)(state, patchnorm, batch)
+    step = make_train_step(module, tx, mesh=mesh)
+    _, metrics = step(state, patchnorm, batch)
     return float(metrics["loss"]), float(metrics["grad_norm"])
 
 
@@ -86,11 +92,15 @@ def default_device() -> str:
     return "cuda" if torch.cuda.device_count() >= 2 else "cpu"
 
 
-def worker_main(payload_path: str, init_method: str, pid: int, device: Optional[str] = None, nprocs: int = 2) -> None:
+def worker_main(
+    payload_path: str, init_method: str, pid: int, device: Optional[str] = None, nprocs: int = 2,
+    pipeline_microbatches: int = 0,
+) -> None:
     from ..models.autoencoder import DCTAutoencoder
     from ..models.config import DCTAutoencoderConfig
     from ..models.patchnorm import PatchNormState, apply_patchnorm
-    from ..parallel.mesh import initialize_distributed, make_mesh, row_block, take_rows
+    from ..parallel.mesh import initialize_distributed, load_full_state_dict, make_mesh, row_block, take_rows
+    from ..parallel.pipeline import make_pipelined_module
     from ..patches.container import DCTPatches
     from ..train.loop import make_optimizer
 
@@ -102,20 +112,27 @@ def worker_main(payload_path: str, init_method: str, pid: int, device: Optional[
     model.module.load_state_dict(payload["params"])
     patchnorm = PatchNormState(**payload["patchnorm"]).to(dev)
     batch = DCTPatches(**payload["batch"]).to(dev)
-    mesh = make_mesh(1, dev)
-    assert mesh.n_data == nprocs and mesh.data_rank == pid, (mesh.n_data, mesh.data_rank)
+    if pipeline_microbatches:  # the processes are the stages of one pipeline
+        mesh = make_mesh(nprocs, dev)
+        assert mesh.n_model == nprocs and mesh.model_rank == pid, (mesh.n_model, mesh.model_rank)
+        make_pipelined_module(model.module, mesh, pipeline_microbatches)
+    else:
+        mesh = make_mesh(1, dev)
+        assert mesh.n_data == nprocs and mesh.data_rank == pid, (mesh.n_data, mesh.data_rank)
 
-    # every process is given the global batch and runs its block of rows
-    loss, grad_norm = _step(model.module, make_optimizer(1e-3, 10, warmup_steps=0), patchnorm, batch, mesh)
+    # every process is given the global batch and runs its block of rows (all of them in a pipeline)
+    loss, grad_norm = _step(
+        model.module, make_optimizer(1e-3, 10, warmup_steps=0), patchnorm, batch, mesh
+    )
     assert np.isfinite(loss) and np.isfinite(grad_norm)
     # the sums across the process boundary give the single-process numbers
     # (summation order only)
     np.testing.assert_allclose(loss, payload["loss"], rtol=2e-4)
     np.testing.assert_allclose(grad_norm, payload["grad_norm"], rtol=2e-3)
 
-    # data-parallel encode (the step left the weights updated: load them again)
-    model.module.load_state_dict(payload["params"])
-    rows = row_block(batch.patches.shape[0], pid, nprocs)
+    # data-parallel or pipelined encode (the step left the weights updated: load them again)
+    load_full_state_dict(model.module, payload["params"], mesh)
+    rows = row_block(batch.patches.shape[0], mesh.data_rank, mesh.n_data)
     mine = take_rows(batch, rows.start, rows.stop)
     with torch.no_grad():
         codes = model.module(mine.replace(patches=apply_patchnorm(patchnorm, mine)), training=False)["codes"]
@@ -123,17 +140,19 @@ def worker_main(payload_path: str, init_method: str, pid: int, device: Optional[
     torch.distributed.destroy_process_group()
     print(
         f"proc {pid} full-step ok loss={loss:.6f} grad_norm={grad_norm:.4f} "
-        f"encode rows {rows.start}:{rows.stop} identical",
+        f"{'pipelined ' if pipeline_microbatches else ''}encode rows {rows.start}:{rows.stop} identical",
         flush=True,
     )
 
 
 def run_two_process_check(
     tmpdir: str, timeout: float = 420.0, config=None, device: Optional[str] = None, n_images: int = 4, image_size: int = 32,
+    pipeline_microbatches: int = 0,
 ) -> Dict:
     """Parent side: the payload, two workers, their output checked.  The
     device is `default_device()` unless given: on 'cuda' the reference runs
     on card 0 and worker i on card i (NCCL); on 'cpu' over gloo.
+    pipeline_microbatches > 0: the workers are two pipeline stages.
     Returns {'loss', 'grad_norm', 'outputs': [stdout0, stdout1]}; raises on
     any worker failure."""
     from .mesh import free_port
@@ -146,7 +165,7 @@ def run_two_process_check(
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "dct_autoencoder_torch.parallel.multiproc_check", payload_path, init_method,
-             str(pid), device],
+             str(pid), device, str(pipeline_microbatches)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True,
         )
         for pid in range(2)
@@ -168,4 +187,7 @@ def run_two_process_check(
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    worker_main(sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4] if len(sys.argv) > 4 else None)
+    worker_main(
+        sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4] if len(sys.argv) > 4 else None,
+        pipeline_microbatches=int(sys.argv[5]) if len(sys.argv) > 5 else 0,
+    )

@@ -29,6 +29,17 @@ Each step:
   4. the slices are all-gathered over the data group, and each rank keeps
      its tensor-parallel block of a parameter updated whole.
 
+Under a pipeline (parallel/pipeline.py) a stage-owned layer's parameters
+and moments exist on its stage only.  The replicated parameters (the
+embeddings, the quantizer, proj_out) get the same gradients on every model
+rank, which are not summed over the model group; the squares of the
+stage-owned norms are summed over it (every stage holds the same number of
+layers of one structure, so the sum of position i over the stages adds the
+squares of the same parameter of each stage's layers) and the replicated
+ones counted once.  A stage-owned parameter is updated whole on its stage,
+so AdamW8bit's codes are one device's; ZeRO-1 slices it over the data group
+as any other.
+
 Copies (a slice of a parameter updated whole) are refreshed from the
 module's parameters before each update, so an edit of a parameter between
 steps (VQ's codebook surgery, a restore) is seen.  state_dict /
@@ -48,9 +59,13 @@ from .mesh import (
     _stacks,
     all_gather_flat,
     all_gather_shards,
+    full_keys,
+    gather_stages,
     param_spec,
     reduce_scatter_flat,
     model_partial,
+    stage_key,
+    staged_stacks,
     zero1_chunk,
     zero1_partition,
 )
@@ -80,6 +95,13 @@ class ShardedOptimizer:
         self.params = [p for _, p in module.named_parameters()]
         tp, self.partial = _parallel_names(module)
         self.split = [param_spec([n], tp)[n] for n in self.names]
+        # pipeline stages: which parameters this stage owns, and each one's
+        # index in the single-device optimizer (the module's order with every layer)
+        self.stacks = staged_stacks(module)
+        self.staged = [stage_key(n, self.stacks, 0) is not None for n in self.names]
+        self.full_names = full_keys(self.names, self.stacks, mesh.n_model) if self.stacks else list(self.names)
+        index = {n: j for j, n in enumerate(self.full_names)}
+        self.global_index = [index[n] for n in self.names]
         nm, nd, dr = mesh.n_model, mesh.n_data, mesh.data_rank
         self.block = 256 if tx.opt_8bit else 1
         self.full_shapes = []
@@ -226,7 +248,7 @@ class ShardedOptimizer:
         opt_grads = [self.tensors[i].grad for i in live]
         norms = torch.stack(torch._foreach_norm(opt_grads))
         over_data = [k for k, i in enumerate(live) if self.chunks[i] is not None]
-        over_model = [k for k, i in enumerate(live) if self._tp_block(i)]
+        over_model = [k for k, i in enumerate(live) if self._tp_block(i) or self.staged[i]]
         if over_data or over_model:
             sq = norms * norms
             for pos, group in ((over_data, mesh.data_group), (over_model, mesh.model_group)):
@@ -321,16 +343,34 @@ class ShardedOptimizer:
                                       self.mesh.model_group, self.mesh.n_model)
             for (j, k), w in zip(group, whole):
                 state[j][k] = w
-        return {"state": state, "param_groups": sd["param_groups"]}
+        if self.stacks:
+            state = self._gather_stages(state)
+        groups = [dict(g, params=list(range(len(self.full_names)))) for g in sd["param_groups"]]
+        return {"state": state, "param_groups": groups}
+
+    def _gather_stages(self, state: Dict) -> Dict:
+        """Every stage's moments of its stage-owned parameters, keyed by their
+        single-device indices (a collective over the model group)."""
+        index = {n: j for j, n in enumerate(self.full_names)}
+        owned = [(j, key) for j in sorted(state) if self.staged[j] for key in self._moments(state, j)]
+        parts = gather_stages([state[j][key] for j, key in owned], self.mesh)
+        out = {self.global_index[j]: st for j, st in state.items() if not self.staged[j]}
+        for r, part in enumerate(parts):
+            for (j, key), v in zip(owned, part):
+                g = index[stage_key(self.names[j], self.stacks, r)]
+                out.setdefault(g, {k: w for k, w in state[j].items() if k not in self._moments(state, j)})[key] = v
+        return {g: out[g] for g in sorted(out)}
 
     def load_state_dict(self, sd: Dict) -> None:
         """Take a single-device optimizer's state_dict, keeping this rank's
         blocks and slices."""
         nm, r = self.mesh.n_model, self.mesh.model_rank
         state = {}
-        for j, st in sd["state"].items():
-            j = int(j)
-            st = dict(st)
+        given = {int(j): st for j, st in sd["state"].items()}
+        for j, g in enumerate(self.global_index):
+            if g not in given:
+                continue
+            st = dict(given[g])
             for key in self._moments({j: st}, j):
                 v = st[key]
                 if self._tp_block(j):
@@ -342,4 +382,5 @@ class ShardedOptimizer:
                     v = v[lo // self.block : -(-hi // self.block)] if self.block > 1 else v.reshape(-1)[lo:hi]
                 st[key] = v
             state[j] = st
-        self.inner.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+        groups = [dict(g, params=list(range(len(self.params)))) for g in sd["param_groups"]]
+        self.inner.load_state_dict({"state": state, "param_groups": groups})

@@ -7,9 +7,9 @@ weights_only=True: tensors and plain Python values only (AdamW's fp32
 moments, or AdamW8bit's uint8 codes, fp32 absmax and int count).
 
 A state on a mesh (TrainState.mesh) saves the same file: every rank joins
-the gathers of the tensor-parallel parameters and of the ZeRO-1 slices, and
-rank 0 writes.  Loading keeps each rank's blocks and slices, on any mesh
-or on one device.
+the gathers of the tensor-parallel parameters, of a pipeline's stage-owned
+layers and of the ZeRO-1 slices, and rank 0 writes.  Loading keeps each
+rank's blocks, layers and slices, on any mesh or on one device.
 """
 from __future__ import annotations
 

@@ -11,18 +11,24 @@ Over several cards, one process a card:
       --image_dataset_path_or_url 'shards/*.tar' --model_config_path conf/patch14-l.json \
       --batch_size 64 --n_model_parallel 2 --sequence_parallel --zero1
 
+or, with the model axis as a pipeline of 2 stages and 4 microbatches:
+  torchrun --nproc_per_node 4 -m dct_autoencoder_torch.train.cli \
+      --image_dataset_path_or_url 'shards/*.tar' --model_config_path conf/patch14-l.json \
+      --batch_size 64 --n_model_parallel 2 --pipeline_microbatches 4 --zero1
+
 Counterpart of dct_autoencoder_tpu/train/cli.py with the same flags and
 defaults, plus --device (cuda unless --device cpu).  Metrics go to
 out/<timestamp>/metrics.jsonl, with image grids and checkpoints beside them.
 A VQ config (vq_type 'vq') trains with k-means init and dead-code expiry
 (--vq_kmeans_init, --vq_expire_threshold, --vq_expire_every, JAX's
-defaults).  --n_model_parallel (tensor parallelism), --sequence_parallel
-and --zero1 train over the torchrun world, a (world / n_model_parallel,
-n_model_parallel) mesh (train/loop.py's train()); without torchrun the
-world is one process, and --n_model_parallel 2 raises by name.  Every rank
-reads the same stream with the same seeds and packs the same global batch,
-then runs its rows of it; rank 0 writes the metrics, grids and checkpoints.
-Not ported, and refused by name when set: --pipeline_microbatches.
+defaults).  --n_model_parallel (tensor parallelism, or the pipeline's
+stages with --pipeline_microbatches), --sequence_parallel and --zero1 train
+over the torchrun world, a (world / n_model_parallel, n_model_parallel)
+mesh (train/loop.py's train()); without torchrun the world is one process,
+and --n_model_parallel 2 raises by name, as --pipeline_microbatches does
+without --n_model_parallel > 1.  Every rank reads the same stream with the
+same seeds and packs the same global batch, then runs its rows of it; rank 0
+writes the metrics, grids and checkpoints.
 --profile_dir writes a torch.profiler trace (trace.json) of the main
 training phase.  One default differs from JAX: --rss_limit_gb is 0 (off).
 """
@@ -41,7 +47,7 @@ import numpy as np
 from ..data.dataset import batched, load_and_transform_dataset, load_preprocessed_dataset
 from ..models.config import DCTAutoencoderConfig, with_sequence_parallel
 from ..models.factory import get_model_and_processor
-from ..train.loop import RssLimitExceeded, _refuse_unported, train, train_patch_norm
+from ..train.loop import RssLimitExceeded, check_pipeline, train, train_patch_norm
 
 _MODULE = "dct_autoencoder_torch.train.cli"
 
@@ -139,7 +145,8 @@ def main(
     grad_accumulation_steps: int = 1,
     # tensor parallelism over this many ranks of the torchrun world
     n_model_parallel: int = 1,
-    # GPipe / 1F1B pipelines: not ported, refused when set
+    # GPipe pipeline parallelism over the n_model_parallel ranks of the model
+    # axis, with this many microbatches a step (0: none)
     pipeline_microbatches: int = 0,
     sequence_parallel: bool = False,
     zero1: bool = False,
@@ -193,7 +200,11 @@ def main(
     # where the model and the preprocess run: the card unless 'cpu'
     device: str = "cuda",
 ):
-    _refuse_unported(pipeline_microbatches=(pipeline_microbatches, 0, "pipeline parallelism"))
+    model_config = DCTAutoencoderConfig.from_json_file(model_config_path)
+    if sequence_parallel:
+        model_config = with_sequence_parallel(model_config)
+    if pipeline_microbatches:  # before any process joins a group
+        check_pipeline(model_config, n_model_parallel, pipeline_microbatches)
     with _process_group(zero1 or n_model_parallel > 1 or sequence_parallel, device):
         import torch
         import torch.distributed as dist
@@ -204,9 +215,6 @@ def main(
         # before any data is read
         check_model_parallel(n_model_parallel, dist.get_world_size() if distributed else 1)
         main_rank = is_main_process()
-        model_config = DCTAutoencoderConfig.from_json_file(model_config_path)
-        if sequence_parallel:
-            model_config = with_sequence_parallel(model_config)
         loss_weights = dict(
             rec_loss=rec_loss,
             rec_loss_unnormalized=rec_loss_unnormalized,
@@ -274,6 +282,7 @@ def main(
             device=str(model.device),
             world_size=dist.get_world_size() if distributed else 1,
             n_model_parallel=n_model_parallel,
+            pipeline_microbatches=pipeline_microbatches,
             sequence_parallel=sequence_parallel,
             zero1=zero1,
             **loss_weights,
@@ -329,6 +338,7 @@ def main(
                 max_iters=max_iters,
                 grad_accumulation_steps=grad_accumulation_steps,
                 n_model_parallel=n_model_parallel,
+                pipeline_microbatches=pipeline_microbatches,
                 zero1=zero1,
                 loss_weights=loss_weights,
                 opt_8bit=opt_8bit,

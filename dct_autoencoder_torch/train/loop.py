@@ -32,7 +32,12 @@ Counterpart of the JAX package's train/loop.py, for LFQ and VQ models:
     of the global loss, the gradients are summed over the data group and the
     optimizer is parallel/optim.py's ShardedOptimizer.  Rank 0 alone logs,
     writes grids and writes checkpoints, which hold the whole state in the
-    single-device files.
+    single-device files;
+  * GPipe pipeline parallelism (pipeline_microbatches, JAX's
+    make_pipelined_module): the model axis is the stage axis, each rank holds
+    its stage's layers of both stacks and their moments, and each rank's rows
+    of a micro-batch run as that many contiguous pipeline microbatches
+    (parallel/pipeline.py).
 
 Where JAX returns new pytrees, the port updates the module's fp32
 parameters, its VQ statistics and the optimizer's moments in place.  The
@@ -40,8 +45,11 @@ port's random draws (gumbel, k-means, expiry) are its own, not JAX's
 streams; each is a function of (seed, step), as JAX's fold_in is, so a
 resumed run draws what the uninterrupted run drew.
 
-Not ported: attention dropout and pipeline parallelism; they raise
-NotImplementedError by name.  One default differs from JAX on purpose: the
+Not ported: attention dropout; it raises NotImplementedError by name.  A
+pipeline raises ValueError by name where JAX asserts: n_model_parallel = 1,
+layers that do not divide into the stages, dropout in a pipelined stack.
+With sequence_parallel set, the pipelined stacks run without the token
+split, which changes no number.  One default differs from JAX on purpose: the
 RSS watchdog is off (rss_limit_gb=0), since it works around a memory leak
 of the TPU client that this runtime does not have.
 """
@@ -336,8 +344,23 @@ def make_train_step(
     grad norm are the global ones on every rank.  VQ's surgery runs on the
     projections of the whole last micro-batch, gathered, so every rank
     edits its codebook as one process does.
+
+    A module whose stacks parallel.pipeline.make_pipelined_module(module,
+    mesh, M) staged (before the state was made) makes it the pipelined step,
+    on the same mesh: each rank's rows of a micro-batch, which must divide
+    by M, run through the stacks as M contiguous pipeline microbatches, and
+    everything between and after the stacks (the quantizer, the losses, VQ's
+    surgery) runs on every model rank on the stacks' broadcast output.
     """
+    from ..parallel.pipeline import staged_pipeline
+
     _refuse_attention_dropout(module.config)
+    pipeline = staged_pipeline(module)
+    if pipeline is not None and pipeline.mesh is not mesh:
+        raise ValueError(
+            "the module's stacks were staged for another mesh than the step's: stage it with "
+            "parallel.pipeline.make_pipelined_module(module, mesh, M) and the step's mesh"
+        )
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     generators: Dict[torch.device, torch.Generator] = {}
@@ -610,6 +633,23 @@ def _refuse_unported(**asked) -> None:
             raise NotImplementedError(f"{name}={value!r}: {part} is not ported yet")
 
 
+def check_pipeline(config, n_model_parallel: int, pipeline_microbatches: int) -> None:
+    """Raise ValueError by name where train() cannot run this pipeline (JAX
+    asserts): fewer than two stages or microbatches, then what
+    parallel.pipeline.check_stackable refuses in training.  Before any
+    process joins a group."""
+    from ..parallel.pipeline import check_stackable
+
+    if n_model_parallel <= 1:
+        raise ValueError(
+            f"pipeline_microbatches={pipeline_microbatches} needs n_model_parallel > 1 pipeline stages, "
+            f"got n_model_parallel={n_model_parallel}"
+        )
+    if pipeline_microbatches < 1:
+        raise ValueError(f"pipeline_microbatches={pipeline_microbatches}: 0 for no pipeline, else at least 1")
+    check_stackable(config, n_model_parallel, training=True)
+
+
 def _refuse_attention_dropout(config) -> None:
     """The JAX package drops attention weights in training on its XLA
     attention path only; the port's attention is the kernel, which has no
@@ -632,7 +672,10 @@ def train(
     # tensor parallelism over this many ranks (the model axis; the data axis
     # is the rest of the world), and ZeRO-1 over the data axis; see below
     n_model_parallel: int = 1,
-    # GPipe / 1F1B pipelines: not ported, refused by name
+    # GPipe pipeline parallelism: > 0 runs both transformer stacks as a
+    # pipeline of n_model_parallel stages with this many microbatches a step
+    # (parallel/pipeline.py; needs n_model_parallel > 1 and layers that
+    # divide into the stages)
     pipeline_microbatches: int = 0,
     zero1: bool = False,
     # 8-bit Adam moments (train/opt8bit.py; the reference's PagedAdamW8bit)
@@ -696,9 +739,16 @@ def train(
     reads the global loss and the RSS watchdog the largest rank's, so all
     ranks act together.  On return the module holds the whole parameters
     on every rank again.
+
+    pipeline_microbatches > 0 stages the stacks over the model axis instead
+    of splitting their layers (parallel/pipeline.py): rows are padded to
+    grad_accumulation_steps x n_data x pipeline_microbatches (JAX's
+    loop.py:950), each rank holds its stage's layers and their moments, and
+    checkpoints gather them into the single-device files.
     """
-    _refuse_unported(pipeline_microbatches=(pipeline_microbatches, 0, "pipeline parallelism"))
     _refuse_attention_dropout(model.config)
+    if pipeline_microbatches:
+        check_pipeline(model.config, n_model_parallel, pipeline_microbatches)
     if nan_policy not in ("abort", "restore"):
         raise ValueError(f"nan_policy must be 'abort' or 'restore', got {nan_policy!r}")
     from ..parallel import mesh as pm
@@ -710,7 +760,11 @@ def train(
         own_group = pm.initialize_distributed(model.device)
         try:
             mesh = pm.make_mesh(n_model_parallel, model.device)
-            if n_model_parallel > 1 or sp_on:
+            if pipeline_microbatches:
+                from ..parallel.pipeline import make_pipelined_module
+
+                make_pipelined_module(model.module, mesh, pipeline_microbatches)
+            elif n_model_parallel > 1 or sp_on:
                 pm.shard_params(model.module, mesh)
         except Exception:
             if own_group:
@@ -740,6 +794,7 @@ def _train(
 ):
     """train()'s loop, on one device (mesh None) or on this rank of a mesh."""
     from ..parallel.mesh import gather_params, is_main_process
+    from ..parallel.pipeline import staged_pipeline
     from .checkpoint import has_train_state, load_train_state, save_train_state
 
     tx = make_optimizer(learning_rate, max_iters, opt_8bit=opt_8bit)
@@ -753,8 +808,11 @@ def _train(
         mesh=mesh,
     )
     clip_grid = (model.config.max_patch_h, model.config.max_patch_w)
-    # rows divide by the micro-batches and, in each, by the data ranks
-    row_multiple = grad_accumulation_steps * (mesh.n_data if mesh is not None else 1)
+    # rows divide by the micro-batches, in each by the data ranks, and each
+    # rank's rows by the pipeline microbatches
+    pipeline = staged_pipeline(model.module)
+    n_data = mesh.n_data if mesh is not None else 1
+    row_multiple = grad_accumulation_steps * n_data * (pipeline.n_microbatches if pipeline else 1)
 
     def save(gstep: Optional[int] = None) -> None:
         # every rank joins the gathers; rank 0 writes
@@ -884,15 +942,19 @@ def _log_image_grid(model, proc, raw_batch, gstep, n_log_images, out_dir, log, w
     """Original-vs-reconstruction grid and the batch's RGB pixel MSE (a metric
     only: the host-side unpatch is not differentiated).  proc.postprocess
     launches the IDCT kernel on the card.  write=False runs the forward only
-    (a rank other than 0 of a model group)."""
+    (a rank other than 0 of a model group).  A pipelined module's forward
+    takes the rows padded to its microbatches; the grid keeps the real rows."""
+    from ..parallel.pipeline import staged_pipeline
     from ..tools.viz import make_image_grid
 
+    rows = raw_batch.patches.shape[0]
+    pipeline = staged_pipeline(model.module)
+    batch = pad_batch_rows(raw_batch.to(model.device), pipeline.n_microbatches if pipeline else 1)
+    out = model.forward(model.normalize_(batch), training=False)
     if not write:
-        model.forward(model.normalize_(raw_batch.to(model.device)), training=False)
         return
     os.makedirs(out_dir, exist_ok=True)
-    out = model.forward(model.normalize_(raw_batch.to(model.device)), training=False)
-    rec = model.inv_normalize_(out["dct_patches"])
+    rec = model.inv_normalize_(take_rows(out["dct_patches"], 0, rows))
     rec = rec.replace(patch_sizes=raw_batch.patch_sizes, original_sizes=raw_batch.original_sizes)
     rec_images = proc.postprocess(rec)
     orig_images = proc.postprocess(raw_batch)  # the input tokens

@@ -530,3 +530,48 @@ def test_largest_diff_reads_every_tensor():
     b = {"x": torch.tensor([0.0, -0.5, 0.25]), "y": torch.ones(2, 2)}
     assert chip_smoke._largest_diff(a, b) == 0.5
     assert chip_smoke._largest_diff(a, a) == 0.0
+
+
+def test_pipeline_slice_phase_and_limits():
+    """The pipeline slice's phase runs after the parallel one, over a process
+    group of one: the pipelined step (one stage, 4 microbatches, ZeRO-1, 8-bit
+    moments) beside the unsharded step within its stated limits (the loss
+    and grad norm of the steps that share their parameters, then the loss
+    and the parameters' updates), its launches and the compile probe's each
+    read alone, 1F1B
+    against GPipe, the memory study and the compile probe, its attention
+    launches held to the tensor cores; the two-stage check says why it did
+    not run on one card; four cards add the pipeline cases and the CLI."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    order = ["phase_parallel_patch14l()", "phase_pipeline_patch14l()", "phase_parallel_four_cards()"]
+    assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
+    assert 'launches["pipeline_patch14l"], launches["compile_probe"]' in main
+    assert chip_smoke.PATH_IMPLS["pipeline_patch14l"] == chip_smoke.PATH_IMPLS["compile_probe"] == ("mma", "mma")
+    assert chip_smoke.MAX_PIPELINE_LOSS_REL == 1e-3 and chip_smoke.MAX_PIPELINE_UPDATE_REL == 0.6
+    assert chip_smoke.SHARED_STEPS == 2 and chip_smoke.MAX_PIPELINE_SHARED_LOSS_REL == 1e-5
+    assert chip_smoke.MAX_PIPELINE_GRAD_NORM_REL == 1e-4
+    init = {"x": torch.zeros(2), "n": torch.zeros(2, dtype=torch.long)}
+    ref = {"x": torch.tensor([3.0, 0.0]), "n": torch.ones(2, dtype=torch.long)}
+    got = {"x": torch.tensor([3.0, 4.0]), "n": torch.zeros(2, dtype=torch.long)}
+    assert chip_smoke._update_rel(got, ref, init) == 4.0 / 3.0 and chip_smoke._update_rel(ref, ref, init) == 0.0
+    assert chip_smoke.MAX_1F1B_VS_GPIPE_REL == 1e-5 and chip_smoke.MAX_1F1B_TEMP_SPREAD == 0.10
+    sig = {k: v.default for k, v in inspect.signature(chip_smoke.phase_pipeline_patch14l).parameters.items()}
+    assert sig == {"steps": 8, "rows": 64, "microbatches": 4}
+    src = inspect.getsource(chip_smoke.phase_pipeline_patch14l)
+    for needle in ('initialize_distributed("cuda"', "world_size=1", "pipeline=microbatches", "opt_8bit=True",
+                   "range(SHARED_STEPS)", "_update_rel(piped[3], plain[3], init)",
+                   "return step_launches, probe_launches",
+                   "_planted_faults(cfg, batches, plain, init, microbatches)", "the planted fault",
+                   "pp_memory_study.main", "compile_probe.main", "destroy_process_group",
+                   "phase_pipeline_two_cards()", "_f1b_vs_gpipe"):
+        assert needle in src, needle
+    two = inspect.getsource(chip_smoke.phase_pipeline_two_cards)
+    assert "torch.cuda.device_count() >= 2" in two and "pipeline_microbatches=2" in two
+    assert "make_pipelined_module(model.module, mesh, pipeline)" in inspect.getsource(chip_smoke._train_steps)
+    assert len(chip_smoke.PIPELINE_FOUR_CARD_CASES) == 4
+    rank = inspect.getsource(chip_smoke.sharded_steps_rank)
+    assert "PIPELINE_FOUR_CARD_CASES" in rank and "four_cards_pipeline_patch14l" in rank
+    assert "--pipeline_microbatches" in inspect.getsource(chip_smoke.phase_parallel_four_cards)
+    assert chip_smoke._rel(1.0, 2.0) == 0.5

@@ -46,12 +46,13 @@ BATCH_FIELDS = ("patches", "key_pad_mask", "batched_image_ids", "patch_channels"
 # ---------------------------------------------------------------- shared helpers
 
 
-def port_case(vq_type="lfq", seed=0, sizes=SIZES, rows_multiple=4):
+def port_case(vq_type="lfq", seed=0, sizes=SIZES, rows_multiple=4, config=None):
     """(port model, packed batch padded to a multiple of rows_multiple rows):
-    the tiny config of tests/test_model.py at random init, seeded images of
-    `sizes` packed by the port's extractor, patchnorm calibrated (fp32, CPU)."""
+    the tiny config of tests/test_model.py (or `config`) at random init,
+    seeded images of `sizes` packed by the port's extractor, patchnorm
+    calibrated (fp32, CPU)."""
     model, proc = torch_model_and_processor(
-        tiny_config(vq_type), dtype=torch.float32, sample_patches_beta=0.0, seed=seed, device="cpu"
+        config or tiny_config(vq_type), dtype=torch.float32, sample_patches_beta=0.0, seed=seed, device="cpu"
     )
     rng = np.random.default_rng(seed)
     ims = [rng.uniform(0.1, 0.9, size=(3, h, w)).astype(np.float32) for h, w in sizes]
@@ -122,6 +123,7 @@ from dct_autoencoder_torch.models.config import DCTAutoencoderConfig, with_seque
 from dct_autoencoder_torch.models import vq as tvq
 from dct_autoencoder_torch.models.patchnorm import PatchNormState, apply_patchnorm
 from dct_autoencoder_torch.parallel import mesh as pm
+from dct_autoencoder_torch.parallel.pipeline import make_pipelined_module
 from dct_autoencoder_torch.patches.container import DCTPatches
 from dct_autoencoder_torch.train import checkpoint as tck, loop as tl
 from dct_autoencoder_torch.train.opt8bit import opt_state_bytes
@@ -147,7 +149,9 @@ def build(sc):
 
 
 def trainer(sc, model, mesh):
-    if sc.get("n_model", 1) > 1 or sc.get("sp"):
+    if sc.get("pp"):  # the model axis as pipeline stages, sc["pp"] microbatches
+        make_pipelined_module(model.module, mesh, sc["pp"])
+    elif sc.get("n_model", 1) > 1 or sc.get("sp"):
         pm.shard_params(model.module, mesh)
     tx = tl.make_optimizer(1e-3, 10, warmup_steps=0, opt_8bit=sc.get("opt_8bit", False))
     state = tl.TrainState.create(model.module, tx, mesh=mesh, zero1=sc.get("zero1", False), zero1_min_size=0)
@@ -191,7 +195,20 @@ for sc in P["scenarios"]:
         assert pm.make_mesh(n, "cpu").device_mesh.mesh.tolist() == mesh.device_mesh.mesh.tolist()
         assert (mesh.data_rank, mesh.model_rank) == (rank // n, rank % n), (rank, mesh.data_rank, mesh.model_rank)
     res = {}
-    if sc.get("kind") == "ema":
+    if sc.get("kind") == "train":
+        # train() itself over the whole world, on the payload's image columns
+        from dct_autoencoder_torch.models.factory import get_model_and_processor
+        model = build(sc)
+        _, proc = get_model_and_processor(model.config, dtype=torch.float32, sample_patches_beta=0.0, device="cpu")
+        logs = []
+        tl.train(
+            model, proc, iter(P["columns"]), batch_size=None, max_iters=len(P["columns"]), learning_rate=1e-3,
+            n_model_parallel=n, pipeline_microbatches=sc.get("pp", 0), grad_accumulation_steps=sc.get("accum", 1),
+            log_every=1, save_every=0, prefetch_batches=0, log=logs.append,
+            out_dir=os.path.join(out_dir, "train_" + sc["name"]), log_images_every=1,
+        )
+        res = {"logs": logs, "params": model.module.state_dict(), "staged": pm.is_sharded(model.module)}
+    elif sc.get("kind") == "ema":
         torch.manual_seed(0)
         x = torch.randn(64, 4)
         valid = torch.rand(64) < 0.8
@@ -241,16 +258,17 @@ print(f"rank {rank} done in {time.time() - t0:.1f} s", flush=True)
 
 
 class Ranks:
-    """A gloo group of `world` rank processes running RANK_WORKER over a
-    payload; start() returns at once, results() waits for them."""
+    """A gloo group of `world` rank processes running `program` (RANK_WORKER
+    unless given) over a payload; the constructor returns at once, result()
+    waits for them."""
 
-    def __init__(self, tmp, payload: dict, world: int, timeout: float = 150.0):
+    def __init__(self, tmp, payload: dict, world: int, timeout: float = 150.0, program: str = RANK_WORKER):
         self.tmp, self.world, self.timeout = str(tmp), world, timeout
         payload_path = os.path.join(self.tmp, "payload.pt")
         torch.save(payload, payload_path)
         script = os.path.join(self.tmp, "rank_worker.py")
         with open(script, "w") as f:
-            f.write(RANK_WORKER)
+            f.write(program)
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
@@ -286,10 +304,12 @@ class Ranks:
         return torch.load(os.path.join(self.tmp, name + ".pt"), weights_only=False)
 
 
-def payload_of(models: dict, batch, scenarios, grid_sizes=None) -> dict:
+def payload_of(models: dict, batch, scenarios, grid_sizes=None, columns=None) -> dict:
     """What the ranks load: the models by name (a scenario's "model", "lfq"
-    by default), the global batch, the pixel loss's grid sizes, the scenarios."""
+    by default), the global batch, the pixel loss's grid sizes, the
+    scenarios, and the image columns that a "train" scenario streams."""
     return {
+        "columns": columns,
         "models": {
             name: {
                 "config": m.config.to_dict(),

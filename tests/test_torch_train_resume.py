@@ -206,37 +206,86 @@ def _cli_zero1(tmp_path, monkeypatch):
     assert kw["zero1"] is True and kw["n_model_parallel"] == 1
 
 
-# the multi-device flags, in train() and in the CLI: pipeline parallelism is
-# still refused by name; n_model_parallel must divide the world, which is
-# one process here, and says so by name; ZeRO-1 and sequence parallelism,
-# ported now, train over that world of one (their parity with JAX is held
-# over several processes in tests/test_torch_parallel_ranks*.py)
+def _dropout_config():
+    import dataclasses
+
+    cfg = tiny_config()
+    return dataclasses.replace(cfg, encoder_config=dataclasses.replace(cfg.encoder_config, dropout=0.1))
+
+
+def _cli_pipeline_with_dropout(tmp_path):
+    from dct_autoencoder_torch.train import cli
+
+    cli.main(
+        preprocessed_dataset_path_or_url=str(tmp_path / "none"),
+        model_config_path=_write_cfg(tmp_path, _dropout_config()), should_save=False, device="cpu",
+        n_model_parallel=2, pipeline_microbatches=2,
+    )
+
+
+def _pipelined_decode_step(model):
+    """decode_step on a stack staged as one stage of two (a mesh's shape is all staging reads)."""
+    import types
+
+    from dct_autoencoder_torch.models.transformer import KVCache
+    from dct_autoencoder_torch.parallel.pipeline import make_pipelined_module
+
+    make_pipelined_module(model.module, types.SimpleNamespace(n_model=2, model_rank=0, n_data=1), 2)
+    cfg = model.config.decoder_config
+    model.module.decoder.decode_step(torch.zeros(1, 1, cfg.hidden_size), KVCache(cfg, 1, 4, torch.float32, "cpu"))
+
+
+# the multi-device flags, in train() and in the CLI: what a pipeline refuses
+# by name (fewer than two stages, dropout in a pipelined stack, layers that
+# do not divide into the stages, a KV-cached decode), before any process
+# group exists; n_model_parallel must divide the world, which is one process
+# here, and says so by name; ZeRO-1 and sequence parallelism train over that
+# world of one (their parity with JAX, and the pipeline's, is held over
+# several processes in tests/test_torch_parallel_ranks*.py and
+# tests/test_torch_pipeline_*.py).  what -> (error, words it names, run)
 REFUSED = {
-    "n_model_parallel": (ValueError, lambda m, p, t, mp: tloop.train(m, p, iter([]), n_model_parallel=2)),
-    "pipeline_microbatches": (
-        NotImplementedError, lambda m, p, t, mp: tloop.train(m, p, iter([]), pipeline_microbatches=2)
+    "n_model_parallel": (
+        ValueError, "n_model_parallel", lambda m, p, t, mp: tloop.train(m, p, iter([]), n_model_parallel=2)
     ),
-    "zero1": (None, lambda m, p, t, mp: _train_empty_stream(m, p, zero1=True)),
-    "cli_n_model_parallel": (ValueError, lambda m, p, t, mp: _cli(t, n_model_parallel=2)),
-    "cli_pipeline_microbatches": (NotImplementedError, lambda m, p, t, mp: _cli(t, pipeline_microbatches=2)),
-    "cli_sequence_parallel": (None, lambda m, p, t, mp: _cli_sequence_parallel(t, mp)),
-    "cli_zero1": (None, lambda m, p, t, mp: _cli_zero1(t, mp)),
+    "pipeline_microbatches": (
+        ValueError, "pipeline_microbatches=2 needs n_model_parallel > 1",
+        lambda m, p, t, mp: tloop.train(m, p, iter([]), pipeline_microbatches=2),
+    ),
+    "zero1": (None, None, lambda m, p, t, mp: _train_empty_stream(m, p, zero1=True)),
+    "cli_n_model_parallel": (ValueError, "n_model_parallel", lambda m, p, t, mp: _cli(t, n_model_parallel=2)),
+    "cli_pipeline_microbatches": (ValueError, "dropout", lambda m, p, t, mp: _cli_pipeline_with_dropout(t)),
+    "cli_sequence_parallel": (None, None, lambda m, p, t, mp: _cli_sequence_parallel(t, mp)),
+    "cli_zero1": (None, None, lambda m, p, t, mp: _cli_zero1(t, mp)),
+    "cli_pipeline_one_stage": (
+        ValueError, "n_model_parallel > 1", lambda m, p, t, mp: _cli(t, pipeline_microbatches=2)
+    ),
+    "pipeline_dropout": (
+        ValueError, "dropout=0.1",
+        lambda m, p, t, mp: tloop.train(TorchAE(_dropout_config(), dtype=torch.float32, device="cpu"), p, iter([]),
+                                        n_model_parallel=2, pipeline_microbatches=2),
+    ),
+    "pipeline_stages": (
+        ValueError, "2 layers not divisible into 4 pipeline stages",
+        lambda m, p, t, mp: tloop.train(m, p, iter([]), n_model_parallel=4, pipeline_microbatches=2),
+    ),
+    "pipeline_kv_cache": (ValueError, "KV-cached decode", lambda m, p, t, mp: _pipelined_decode_step(m)),
 }
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
 def test_train_refuses_what_is_not_ported(what, tmp_path, monkeypatch):
-    """Each multi-device flag of train() and the CLI: what is not ported
-    (pipeline parallelism) or cannot run here (n_model_parallel beyond a
-    world of one) raises by name; what is ported now (ZeRO-1, sequence
-    parallelism) trains.  The name and the case ids date from when every one
-    of these flags was refused; they are kept so each case keeps its record."""
+    """Each multi-device flag of train() and the CLI: what cannot run
+    (n_model_parallel beyond a world of one, a pipeline of one stage, dropout
+    or a KV cache in a pipelined stack, layers that do not divide into the
+    stages) raises by name; ZeRO-1 and sequence parallelism train.  The name
+    and the first seven case ids date from when every one of these flags was
+    refused as unported; they are kept so each case keeps its record."""
     model, proc = _port_setup()
-    error, run = REFUSED[what]
+    error, words, run = REFUSED[what]
     if error is None:
         run(model, proc, tmp_path, monkeypatch)
         return
-    with pytest.raises(error, match=what.removeprefix("cli_")):
+    with pytest.raises(error, match=words):
         run(model, proc, tmp_path, monkeypatch)
     assert not torch.distributed.is_initialized()
 
