@@ -90,12 +90,23 @@ also against a float64 plain version), and then drives the paths themselves:
     under torch.distributed.run, tensor-parallel and pipelined.
 The kernels' phase also runs the fp32 attention backward 20 times in each
 mask mode after filling the allocator's free memory with NaN, and requires
-the same bits every time.
+the same bits every time; and it holds the attention kernels' dropout mode
+(rates 0.1 and 0.3, both mask modes, causal or not, both implementations)
+and the head dims 16, 24, 48, 80 and 128 (those between the instantiations
+16, 32, 64 and 128 run padded) against the plain versions, reads the keep
+bits each kernel drew off its outputs and holds them to the plain twin of
+the random stream bit for bit, and times the dropout mode at patch14-L's
+shape beside the kernels without it and SDPA with dropout_p, and head dims
+16, 48 and 128 at (64, 8, 256, d).  Two phases drive those on the paths:
+patch14-L train steps with the encoder's attention dropout at 0.1 beside
+the same steps without it, and the AR example at head dims 48 and 16.
 Every phase prints one JSON line; any failed check raises and the script
 exits non-zero.  The line before the last lists the kernels with their
 launches on the main paths, errors, times and bounds; the last line is
 {"ok": true, "device": {...}}.
 
+`--attention-device-times` only times the attention kernels without dropout
+from CUDA graphs (no result line);
 `--kernels-only` stops after the kernels' phase (no result line);
 `--kernels-only=dct` runs only its DCT and IDCT cases: the quick loop while
 one of those sources is being changed (the build's hash follows the source).
@@ -630,6 +641,259 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
     return rows
 
 
+# ---------------------------------------------------------------- the dropout mode and the head dims
+
+# the rates the dropout mode is held at, and the head dims beside the instantiations
+# (16, 32, 64, 128): 24, 48 and 80 run padded to the next one
+DROPOUT_RATES = (0.1, 0.3)
+HEAD_DIM_CASES = (16, 24, 48, 80, 128)
+
+
+def _dropout(A, rate, seed, row0=0, head0=0):
+    """An AttentionDropout at `rate` with a seed on the card, or None at rate 0."""
+    if not rate:
+        return None
+    return A.AttentionDropout(rate, torch.tensor([seed], dtype=torch.int64, device="cuda"), row0, head0)
+
+
+def _mode_tol(dtype, limit, ref) -> float:
+    """The limit of one output against its plain version: in bfloat16 the larger
+    of `limit` and one ulp of the largest value (dropout scales values by
+    1 / (1 - rate), past the magnitudes the fixed limits were set for); in
+    float32 1e-5 of the largest value, and at least 1e-5."""
+    top = ref.float().abs().max().item()
+    return simt_tol(limit, top) if dtype == torch.bfloat16 else 1e-5 * max(1.0, top)
+
+
+def _attention_mode_case(b, h, s, d, dtype, mode, causal, impl, rate, gen, seed=7, row0=0, head0=0):
+    """The forward, dq and dk/dv kernels of one implementation at head dim d
+    (padded by the wrappers where d is no instantiation) and, at rate > 0, in
+    the dropout mode, against the plain versions on the same inputs and
+    seed: within `_mode_tol`, finite, the same bits on a second launch,
+    padded queries 0 in 'block' mode.  Returns one row a kernel."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, dtype, gen, 4)
+    scale = d**-0.5
+    drop = _dropout(A, rate, seed, row0, head0)
+    fwd = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=impl, dropout=drop)
+    o, lse = fwd()
+    dq_k = lambda: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, impl=impl, dropout=drop)
+    dq, delta = dq_k()
+    dkv_k = lambda: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, causal, impl=impl, dropout=drop)
+    dk, dv = dkv_k()
+    torch.cuda.synchronize()
+    o_ref, lse_ref = A.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, causal, drop)
+    refs = A.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, drop)
+    what = f"attention {impl} {str(dtype).split('.')[-1]} {mode} causal={causal} rate={rate} {(b, h, s, d)}"
+    errs, tols = {}, {}
+    for name, got, ref, limit in (("o", o, o_ref, ATTN_ATOL_BF16), ("dq", dq, refs[0], ATTN_BWD_ATOL_BF16),
+                                  ("dk", dk, refs[1], ATTN_BWD_ATOL_BF16), ("dv", dv, refs[2], ATTN_BWD_ATOL_BF16)):
+        check(got.shape == ref.shape and torch.isfinite(got).all().item(), f"{what}: {name} not finite or misshaped")
+        errs[name] = (got.float() - ref.float()).abs().max().item()
+        tols[name] = _mode_tol(dtype, limit, ref)
+        check(errs[name] <= tols[name], f"{what}: {name} max|diff| {errs[name]} > {tols[name]}")
+    lse_err = (lse - lse_ref).abs().max().item()
+    check(lse_err <= 1e-4, f"{what}: lse max|diff| {lse_err}")
+    if mode == "block" and pad.any():
+        check(o.transpose(1, 2)[pad].abs().max().item() == 0.0, f"{what}: padded queries not 0")
+        check(dq.transpose(1, 2)[pad].abs().max().item() == 0.0, f"{what}: dq of padded queries not 0")
+    again = (*fwd(), *dq_k(), *dkv_k())
+    check(all(torch.equal(x, y) for x, y in zip((o, lse, dq, delta, dk, dv), again)), f"{what}: two launches differ")
+    common = {"shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "causal": causal,
+              "impl": impl, "rate": rate, "kernel_head_dim": A.kernel_head_dim(d)}
+    return {
+        "fwd": {**common, "max_abs_err": errs["o"], "tol": tols["o"], "lse_max_abs_err": lse_err},
+        "dq": {**common, "max_abs_err": errs["dq"], "tol": tols["dq"]},
+        "dkv": {**common, "max_abs_err": max(errs["dk"], errs["dv"]), "tol": max(tols["dk"], tols["dv"])},
+    }
+
+
+def _dropout_mask_readout(dtype, impl, rate, gen, row0=3, head0=5):
+    """The keep bits each kernel drew, read off its outputs at b = h = 2,
+    s = d = 128 with every p = 1/s (q = 0), against attention_dropout_keep_mask
+    bit for bit: the forward's o with v = I is z / ((1 - rate) s); dk/dv's dv
+    with do = I is its transpose; dq with k = I and v = do = e_0 is
+    (z / (1 - rate) - mean(z) / (1 - rate)) scale / s, whose sign is z
+    (compared where that value is clear of 0)."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    b, h, s = 2, 2, 128
+    dev = torch.device("cuda")
+    drop = A.AttentionDropout(rate, torch.randint(0, 2**62, (1,), generator=gen).to(dev), row0, head0)
+    want = A.attention_dropout_keep_mask(drop.seed, rate, b, h, s, row0, head0)
+    zeros = torch.zeros(b, h, s, s, dtype=dtype, device=dev)
+    eye = torch.eye(s, dtype=dtype, device=dev).expand(b, h, s, s).contiguous()
+    e0 = zeros.clone()
+    e0[..., 0] = 1
+    ids = torch.zeros(b, s, dtype=torch.int32, device=dev)
+    k = torch.randn(b, h, s, s, generator=gen).to(dtype).to(dev)
+    scale = s**-0.5
+    kw = dict(impl=impl, dropout=drop)
+    o, lse = A.attention_fwd_cuda(zeros, k, eye, ids, ids, scale, **kw)
+    _, delta = A.attention_dq_cuda(zeros, k, eye, ids, ids, o, lse, eye, scale, **kw)
+    _, dv = A.attention_dkv_cuda(zeros, k, eye, ids, ids, lse, delta, eye, scale, **kw)
+    o2, lse2 = A.attention_fwd_cuda(zeros, eye, e0, ids, ids, scale, **kw)
+    dq, _ = A.attention_dq_cuda(zeros, eye, e0, ids, ids, o2, lse2, e0, scale, **kw)
+    torch.cuda.synchronize()
+    z = want.float() * drop.keep_scale
+    expect = z - z.mean(dim=-1, keepdim=True)
+    clear = expect.abs() > 0.05
+    what = f"dropout mask {impl} {str(dtype).split('.')[-1]} rate {rate}"
+    row = {
+        "impl": impl, "dtype": str(dtype).split(".")[-1], "rate": rate, "shape": [b, h, s, s], "row0": row0,
+        "head0": head0, "fwd_bits_differing": int(((o != 0) != want).sum()),
+        "dkv_bits_differing": int(((dv.transpose(-1, -2) != 0) != want).sum()),
+        "dq_bits_differing": int((((dq.float() > 0) != want) & clear).sum()), "dq_share_read": clear.float().mean().item(),
+        "kept_share": want.float().mean().item(), "sigma": math.sqrt(rate * (1 - rate) / want.numel()),
+    }
+    for name in ("fwd", "dkv", "dq"):
+        check(row[f"{name}_bits_differing"] == 0, f"{what}: {row[f'{name}_bits_differing']} keep bits of {name} differ from the twin")
+    check(row["dq_share_read"] > 0.9, f"{what}: dq's sign read only {row['dq_share_read']} of the bits")
+    check(abs(row["kept_share"] - (1 - rate)) <= 4 * row["sigma"], f"{what}: kept share {row['kept_share']}")
+    return row
+
+
+def _dropout_and_dim_cases(gen):
+    """Every new mode and dim against its plain version: the dropout mode at
+    both rates in both mask modes, causal or not, in the tensor-core kernels
+    (bf16), the CUDA-core kernels on bf16 (impl="simt") and in fp32; the head
+    dims of HEAD_DIM_CASES with and without dropout, in both implementations.
+    Returns rows by kernel key."""
+    out = {key: [] for key in ("attention", "attention_dq", "attention_dkv", "attention_causal", "attention_dq_causal",
+                               "attention_dkv_causal", "attention_dropout", "attention_dq_dropout", "attention_dkv_dropout")}
+
+    def add(rows, rate, causal):
+        suffix = "_dropout" if rate else ("_causal" if causal else "")
+        for kernel, key in (("fwd", "attention"), ("dq", "attention_dq"), ("dkv", "attention_dkv")):
+            out[key + suffix].append(rows[kernel])
+
+    impls = ((torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt"))
+    for rate in DROPOUT_RATES:
+        for mode in ("block", "bias"):
+            for causal in (False, True):
+                for dtype, impl in impls:
+                    add(_attention_mode_case(2, 4, 200, 64, dtype, mode, causal, impl, rate, gen, row0=1, head0=2), rate, causal)
+    for d in HEAD_DIM_CASES:
+        for mode in ("block", "bias"):
+            for causal in (False, True):
+                for rate in (0.0, 0.1):
+                    for dtype, impl in impls:
+                        add(_attention_mode_case(2, 3, 173, d, dtype, mode, causal, impl, rate, gen), rate, causal)
+    return out
+
+
+def _sdpa_calls(q, k, v, do, mask, scale, rate):
+    """scaled_dot_product_attention's forward and its whole backward (dq, dk and
+    dv in one call) at dropout_p = rate: the library yardsticks."""
+    import torch.nn.functional as F
+
+    fwd = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=rate, scale=scale)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, dropout_p=rate, scale=scale)
+    return fwd, lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True)
+
+
+def _timed_rows(A, b, h, s, d, dtype, mode, rate, gen, seed=11):
+    """Rows of the three kernels at one timed shape: ms (tensor cores),
+    simt_ms, plain_ms, library_ms (SDPA at dropout_p = rate), bound; in the
+    dropout mode also the kernels' times without dropout on the same inputs
+    and the kept share of the whole mask."""
+    (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, dtype, gen, 4)
+    scale = d**-0.5
+    drop = _dropout(A, rate, seed)
+    fwd = lambda impl=None, dr=drop: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, impl=impl, dropout=dr)
+    o, lse = fwd()
+    o0, _ = fwd(dr=None)
+    dq_k = lambda impl=None, dr=drop: A.attention_dq_cuda(
+        q, k, v, q_ids, kv_ids, o if dr is not None else o0, lse, do, scale, mode, impl=impl, dropout=dr)
+    dq, delta = dq_k()
+    dkv_k = lambda impl=None, dr=drop: A.attention_dkv_cuda(
+        q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, impl=impl, dropout=dr)
+    dk, dv = dkv_k()
+    torch.cuda.synchronize()
+    fwd_plain = lambda: A.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, False, drop)
+    bwd_plain = lambda: A.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, False, drop)
+    o_ref, _ = fwd_plain()
+    refs = bwd_plain()
+    errs = {"fwd": ((o.float() - o_ref.float()).abs().max().item(), _mode_tol(dtype, ATTN_ATOL_BF16, o_ref))}
+    errs["dq"] = ((dq.float() - refs[0].float()).abs().max().item(), _mode_tol(dtype, ATTN_BWD_ATOL_BF16, refs[0]))
+    errs["dkv"] = (max((x.float() - r.float()).abs().max().item() for x, r in zip((dk, dv), refs[1:])),
+                   max(_mode_tol(dtype, ATTN_BWD_ATOL_BF16, r) for r in refs[1:]))
+    what = f"timed attention rate {rate} {(b, h, s, d)}"
+    for name, (err, tol) in errs.items():
+        check(err <= tol, f"{what}: {name} max|diff| {err} > {tol}")
+    del o_ref, refs
+    mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype)
+    lib_fwd, lib_bwd = _sdpa_calls(q, k, v, do, mask, scale, rate)
+    elt, n = q.element_size(), b * h * s * d
+    vec, ids_bytes = b * h * s * 4, 2 * b * s * 4
+    bounds = {
+        "fwd": bound(4 * n * elt + ids_bytes + vec, 4 * h * d * pairs, dtype),
+        "dq": bound(6 * n * elt + 2 * vec + ids_bytes, 6 * h * d * pairs, dtype),
+        "dkv": bound(6 * n * elt + 2 * vec + ids_bytes, 8 * h * d * pairs, dtype),
+    }
+    plain_ms = {"fwd": time_ms(fwd_plain, reps=5), "dq": time_ms(bwd_plain, reps=5)}
+    plain_ms["dkv"] = plain_ms["dq"]
+    lib_ms = {"fwd": time_ms(lib_fwd, inner=TIMED_LAUNCHES), "dq": time_ms(lib_bwd, inner=TIMED_LAUNCHES)}
+    lib_ms["dkv"] = lib_ms["dq"]
+    rows = {}
+    for name, kernel in (("fwd", fwd), ("dq", dq_k), ("dkv", dkv_k)):
+        info = lambda impl: A.attention_kernel_info(name, impl, dtype, d, dropout=drop is not None)
+        rows[name] = {
+            "shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "rate": rate, "impl": "mma",
+            "kernel_head_dim": A.kernel_head_dim(d), "max_abs_err": errs[name][0], "tol": errs[name][1],
+            "ms": time_ms(kernel, inner=TIMED_LAUNCHES), "simt_ms": time_ms(lambda: kernel("simt"), reps=5),
+            "plain_ms": plain_ms[name], "library_ms": lib_ms[name],
+            "library_computes": ("the forward" if name == "fwd" else "dq, dk and dv")
+            + f" of scaled_dot_product_attention at dropout_p {rate}",
+            "plain_computes": "the forward" if name == "fwd" else "dq, dk and dv",
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "kernel_info": info("mma"),
+            "simt_kernel_info": info("simt"),
+        }
+        if drop is not None:
+            rows[name]["ms_no_dropout"] = time_ms(lambda: kernel(dr=None), inner=TIMED_LAUNCHES)
+            rows[name]["kernel_info_no_dropout"] = A.attention_kernel_info(name, "mma", dtype, d)
+            rows[name]["philox_calls"] = b * h * s * s // 4  # every tile is computed: no causal skipping here
+    if drop is not None:
+        keep = A.attention_dropout_keep_mask(drop.seed, rate, b, h, s)
+        share, sigma = keep.float().mean().item(), math.sqrt(rate * (1 - rate) / keep.numel())
+        del keep
+        check(abs(share - (1 - rate)) <= 4 * sigma, f"{what}: kept share {share} of {1 - rate}")
+        rows["fwd"].update(kept_share=share, kept_share_sigma=sigma)
+    return rows
+
+
+def phase_attention_modes(gen):
+    """The dropout mode and the head dims of the three attention kernels (see
+    _dropout_and_dim_cases, _dropout_mask_readout, _timed_rows).  Returns rows
+    by kernel key; the dropout keys' first rows are the timed main-path shape."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    t0 = time.perf_counter()
+    readouts = [_dropout_mask_readout(dtype, impl, rate, gen)
+                for rate in DROPOUT_RATES for dtype, impl in ((torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt"))]
+    timed = _timed_rows(A, 64, 16, 256, 64, torch.bfloat16, "block", 0.1, gen)  # the patch14-L train step's shape
+    torch.cuda.empty_cache()
+    dims = {d: _timed_rows(A, 64, 8, 256, d, torch.bfloat16, "block", 0.0, gen) for d in (16, 48, 128)}
+    torch.cuda.empty_cache()
+    cases = _dropout_and_dim_cases(gen)
+    for kernel, key in (("fwd", "attention"), ("dq", "attention_dq"), ("dkv", "attention_dkv")):
+        cases[key + "_dropout"].insert(0, timed[kernel])
+        for d, rows in dims.items():
+            emit({"phase": "attention_head_dim_timed", "kernel": key, **rows[kernel]})
+    for row in readouts:
+        emit({"phase": "attention_dropout_mask_readout", **row})
+    for key, rows in cases.items():
+        worst = max(rows, key=lambda r: r["max_abs_err"] / r["tol"])
+        emit({"phase": "attention_modes_vs_plain", "kernel": key, "cases": len(rows),
+              "max_abs_err": max(r["max_abs_err"] for r in rows), "largest_err_over_tol": worst["max_abs_err"] / worst["tol"],
+              "worst_case": worst})
+    emit({"phase": "attention_modes", "cases": sum(len(r) for r in cases.values()), "rates": DROPOUT_RATES,
+          "head_dims": HEAD_DIM_CASES, "instantiations": A.HEAD_DIMS, "wall_s": time.perf_counter() - t0})
+    return cases, dims
+
+
 def graph_ms(fn, launches: int = TIMED_LAUNCHES, reps: int = 25) -> float:
     """Device time of one fn() call: `launches` calls captured in one CUDA
     graph, the median of `reps` timed replays divided by `launches`.  The
@@ -790,6 +1054,31 @@ def _dct_cases(gen):
     return out
 
 
+def attention_device_times(reps: int = 3) -> None:
+    """`--attention-device-times`: the device time of the three attention
+    kernels without dropout (CUDA graphs, no host cost) at rows 1-3 (d = 64),
+    at (64, 8, 256, 32) and at rows 1c-3c, `reps` times each, one JSON line a
+    kernel and shape.  It uses only the wrappers' arguments that every tree
+    of the port has had since the causal mode, so a copy of this script in an
+    older tree times that tree's kernels beside this one's."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    gen = torch.Generator().manual_seed(0)
+    for b, h, s, d, causal in ((64, 16, 256, 64, False), (64, 8, 256, 32, False), (8, 8, 1024, 64, True)):
+        (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, torch.bfloat16, gen, 4)
+        scale = d**-0.5
+        o, lse = A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, "block", causal)
+        dq, delta = A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, "block", causal)
+        kernels = {
+            "fwd": lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, "block", causal),
+            "dq": lambda: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, "block", causal),
+            "dkv": lambda: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, "block", causal),
+        }
+        for name, fn in kernels.items():
+            emit({"phase": "attention_device_times", "kernel": name, "shape": [b, h, s, d], "causal": causal,
+                  "graph_ms": [graph_ms(fn) for _ in range(reps)], "event_ms": time_ms(fn, inner=TIMED_LAUNCHES)})
+
+
 def kernels_only(argv) -> "str | None":
     """What `--kernels-only` asks for: None (every phase), "all" (stop after
     the kernels' phase) or "dct" (only its DCT and IDCT cases, then stop)."""
@@ -844,10 +1133,16 @@ def phase_kernels(which: str = "all"):
         "attention_dq": [c["attention_dq"] for c in bwd],
         "attention_dkv": [c["attention_dkv"] for c in bwd],
         **{name: [c[name] for c in causal] for name in causal[0]},
-        **_dct_cases(gen),
     }
+    modes, _ = phase_attention_modes(gen)
+    for key, rows in modes.items():  # the main paths' shapes stay first
+        cases.setdefault(key, []).extend(rows)
+    torch.cuda.empty_cache()
+    cases.update(_dct_cases(gen))
     for name, rows in cases.items():
         for row in rows:
+            if "rate" in row and "ms" not in row:
+                continue  # phase_attention_modes emitted a summary of these
             emit({"phase": "kernel_vs_plain", "kernel": name, **row})
     return cases
 
@@ -1173,8 +1468,8 @@ def phase_train_full_width(profile: bool, train_steps=4, timed_steps=5):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / timed_steps
     per_step = {k: v / timed_steps for k, v in K.launch_counts().items() if k.startswith("attention")}
-    check(all(v == (0 if k.endswith("_causal") else n_layers) for k, v in per_step.items()),
-          f"attention launches per step {per_step} for {n_layers} non-causal layers")
+    check(all(v == (n_layers if k in ("attention", "attention_dq", "attention_dkv") else 0) for k, v in per_step.items()),
+          f"attention launches per step {per_step} for {n_layers} non-causal layers without dropout")
     check(math.isfinite(float(metrics["loss"])), "timed steps: loss not finite")
     emit({
         "phase": "train_full_width_patch14l", "dtype": "bfloat16 compute, float32 masters", "rows": rows,
@@ -1397,6 +1692,92 @@ def phase_ar_example_r3b(steps=200):
         "launches": launches, "wall_s": wall_s,
     })
     return launches, loaded
+
+
+# ---------------------------------------------------------------- attention dropout and head dims on the paths
+
+
+def phase_train_dropout_patch14l(steps=8, rows=64, rate=0.1):
+    """patch14-L train steps (64 x 256, bf16, beta 0.02, random tokens) with
+    the encoder's attention dropout at `rate`, beside the same steps with the
+    rate at 0 from one init and the same batches: ms a step, peak GB, finite
+    losses that the rate moved; the encoder's attention launches go through
+    the dropout mode, the decoder's (which never drops) through the plain one."""
+    import dataclasses
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch import train as T
+
+    base = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    cfg = dataclasses.replace(base, encoder_config=dataclasses.replace(base.encoder_config, attention_dropout=rate))
+    n_enc, n_dec = base.encoder_config.num_hidden_layers, base.decoder_config.num_hidden_layers
+    packed = [packed_batch(base, 256, rows, 0.02, seed=300 + i) for i in range(steps)]
+    batches = [T.prepare_train_batch(b)[0] for b, _ in packed]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    dropped = _train_steps(cfg, batches, sharded=False)
+    torch.cuda.synchronize()
+    launches = path_launches()
+    plain = _train_steps(base, batches, sharded=False)
+    for name in ("attention_dropout", "attention_dq_dropout", "attention_dkv_dropout"):
+        check(launches[name] == steps * n_enc, f"{launches[name]} {name} launches for {steps} steps x {n_enc} encoder layers")
+    for name in ("attention", "attention_dq", "attention_dkv"):
+        check(launches[name] == steps * n_dec, f"{launches[name]} {name} launches for {steps} steps x {n_dec} decoder layers")
+    losses = dropped[0] + plain[0]
+    check(all(math.isfinite(x) for x in losses + dropped[4]), f"losses {dropped[0]} and {plain[0]}, norms {dropped[4]}")
+    check(dropped[0][0] != plain[0][0], "attention dropout left the step-0 loss where it was")
+    ms_drop, ms_plain = statistics.median(dropped[1][1:]), statistics.median(plain[1][1:])
+    emit({
+        "phase": "train_dropout_patch14l", "attention_dropout": rate, "dtype": "bfloat16 compute, float32 masters",
+        "rows": rows, "seq_len": 256, "images_per_batch": [n for _, n in packed], "steps": steps,
+        "losses_dropout": dropped[0], "losses_no_dropout": plain[0], "grad_norms_dropout": dropped[4],
+        "ms_per_step_dropout": ms_drop, "ms_per_step_no_dropout": ms_plain, "ms_steps_dropout": dropped[1],
+        "ms_steps_no_dropout": plain[1], "peak_gb_dropout": dropped[2], "peak_gb_no_dropout": plain[2],
+        "launches": launches,
+    })
+    return launches
+
+
+def phase_ar_example_head_dims(steps=20):
+    """tools/train_ar_example's loop (train_ar: train, save, sample, decode) on
+    the card at --hidden 192 and --hidden 64, whose 4 heads are 48 and 16 wide:
+    in fp32 as the tool trains (the CUDA-core kernels) and in bf16 (the tensor
+    cores), a few steps each."""
+    import tempfile
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.tools import train_ar_example as EX
+
+    pipe = dt.DCTPipeline.from_pretrained(R3B, sample_patches_beta=0.02)  # bf16 tokenizer on the card
+    images = smooth_images(8, 448, seed=2)
+    rows = []
+    for hidden, dtype in ((192, torch.float32), (64, torch.float32), (192, torch.bfloat16), (64, torch.bfloat16)):
+        with tempfile.TemporaryDirectory() as out:
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = EX.train_ar(pipe, images, steps=steps, batch_size=8, max_len=128, hidden=hidden, out=out, seed=0,
+                                 dtype=dtype, log=lambda _: None)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = path_launches()
+        tcfg = result["model"].config.transformer
+        head_dim = tcfg.hidden_size // tcfg.num_attention_heads
+        what = f"AR example hidden {hidden} {str(dtype).split('.')[-1]}"
+        check(head_dim == hidden // 4, f"{what}: head dim {head_dim}")
+        for name in CAUSAL_KERNELS:
+            check(launches[name] == tcfg.num_hidden_layers * steps, f"{what}: {launches[name]} {name} launches")
+        check_impl_launches(launches, "mma", "simt" if dtype == torch.float32 else "mma")
+        losses, img = result["losses"], result["image"]
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{what}: losses {losses}")
+        check(img.shape == (3, 448, 448) and np.isfinite(img).all(), f"{what}: the decoded sample")
+        rows.append({"hidden": hidden, "head_dim": head_dim, "dtype": str(dtype).split(".")[-1],
+                     "loss_first": losses[0], "loss_last": losses[-1], "sampled_tokens": len(result["sampled_record"]["codes"]),
+                     "wall_s": wall_s, "launches": {k: launches[k] for k in CAUSAL_KERNELS},
+                     "fwd_impl": launches["fwd_impl"], "bwd_impl": launches["bwd_impl"]})
+    emit({"phase": "ar_example_head_dims", "steps": steps, "runs": rows})
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3513,14 +3894,21 @@ KERNEL_TABLE = [
      "dct_autoencoder_tpu/kernels/attention.py:80", "attention_dq_causal", "ar_train"),
     ("attention_dkv_causal", "packed_attention_bwd_dkv_causal", "dct_autoencoder_torch/csrc/attention_bwd.cu",
      "dct_autoencoder_tpu/kernels/attention.py:80", "attention_dkv_causal", "ar_train"),
+    ("attention_dropout", "packed_attention_fwd_dropout", "dct_autoencoder_torch/csrc/attention_fwd.cu",
+     "dct_autoencoder_tpu/kernels/attention.py:91", "attention_dropout", "train_dropout_patch14l"),
+    ("attention_dq_dropout", "packed_attention_bwd_dq_dropout", "dct_autoencoder_torch/csrc/attention_bwd.cu",
+     "dct_autoencoder_tpu/kernels/attention.py:194", "attention_dq_dropout", "train_dropout_patch14l"),
+    ("attention_dkv_dropout", "packed_attention_bwd_dkv_dropout", "dct_autoencoder_torch/csrc/attention_bwd.cu",
+     "dct_autoencoder_tpu/kernels/attention.py:236", "attention_dkv_dropout", "train_dropout_patch14l"),
     ("dct", "fused_ipt_dct_patchify", "dct_autoencoder_torch/csrc/dct_patchify.cu",
      "dct_autoencoder_tpu/kernels/dct_patchify.py:43", "dct_patchify", "serving_daemon"),
     ("idct", "fused_idct_unpatchify_rgb", "dct_autoencoder_torch/csrc/idct_unpatchify.cu",
      "dct_autoencoder_tpu/kernels/idct_unpatchify.py:47", "idct_unpatchify", "serving_daemon"),
 ]
 SERVING_KERNELS = ("attention", "dct_patchify", "idct_unpatchify")
-FWD_KERNELS = ("attention", "attention_causal")
-BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attention_dkv_causal")
+FWD_KERNELS = ("attention", "attention_causal", "attention_dropout")
+BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attention_dkv_causal", "attention_dq_dropout",
+               "attention_dkv_dropout")
 # path -> (impl of its non-causal attention launches, impl of its causal ones):
 # bfloat16 runs on the tensor cores; the AR example tokenizes in bfloat16 and
 # trains its AR model in float32, and the sweep trains in float32 as its
@@ -3538,7 +3926,7 @@ PATH_IMPLS = {
     "tools_prepare_ar": ("mma", "mma"), "tools_eval_patch14l": ("mma", "mma"), "int8_study": ("mma", "mma"),
     "tools_eval_r3b": ("simt", "simt"), "tools_decode_gif": ("simt", "simt"), "tools_diagnose": ("simt", "simt"),
     "parallel_patch14l": ("mma", "mma"), "pipeline_patch14l": ("mma", "mma"),
-    "compile_probe": ("mma", "mma"),
+    "compile_probe": ("mma", "mma"), "train_dropout_patch14l": ("mma", "mma"),
 }
 
 
@@ -3568,6 +3956,9 @@ def main() -> int:
     if "--sharded-steps-rank" in sys.argv[1:]:  # one rank of phase_parallel_four_cards
         return sharded_steps_rank()
     smi = phase_environment()
+    if "--attention-device-times" in sys.argv[1:]:
+        attention_device_times()
+        return 0
     only = kernels_only(sys.argv[1:])
     cases = phase_kernels(only or "all")
     if only:
@@ -3582,6 +3973,8 @@ def main() -> int:
     launches["train_r3b"] = phase_train_r3b()
     torch.cuda.empty_cache()
     launches["train_patch14l"] = phase_train_full_width(profile)
+    torch.cuda.empty_cache()
+    launches["train_dropout_patch14l"] = phase_train_dropout_patch14l()
     torch.cuda.empty_cache()
     phase_opt8bit_card_vs_cpu()
     launches["train_pixel_r3b"] = phase_train_pixel_r3b()
@@ -3603,6 +3996,7 @@ def main() -> int:
     launches["ar_train"], ar_model = phase_ar_train_full_width(profile)
     launches["ar_example"], example_ar_model = phase_ar_example_r3b()
     phase_ar_sampling(ar_model)
+    phase_ar_example_head_dims()
     launches["serving_daemon"] = phase_serving_daemon_r3b(example_ar_model)
     del ar_model, example_ar_model
     torch.cuda.empty_cache()
@@ -3622,6 +4016,10 @@ def main() -> int:
     for path, impls in PATH_IMPLS.items():
         check_impl_launches(launches[path], *impls)
 
+    from dct_autoencoder_torch.kernels.attention import HEAD_DIMS
+
+    # what every attention kernel is compiled for; other head dims run padded to the next
+    instantiations = {"head_dims": list(HEAD_DIMS), "dropout_mode": [False, True], "impls": ["mma (bfloat16)", "simt"]}
     kernels = []
     for key, name, source, replaces, counter, path in KERNEL_TABLE:
         head = cases[key][0]  # the main path's shape
@@ -3636,6 +4034,8 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "ms_every_tile": head.get("ms_every_tile"), "shape": head["shape"], "card": smi,
             "impl": head.get("impl"), "simt_ms": head.get("simt_ms"), "kernel_info": head.get("kernel_info"),
+            "instantiations": instantiations if key.startswith("attention") else None,
+            "ms_no_dropout": head.get("ms_no_dropout"),
             **{k: head[k] for k in ("wrapper_ms", "bound_tf32x3_ms", "bound_fp32_cuda_cores_ms", "bound_bytes_ms") if k in head},
         })
     emit({"kernels": kernels})

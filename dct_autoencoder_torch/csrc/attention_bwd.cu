@@ -37,6 +37,21 @@
 // accumulator plus a product with an exact 0 is unchanged, so the sums do
 // not depend on skip_tiles.  In 'bias' mode nothing is skipped.
 //
+// Head dims: as the forward, every kernel is compiled for D = 16, 32, 64
+// and 128 and the wrapper pads d up to the next of them with zero columns
+// (the padded columns of dq, dk and dv are zero and cut off).
+//
+// Dropout (the `seed` argument, nullptr for none; the DROP instantiations):
+// the forward computed o = (p z / (1 - rate)) . v with z the keep bits of
+// attn_dropout.cuh and p = exp(logits - lse) the undropped weights; both
+// kernels draw the same z from the seed and compute
+//   dp = z / (1 - rate) * (do . v^T)        dv = (p z / (1 - rate))^T . do
+//   ds = p * (dp - delta) * scale           dq = ds . k, dk = ds^T . q
+// with delta = rowsum(do * o) of the dropped o, which is sum_j p_j dp_j.
+// In the tensor-core kernels the four keep bits of one Philox call go into
+// a bit mask a pass; the instantiations without dropout are the kernels as
+// they were.
+//
 // Two implementations of each kernel (the `impl` argument of the entry
 // points):
 //
@@ -92,6 +107,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "attn_dropout.cuh"
 #include "attn_mma.cuh"
 
 namespace {
@@ -120,13 +136,13 @@ constexpr size_t dkv_smem_bytes() {
     return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (BQ + 4) + 2 * BQ) + sizeof(int) * BQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(SIMT_THREADS)
 attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ o, const T* __restrict__ dout,
                const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ delta,
-               int h, int s, float scale, int bias_mode, int causal, int skip_tiles) {
+               int h, int s, float scale, int bias_mode, int causal, int skip_tiles, attn_drop::Params drop) {
     constexpr int KP = D + 1;       // padded k / v row (bank spread)
     constexpr int PP = BK + 4;      // padded ds row: (4 r + sub) spreads a warp over all banks
     constexpr int NK = BK / 4;      // keys per thread per tile
@@ -174,6 +190,9 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
     const float lse_r = q_in ? lse[(size_t)bh * s + qi] : 0.f;
     const int qid = q_in ? q_ids[(size_t)b * s + qi] : -3;
+    uint2 key{};
+    if constexpr (DROP) key = attn_drop::load_key(drop.seed);
+    const int drow = drop.row0 + b, dhead = drop.head0 + bh % h;
 
     float acc[NC];
 #pragma unroll
@@ -211,6 +230,9 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                 }
                 const bool allowed = qid == kid_s[j] && (!causal || k0 + j <= qi);
                 const float p = expf(masked_logit(dot, scale, allowed, bias_mode) - lse_r);
+                if constexpr (DROP) {
+                    dp = attn_drop::keep_pair(key, drop.threshold, drow, dhead, qi, k0 + j) ? dp * drop.keep_scale : 0.f;
+                }
                 ds = p * (dp - dl) * scale;
             }
             Ss[r * PP + j] = ds;
@@ -232,14 +254,14 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(SIMT_THREADS)
 attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout,
                 const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 T* __restrict__ dk, T* __restrict__ dv,
-                int h, int s, float scale, int bias_mode, int causal, int skip_tiles) {
+                int h, int s, float scale, int bias_mode, int causal, int skip_tiles, attn_drop::Params drop) {
     constexpr int QP = D + 1;       // padded q / do row
     constexpr int PP = BQ + 4;      // padded p^T / ds^T row, as in attn_dq_kernel
     constexpr int NQ = BQ / 4;      // queries per thread per tile
@@ -274,6 +296,9 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         vr[c] = k_in ? to_f(v[row + c]) : 0.f;
     }
     const int kid = k_in ? kv_ids[(size_t)b * s + kj] : -3;
+    uint2 key{};
+    if constexpr (DROP) key = attn_drop::load_key(drop.seed);
+    const int drow = drop.row0 + b, dhead = drop.head0 + bh % h;
 
     float dk_acc[NC], dv_acc[NC];
 #pragma unroll
@@ -317,7 +342,14 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 }
                 const bool allowed = qid_s[j] == kid && (!causal || kj <= q0 + j);
                 p = expf(masked_logit(dot, scale, allowed, bias_mode) - lse_s[j]);
+                float pd = p;  // the dropped weight, dv's factor
+                if constexpr (DROP) {
+                    const float z = attn_drop::keep_pair(key, drop.threshold, drow, dhead, q0 + j, kj) ? drop.keep_scale : 0.f;
+                    dp *= z;
+                    pd = p * z;
+                }
                 ds = p * (dp - delta_s[j]) * scale;
+                p = pd;
             }
             Pt[r * PP + j] = p;
             St[r * PP + j] = ds;
@@ -351,8 +383,7 @@ attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 using namespace attn_mma;
 using bf16 = __nv_bfloat16;
 
-constexpr int PASS = 32;           // streamed columns per pass: two passes over a 64-row tile
-constexpr int MMA_MIN_BLOCKS = 3;  // blocks per SM the register allocation aims at (<= 168 a thread)
+constexpr int PASS = 32;  // streamed columns per pass: two passes over a 64-row tile
 
 // p = exp(masked logit - lse) of one (query, key) pair, taken as
 // 2^(dot * scale * log2 e - lse * log2 e) with one FMA and one ex2.approx
@@ -372,19 +403,79 @@ __device__ __forceinline__ float pair_prob(float dot, float scale_log2e, float n
     return in ? p : 0.f;
 }
 
+// The dropout mode's keep bits of one pass: bit 4 j + e says whether element
+// e of the 8-column tile j of the pass's (16 x PASS) accumulators is kept
+// (e = 0, 1 on the own row r_lo, e = 2, 3 on r_lo + 8; column 8 j + 2t +
+// (e & 1) from col0).  One Philox call for each quadruple of
+// attn_dropout.cuh; `own_g` is the group of the thread's own rows, which are
+// queries in the dq kernel and keys in the dk/dv kernel (OWN_IS_QUERY), so
+// the group words land on other elements in the two.
+template <bool OWN_IS_QUERY>
+__device__ __forceinline__ uint32_t keep_bits(uint2 key, const attn_drop::Params& drop, int row, int head,
+                                              uint32_t own_g, int col0, int t) {
+    uint32_t bits = 0;
+#pragma unroll
+    for (int jj = 0; jj < PASS / 16; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const uint32_t col_g = attn_drop::group_of(col0 + 16 * jj + 2 * t + e);
+            const uint4 w = attn_drop::philox(
+                OWN_IS_QUERY ? make_uint4((uint32_t)row, (uint32_t)head, own_g, col_g)
+                             : make_uint4((uint32_t)row, (uint32_t)head, col_g, own_g),
+                key);
+            // w.x (q, k), w.y (q, k + 8), w.z (q + 8, k), w.w (q + 8, k + 8); the
+            // own row's + 8 is e + 2, the column's + 8 the tile 2 jj + 1
+            const int lo = 8 * jj + e, hi = 8 * jj + 4 + e;  // bit of (own, column) and of (own, column + 8)
+            bits |= (uint32_t)(w.x >= drop.threshold) << lo;
+            bits |= (uint32_t)(w.w >= drop.threshold) << (hi + 2);
+            if (OWN_IS_QUERY) {
+                bits |= (uint32_t)(w.y >= drop.threshold) << hi;
+                bits |= (uint32_t)(w.z >= drop.threshold) << (lo + 2);
+            } else {
+                bits |= (uint32_t)(w.y >= drop.threshold) << (lo + 2);
+                bits |= (uint32_t)(w.z >= drop.threshold) << hi;
+            }
+        }
+    }
+    return bits;
+}
+
+// Dynamic shared memory of the dq kernel: the K and V rings and the tile's kv ids.
 template <int D>
-__global__ void __launch_bounds__(THREADS, MMA_MIN_BLOCKS)
+constexpr size_t dq_mma_smem_bytes() {
+    return sizeof(bf16) * 2 * STAGES * TILE * D + sizeof(int) * STAGES * TILE;
+}
+
+// At D = 128 the dk/dv kernel keeps its own k and v tiles in shared memory
+// and reads their A fragments with ldmatrix at each use: in registers they
+// would take 64 of the 255 a thread, beside the 128 of the dk and dv
+// accumulators.
+template <int D>
+constexpr bool DKV_OWN_IN_SMEM = D >= 128;
+
+// Dynamic shared memory of the dk/dv kernel: the Q and dO rings, the tile's
+// lse, delta and q ids, and at D = 128 the own k and v tiles.
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+    return sizeof(bf16) * 2 * STAGES * TILE * D + 3 * sizeof(float) * STAGES * TILE +
+           (DKV_OWN_IN_SMEM<D> ? sizeof(bf16) * 2 * TILE * D : 0);
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
 attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
                    const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                    const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta,
-                   int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles) {
+                   int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
+                   attn_drop::Params drop) {
     constexpr int KS = D / 16;  // 16-deep steps over the head dim
     constexpr int NO = D / 8;   // 8-column tiles of the dq accumulator
 
-    __shared__ __align__(128) bf16 Ks[STAGES][TILE * D];
-    __shared__ __align__(128) bf16 Vs[STAGES][TILE * D];
-    __shared__ __align__(16) int kid_s[STAGES][TILE];
+    extern __shared__ __align__(128) unsigned char mma_smem[];
+    bf16(*Ks)[TILE * D] = reinterpret_cast<bf16(*)[TILE * D]>(mma_smem);
+    bf16(*Vs)[TILE * D] = Ks + STAGES;
+    int(*kid_s)[TILE] = reinterpret_cast<int(*)[TILE]>(Vs + STAGES);
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -444,6 +535,8 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     const float nlse_hi = in_hi ? -lse[(size_t)bh * s + r_hi] * LOG2E : -INFINITY;
     const int qid_lo = in_lo ? q_ids[(size_t)b * s + r_lo] : -3;
     const int qid_hi = in_hi ? q_ids[(size_t)b * s + r_hi] : -3;
+    uint2 key{};
+    if constexpr (DROP) key = attn_drop::load_key(drop.seed);
 
     float acc[NO][4];
 #pragma unroll
@@ -482,6 +575,11 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
                     mma_bf16(pa[2 * np + 1], da[kk], bv[2], bv[3]);
                 }
             }
+            uint32_t keep = 0;
+            if constexpr (DROP) {
+                keep = keep_bits<true>(key, drop, drop.row0 + b, drop.head0 + bh % h, attn_drop::group_of(r_lo),
+                                       k0 + c0, t);
+            }
             // ds in fragment coordinates, in place of S
 #pragma unroll
             for (int j = 0; j < PASS / 8; ++j) {
@@ -494,7 +592,9 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
                     const bool allowed = pair_allowed(hi ? qid_hi : qid_lo, (e & 1) ? kid.y : kid.x,
                                                       hi ? r_hi : r_lo, k_pos, causal);
                     const float p = pair_prob(sa[j][e], scale_log2e, hi ? nlse_hi : nlse_lo, allowed, k_pos < s, bias_mode);
-                    sa[j][e] = p * (pa[j][e] - (hi ? delta_hi : delta_lo)) * scale;
+                    float dp = pa[j][e];
+                    if constexpr (DROP) dp = (keep >> (4 * j + e)) & 1u ? dp * drop.keep_scale : 0.f;
+                    sa[j][e] = p * (dp - (hi ? delta_hi : delta_lo)) * scale;
                 }
             }
             // dq += dS.K over these 32 keys
@@ -524,22 +624,27 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, MMA_MIN_BLOCKS)
+template <int D, bool DROP>
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
 attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                     const bf16* __restrict__ dout,
                     const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles) {
+                    int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
+                    attn_drop::Params drop) {
     constexpr int KS = D / 16;
     constexpr int NO = D / 8;
+    constexpr bool OWN_SMEM = DKV_OWN_IN_SMEM<D>;
 
-    __shared__ __align__(128) bf16 Qs[STAGES][TILE * D];
-    __shared__ __align__(128) bf16 Os[STAGES][TILE * D];  // do
-    __shared__ __align__(16) float lse_s[STAGES][TILE];
-    __shared__ __align__(16) float delta_s[STAGES][TILE];
-    __shared__ __align__(16) int qid_s[STAGES][TILE];
+    extern __shared__ __align__(128) unsigned char mma_smem[];
+    bf16(*Qs)[TILE * D] = reinterpret_cast<bf16(*)[TILE * D]>(mma_smem);
+    bf16(*Os)[TILE * D] = Qs + STAGES;  // do
+    float(*lse_s)[TILE] = reinterpret_cast<float(*)[TILE]>(Os + STAGES);
+    float(*delta_s)[TILE] = lse_s + STAGES;
+    int(*qid_s)[TILE] = reinterpret_cast<int(*)[TILE]>(delta_s + STAGES);
+    bf16* k_own = reinterpret_cast<bf16*>(qid_s + STAGES);  // OWN_SMEM only
+    bf16* v_own = k_own + TILE * D;
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -567,18 +672,26 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
             load_row_async(qid_s[stage], qidb, q0, s, tid);
         }
     };
+    if constexpr (OWN_SMEM) {  // in the first group: it has arrived when tile 0 has
+        load_tile_async<D>(k_own, k + base, kt0, s, tid);
+        load_tile_async<D>(v_own, v + base, kt0, s, tid);
+    }
     load_stage(0, qt_begin * TILE);
     cp_async_commit();
 
     // the block's own rows: this thread holds keys r_lo and r_hi of k and v
     const int r_lo = kt0 + warp * 16 + g, r_hi = r_lo + 8;
     const bool in_lo = r_lo < s, in_hi = r_hi < s;
-    uint32_t ka[KS][4], va[KS][4];
-    load_a_global<D>(ka, k + base, r_lo, r_hi, s, t);
-    load_a_global<D>(va, v + base, r_lo, r_hi, s, t);
+    uint32_t ka[OWN_SMEM ? 1 : KS][4], va[OWN_SMEM ? 1 : KS][4];
+    if constexpr (!OWN_SMEM) {
+        load_a_global<D>(ka, k + base, r_lo, r_hi, s, t);
+        load_a_global<D>(va, v + base, r_lo, r_hi, s, t);
+    }
     const int kid_lo = in_lo ? kv_ids[(size_t)b * s + r_lo] : -3;
     const int kid_hi = in_hi ? kv_ids[(size_t)b * s + r_hi] : -3;
     const float scale_log2e = scale * LOG2E;
+    uint2 key{};
+    if constexpr (DROP) key = attn_drop::load_key(drop.seed);
 
     float dk_acc[NO][4], dv_acc[NO][4];
 #pragma unroll
@@ -608,16 +721,32 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
                 for (int e = 0; e < 4; ++e) sa[j][e] = pa[j][e] = 0.f;
 #pragma unroll
             for (int kk = 0; kk < KS; ++kk) {
+                uint32_t ak[4], av[4];
+                if constexpr (OWN_SMEM) {
+                    load_a_smem<D>(ak, k_own, warp * 16, kk, lane);
+                    load_a_smem<D>(av, v_own, warp * 16, kk, lane);
+                } else {
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
+                        ak[i] = ka[kk][i];
+                        av[i] = va[kk][i];
+                    }
+                }
 #pragma unroll
                 for (int np = 0; np < PASS / 16; ++np) {
                     uint32_t bq[4], bo[4];
                     load_b_rows<D>(bq, Qt, c0 + np * 16, kk, lane);
                     load_b_rows<D>(bo, Ot, c0 + np * 16, kk, lane);
-                    mma_bf16(sa[2 * np], ka[kk], bq[0], bq[1]);
-                    mma_bf16(sa[2 * np + 1], ka[kk], bq[2], bq[3]);
-                    mma_bf16(pa[2 * np], va[kk], bo[0], bo[1]);
-                    mma_bf16(pa[2 * np + 1], va[kk], bo[2], bo[3]);
+                    mma_bf16(sa[2 * np], ak, bq[0], bq[1]);
+                    mma_bf16(sa[2 * np + 1], ak, bq[2], bq[3]);
+                    mma_bf16(pa[2 * np], av, bo[0], bo[1]);
+                    mma_bf16(pa[2 * np + 1], av, bo[2], bo[3]);
                 }
+            }
+            uint32_t keep = 0;
+            if constexpr (DROP) {
+                keep = keep_bits<false>(key, drop, drop.row0 + b, drop.head0 + bh % h, attn_drop::group_of(r_lo),
+                                        q0 + c0, t);
             }
             // p^T in place of S^T, ds^T in place of dP^T; lse, delta and q ids go by column
 #pragma unroll
@@ -637,8 +766,14 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
                     // a key row past the end needs no mask: the rows of a product do not mix,
                     // and its rows of dk and dv are not stored
                     const float p = pair_prob(sa[j][e], scale_log2e, (e & 1) ? nl.y : nl.x, allowed, true, bias_mode);
-                    sa[j][e] = p;
-                    pa[j][e] = p * (pa[j][e] - ((e & 1) ? dl.y : dl.x)) * scale;
+                    if constexpr (DROP) {
+                        const float z = (keep >> (4 * j + e)) & 1u ? drop.keep_scale : 0.f;
+                        sa[j][e] = p * z;
+                        pa[j][e] = p * (pa[j][e] * z - ((e & 1) ? dl.y : dl.x)) * scale;
+                    } else {
+                        sa[j][e] = p;
+                        pa[j][e] = p * (pa[j][e] - ((e & 1) ? dl.y : dl.x)) * scale;
+                    }
                 }
             }
             // dv += P^T.dO and dk += dS^T.Q over these 32 queries
@@ -688,117 +823,152 @@ struct BwdArgs {
     int b, h, s;
     float scale;
     int bias_mode, causal, skip_tiles;
+    attn_drop::Params drop;
     cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t launch_dq(const BwdArgs& a) {
     constexpr size_t smem = dq_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        attn_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        attn_dq_kernel<T, D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid(a.b * a.h, (a.s + BQ - 1) / BQ);
-    attn_dq_kernel<T, D><<<grid, SIMT_THREADS, smem, a.stream>>>(
+    attn_dq_kernel<T, D, DROP><<<grid, SIMT_THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.q_ids, a.kv_ids, a.lse,
-        static_cast<T*>(a.dq), a.delta, a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles);
+        static_cast<T*>(a.dq), a.delta, a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles, a.drop);
     return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t launch_dkv(const BwdArgs& a) {
     constexpr size_t smem = dkv_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        attn_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        attn_dkv_kernel<T, D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid(a.b * a.h, (a.s + BK - 1) / BK);
-    attn_dkv_kernel<T, D><<<grid, SIMT_THREADS, smem, a.stream>>>(
+    attn_dkv_kernel<T, D, DROP><<<grid, SIMT_THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.dout), a.q_ids, a.kv_ids, a.lse, a.delta,
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles);
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles,
+        a.drop);
     return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool DROP>
 cudaError_t launch_dq_mma(const BwdArgs& a) {
+    constexpr size_t smem = dq_mma_smem_bytes<D>();
+    cudaError_t err = allow_smem(attn_dq_mma_kernel<D, DROP>, smem);
+    if (err != cudaSuccess) return err;
     const int n_tiles = (a.s + TILE - 1) / TILE;
-    attn_dq_mma_kernel<D><<<a.b * a.h * n_tiles, THREADS, 0, a.stream>>>(
+    attn_dq_mma_kernel<D, DROP><<<a.b * a.h * n_tiles, THREADS, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
         static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.q_ids, a.kv_ids, a.lse,
-        static_cast<bf16*>(a.dq), a.delta, a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal, a.skip_tiles);
+        static_cast<bf16*>(a.dq), a.delta, a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal, a.skip_tiles,
+        a.drop);
     return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool DROP>
 cudaError_t launch_dkv_mma(const BwdArgs& a) {
+    constexpr size_t smem = dkv_mma_smem_bytes<D>();
+    cudaError_t err = allow_smem(attn_dkv_mma_kernel<D, DROP>, smem);
+    if (err != cudaSuccess) return err;
     const int n_tiles = (a.s + TILE - 1) / TILE;
-    attn_dkv_mma_kernel<D><<<a.b * a.h * n_tiles, THREADS, 0, a.stream>>>(
+    attn_dkv_mma_kernel<D, DROP><<<a.b * a.h * n_tiles, THREADS, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
         static_cast<const bf16*>(a.dout), a.q_ids, a.kv_ids, a.lse, a.delta,
         static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal,
-        a.skip_tiles);
+        a.skip_tiles, a.drop);
     return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t simt_info(int dkv, int* out) {
-    if (dkv) return kernel_info(attn_dkv_kernel<T, D>, SIMT_THREADS, dkv_smem_bytes<D>(), out);
-    return kernel_info(attn_dq_kernel<T, D>, SIMT_THREADS, dq_smem_bytes<D>(), out);
-}
-
-template <int D>
-cudaError_t mma_info(int dkv, int* out) {
-    if (dkv) return kernel_info(attn_dkv_mma_kernel<D>, THREADS, 0, out);
-    return kernel_info(attn_dq_mma_kernel<D>, THREADS, 0, out);
-}
-
 // impl 1 takes bfloat16 only; float32 has the CUDA-core kernels alone
-bool known(int impl, int dtype, int d) {
-    return (d == 32 || d == 64) && (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
+bool known(int impl, int dtype) {
+    return (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
+}
+
+// One backward kernel (DKV: dk/dv, else dq) of head dim d: launched, or
+// (info != nullptr) described.
+template <bool DKV>
+cudaError_t run(int impl, int dtype, int d, bool drop, const BwdArgs* a, int* info) {
+    if (!known(impl, dtype)) return cudaErrorInvalidValue;
+    return dispatch(d, drop, [&](auto inst) {
+        constexpr int D = decltype(inst)::D;
+        constexpr bool DROP = decltype(inst)::DROP;
+        using bf = __nv_bfloat16;
+        if constexpr (DKV) {
+            if (info != nullptr) {
+                if (impl == 1) return kernel_info(attn_dkv_mma_kernel<D, DROP>, THREADS, dkv_mma_smem_bytes<D>(), info);
+                if (dtype == 1) return kernel_info(attn_dkv_kernel<bf, D, DROP>, SIMT_THREADS, dkv_smem_bytes<D>(), info);
+                return kernel_info(attn_dkv_kernel<float, D, DROP>, SIMT_THREADS, dkv_smem_bytes<D>(), info);
+            }
+            if (a->b * a->h == 0 || a->s == 0) return cudaSuccess;
+            if (impl == 1) return launch_dkv_mma<D, DROP>(*a);
+            if (dtype == 1) return launch_dkv<bf, D, DROP>(*a);
+            return launch_dkv<float, D, DROP>(*a);
+        } else {
+            if (info != nullptr) {
+                if (impl == 1) return kernel_info(attn_dq_mma_kernel<D, DROP>, THREADS, dq_mma_smem_bytes<D>(), info);
+                if (dtype == 1) return kernel_info(attn_dq_kernel<bf, D, DROP>, SIMT_THREADS, dq_smem_bytes<D>(), info);
+                return kernel_info(attn_dq_kernel<float, D, DROP>, SIMT_THREADS, dq_smem_bytes<D>(), info);
+            }
+            if (a->b * a->h == 0 || a->s == 0) return cudaSuccess;
+            if (impl == 1) return launch_dq_mma<D, DROP>(*a);
+            if (dtype == 1) return launch_dq<bf, D, DROP>(*a);
+            return launch_dq<float, D, DROP>(*a);
+        }
+    });
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; impl: 0 = CUDA cores ("simt"), 1 = tensor
-// cores ("mma", bfloat16 only); causal and skip_tiles as in the header.
-// All return a cudaError_t (0 on success).
+// The source builds two libraries, one a kernel, so that their two nvcc runs
+// go in parallel: ATTN_BWD_PART 0 holds the dq kernel (attn_bwd_dq), 1 the
+// dk/dv kernel (attn_bwd_dkv); kernels/_build.py passes the define.
+#ifndef ATTN_BWD_PART
+#error "build with -DATTN_BWD_PART=0 (dq) or -DATTN_BWD_PART=1 (dk/dv)"
+#endif
 
+// dtype: 0 = float32, 1 = bfloat16; impl: 0 = CUDA cores ("simt"), 1 = tensor
+// cores ("mma", bfloat16 only); d one of 16, 32, 64, 128; causal and
+// skip_tiles as in the header; seed, threshold, keep_scale, row0 and head0
+// as in attn_fwd (attention_fwd.cu), the same as the forward got.  All
+// return a cudaError_t (0 on success).
+
+#if ATTN_BWD_PART == 0
 // dq (b, h, s, d) in the input type, and delta (b, h, s) float32 as a by-product.
 extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const int* q_ids, const int* kv_ids,
                            const float* lse, void* dq, float* delta, int b, int h, int s, int d,
                            float scale, int bias_mode, int causal, int skip_tiles, int dtype, int impl,
-                           void* stream) {
-    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
-    if (b * h == 0 || s == 0) return cudaSuccess;
+                           const unsigned long long* seed, unsigned int threshold, float keep_scale, int row0,
+                           int head0, void* stream) {
     const BwdArgs a{q, k, v, o, dout, q_ids, kv_ids, lse, delta, dq, nullptr, nullptr,
-                    b, h, s, scale, bias_mode, causal, skip_tiles, static_cast<cudaStream_t>(stream)};
-    if (impl == 1) return d == 64 ? launch_dq_mma<64>(a) : launch_dq_mma<32>(a);
-    if (dtype == 1) return d == 64 ? launch_dq<__nv_bfloat16, 64>(a) : launch_dq<__nv_bfloat16, 32>(a);
-    return d == 64 ? launch_dq<float, 64>(a) : launch_dq<float, 32>(a);
+                    b, h, s, scale, bias_mode, causal, skip_tiles,
+                    attn_drop::Params{seed, threshold, keep_scale, row0, head0}, static_cast<cudaStream_t>(stream)};
+    return run<false>(impl, dtype, d, seed != nullptr, &a, nullptr);
 }
-
+#else
 // dk, dv (b, h, s, d) in the input type; delta is the buffer attn_bwd_dq filled.
 extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const int* q_ids, const int* kv_ids, const float* lse,
                             float* delta, void* dk, void* dv, int b, int h, int s, int d,
                             float scale, int bias_mode, int causal, int skip_tiles, int dtype, int impl,
-                            void* stream) {
-    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
-    if (b * h == 0 || s == 0) return cudaSuccess;
+                            const unsigned long long* seed, unsigned int threshold, float keep_scale, int row0,
+                            int head0, void* stream) {
     const BwdArgs a{q, k, v, nullptr, dout, q_ids, kv_ids, lse, delta, nullptr, dk, dv,
-                    b, h, s, scale, bias_mode, causal, skip_tiles, static_cast<cudaStream_t>(stream)};
-    if (impl == 1) return d == 64 ? launch_dkv_mma<64>(a) : launch_dkv_mma<32>(a);
-    if (dtype == 1) return d == 64 ? launch_dkv<__nv_bfloat16, 64>(a) : launch_dkv<__nv_bfloat16, 32>(a);
-    return d == 64 ? launch_dkv<float, 64>(a) : launch_dkv<float, 32>(a);
+                    b, h, s, scale, bias_mode, causal, skip_tiles,
+                    attn_drop::Params{seed, threshold, keep_scale, row0, head0}, static_cast<cudaStream_t>(stream)};
+    return run<true>(impl, dtype, d, seed != nullptr, &a, nullptr);
 }
+#endif
 
-// What the compiler and the card make of one instantiation (dkv: 0 = dq,
-// 1 = dk/dv): out[0] registers a thread, out[1] local-memory (spill) bytes a
-// thread, out[2] blocks that fit on one SM, out[3] shared-memory bytes a block.
-extern "C" int attn_bwd_kernel_info(int dkv, int impl, int dtype, int d, int* out) {
-    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
-    if (impl == 1) return d == 64 ? mma_info<64>(dkv, out) : mma_info<32>(dkv, out);
-    if (dtype == 1) return d == 64 ? simt_info<__nv_bfloat16, 64>(dkv, out) : simt_info<__nv_bfloat16, 32>(dkv, out);
-    return d == 64 ? simt_info<float, 64>(dkv, out) : simt_info<float, 32>(dkv, out);
+// What the compiler and the card make of one instantiation of this
+// library's kernel (drop: the dropout mode's): out[0] registers a thread,
+// out[1] local-memory (spill) bytes a thread, out[2] blocks that fit on one
+// SM, out[3] shared-memory bytes a block.
+extern "C" int attn_bwd_kernel_info(int impl, int dtype, int d, int drop, int* out) {
+    return run<ATTN_BWD_PART == 1>(impl, dtype, d, drop != 0, nullptr, out);
 }

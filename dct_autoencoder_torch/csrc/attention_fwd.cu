@@ -33,6 +33,22 @@
 // tiles from the last to the first, so that the longest causal blocks are
 // scheduled first.
 //
+// Head dims: every kernel is compiled for D = 16, 32, 64 and 128; the
+// wrapper (kernels/attention.py) pads q, k and v with zero columns up to the
+// next of them and cuts o back, which is exact (a zero column adds nothing
+// to q.k, and a padded v column only makes an o column that is cut off).
+//
+// Dropout (the `seed` argument, nullptr for none; the DROP instantiations):
+// the softmax weights are dropped as the JAX package drops them on its XLA
+// path, o_i = (1/l_i) sum_j p_ij z_ij v_j / (1 - rate), with z the keep bit
+// of attn_dropout.cuh.  l and lse sum the undropped p, so the backward
+// recomputes p from lse as before; the dropped p is zeroed after it entered
+// l (in the tensor-core kernel after its rounding point: zeroing commutes with
+// the bf16 rounding), and 1/(1 - rate) is applied in fp32 with 1/l at the
+// end.  The mask is drawn only for the tiles a block computes.  The
+// instantiations without dropout are the kernels as they were, so they keep
+// their registers and times.
+//
 // Two implementations (the `impl` argument of the entry point):
 //
 // impl 1, "mma", bfloat16 only: attn_fwd_mma_kernel multiplies on the tensor
@@ -90,6 +106,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "attn_dropout.cuh"
 #include "attn_mma.cuh"
 
 namespace {
@@ -111,12 +128,12 @@ constexpr size_t smem_bytes() {
     return sizeof(float) * (BK * (D + 1) + BK * D + BQ * (BK + 1)) + sizeof(int) * BK;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(SIMT_THREADS)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                 T* __restrict__ o, float* __restrict__ lse,
-                int h, int s, float scale, int bias_mode, int causal, int skip_tiles) {
+                int h, int s, float scale, int bias_mode, int causal, int skip_tiles, attn_drop::Params drop) {
     constexpr int KP = D + 1;       // padded k row (bank spread)
     constexpr int PP = BK + 1;      // padded p row
     constexpr int NK = BK / 4;      // keys per thread per tile
@@ -149,6 +166,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
     float m = -5e8f;   // the reference's clamp on the row max
     float l = 0.f;
+    uint2 key{};
+    if constexpr (DROP) key = attn_drop::load_key(drop.seed);
+    const int drow = drop.row0 + b, dhead = drop.head0 + bh % h;
     float acc[NC];
 #pragma unroll
     for (int i = 0; i < NC; ++i) acc[i] = 0.f;
@@ -202,8 +222,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         float psum = 0.f;
 #pragma unroll
         for (int i = 0; i < NK; ++i) {
-            const float p = expf(sv[i] - m_new);
+            float p = expf(sv[i] - m_new);
             psum += p;
+            if constexpr (DROP) {
+                if (!attn_drop::keep_pair(key, drop.threshold, drow, dhead, qi, k0 + sub + 4 * i)) p = 0.f;
+            }
             Ps[r * PP + sub + 4 * i] = p;
         }
         psum += __shfl_xor_sync(0xffffffffu, psum, 1);
@@ -224,7 +247,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
     if (q_in) {
         const float denom = fmaxf(l, 1e-9f);
-        const float inv = 1.f / denom;
+        float inv = 1.f / denom;
+        if constexpr (DROP) inv *= drop.keep_scale;
         T* ob = o + base + (size_t)qi * D;
 #pragma unroll
         for (int i = 0; i < NC; ++i) ob[sub + 4 * i] = from_f<T>(acc[i] * inv);
@@ -236,8 +260,6 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
 using namespace attn_mma;
 using bf16 = __nv_bfloat16;
-
-constexpr int MMA_MIN_BLOCKS = 3;  // blocks per SM the register allocation aims at (<= 168 a thread)
 
 // The online softmax of one warp's 16 rows for one streamed tile: `sa` holds
 // S = Q.K^T (this thread's rows r_lo and r_lo + 8, 16 of the tile's columns)
@@ -294,19 +316,48 @@ __device__ __forceinline__ void softmax_tile(float (&sa)[NS][4], float (&m)[2], 
     }
 }
 
+// Dynamic shared memory of the tensor-core kernel: the K and V rings and the
+// tile's kv ids.
 template <int D>
-__global__ void __launch_bounds__(THREADS, MMA_MIN_BLOCKS)
+constexpr size_t mma_smem_bytes() {
+    return sizeof(bf16) * 2 * STAGES * TILE * D + sizeof(int) * STAGES * TILE;
+}
+
+// The dropout mode's keep bits of one warp's rows for 16 keys of a streamed
+// tile, keys k16 + 2t + e in `even` and k16 + 8 + 2t + e in `odd`
+// (accumulator layout), applied to their p: one Philox call for each of the
+// two quadruples (rows r_lo, r_lo + 8; keys k16 + 2t + e, + 8), just before
+// the pair is packed for P.V, so that the draws of a tile do not all hold
+// registers at once.
+__device__ __forceinline__ void drop_pair(float (&even)[4], float (&odd)[4], uint2 key, const attn_drop::Params& drop,
+                                          int row, int head, int r_lo, int k16, int t) {
+    const uint32_t qg = attn_drop::group_of(r_lo);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+        const uint4 w = attn_drop::philox(
+            make_uint4((uint32_t)row, (uint32_t)head, qg, attn_drop::group_of(k16 + 2 * t + e)), key);
+        if (w.x < drop.threshold) even[e] = 0.f;
+        if (w.y < drop.threshold) odd[e] = 0.f;
+        if (w.z < drop.threshold) even[2 + e] = 0.f;
+        if (w.w < drop.threshold) odd[2 + e] = 0.f;
+    }
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
 attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                     const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                     bf16* __restrict__ o, float* __restrict__ lse,
-                    int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles) {
+                    int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
+                    attn_drop::Params drop) {
     constexpr int KS = D / 16;    // 16-deep steps over the head dim (S = Q.K^T)
     constexpr int NS = TILE / 8;  // 8-column tiles of S over the streamed tile's keys
     constexpr int NO = D / 8;     // 8-column tiles of the o accumulator
 
-    __shared__ __align__(128) bf16 Ks[STAGES][TILE * D];
-    __shared__ __align__(128) bf16 Vs[STAGES][TILE * D];
-    __shared__ __align__(16) int kid_s[STAGES][TILE];
+    extern __shared__ __align__(128) unsigned char mma_smem[];
+    bf16(*Ks)[TILE * D] = reinterpret_cast<bf16(*)[TILE * D]>(mma_smem);
+    bf16(*Vs)[TILE * D] = Ks + STAGES;
+    int(*kid_s)[TILE] = reinterpret_cast<int(*)[TILE]>(Vs + STAGES);
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
@@ -349,6 +400,8 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     for (int j = 0; j < NO; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    uint2 key{};
+    if constexpr (DROP) key = attn_drop::load_key(drop.seed);
 
     for (int it = 0; it < n_kt; ++it) {
         if (it + 1 < n_kt) load_stage((it + 1) & 1, (it + 1) * TILE);
@@ -379,6 +432,10 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
         // O += P.V over the tile's 64 keys, p rounded to bf16 in registers
 #pragma unroll
         for (int ks = 0; ks < TILE / 16; ++ks) {
+            if constexpr (DROP) {
+                drop_pair(sa[2 * ks], sa[2 * ks + 1], key, drop, drop.row0 + b, drop.head0 + bh % h, r_lo,
+                          it * TILE + 16 * ks, t);
+            }
             uint32_t pa[4];
             pack_a_from_c(pa, sa[2 * ks], sa[2 * ks + 1]);
 #pragma unroll
@@ -400,7 +457,8 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         const float den = fmaxf(sum, 1e-9f);
-        const float inv = 1.f / den;
+        float inv = 1.f / den;
+        if constexpr (DROP) inv *= drop.keep_scale;
         if (r >= s) continue;
         bf16* orow = o + base + (size_t)r * D;
 #pragma unroll
@@ -422,68 +480,79 @@ struct FwdArgs {
     int b, h, s;
     float scale;
     int bias_mode, causal, skip_tiles;
+    attn_drop::Params drop;
     cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t launch_simt(const FwdArgs& a) {
     constexpr size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        attn_fwd_kernel<T, D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid(a.b * a.h, (a.s + BQ - 1) / BQ);
-    attn_fwd_kernel<T, D><<<grid, SIMT_THREADS, smem, a.stream>>>(
+    attn_fwd_kernel<T, D, DROP><<<grid, SIMT_THREADS, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        a.q_ids, a.kv_ids, static_cast<T*>(a.o), a.lse, a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles);
+        a.q_ids, a.kv_ids, static_cast<T*>(a.o), a.lse, a.h, a.s, a.scale, a.bias_mode, a.causal, a.skip_tiles,
+        a.drop);
     return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool DROP>
 cudaError_t launch_mma(const FwdArgs& a) {
+    constexpr size_t smem = mma_smem_bytes<D>();
+    cudaError_t err = allow_smem(attn_fwd_mma_kernel<D, DROP>, smem);
+    if (err != cudaSuccess) return err;
     const int n_tiles = (a.s + TILE - 1) / TILE;
-    attn_fwd_mma_kernel<D><<<a.b * a.h * n_tiles, THREADS, 0, a.stream>>>(
+    attn_fwd_mma_kernel<D, DROP><<<a.b * a.h * n_tiles, THREADS, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
         a.q_ids, a.kv_ids, static_cast<bf16*>(a.o), a.lse, a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal,
-        a.skip_tiles);
+        a.skip_tiles, a.drop);
     return cudaGetLastError();
 }
 
 // impl 1 takes bfloat16 only; float32 has the CUDA-core kernel alone
-bool known(int impl, int dtype, int d) {
-    return (d == 32 || d == 64) && (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
+bool known(int impl, int dtype) {
+    return (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; impl: 0 = CUDA cores ("simt"), 1 = tensor
-// cores ("mma", bfloat16 only); causal and skip_tiles as in the header.
-// Returns a cudaError_t (0 on success).
+// cores ("mma", bfloat16 only); d one of 16, 32, 64, 128; causal and
+// skip_tiles as in the header.  seed: nullptr, or the device address of the
+// 64-bit dropout seed, with the keep threshold, 1 / (1 - rate) and the
+// offsets of this call's rows and heads (attn_dropout.cuh).  Returns a
+// cudaError_t (0 on success).
 extern "C" int attn_fwd(const void* q, const void* k, const void* v, const int* q_ids,
                         const int* kv_ids, void* o, float* lse, int b, int h, int s, int d,
                         float scale, int bias_mode, int causal, int skip_tiles, int dtype, int impl,
-                        void* stream) {
-    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
-    if (b * h == 0 || s == 0) return cudaSuccess;
+                        const unsigned long long* seed, unsigned int threshold, float keep_scale, int row0,
+                        int head0, void* stream) {
+    if (!known(impl, dtype)) return cudaErrorInvalidValue;
+    if (b * h == 0 || s == 0) return dispatch(d, false, [](auto) { return cudaSuccess; });
     const FwdArgs a{q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles,
-                    static_cast<cudaStream_t>(stream)};
-    if (impl == 1) return d == 64 ? launch_mma<64>(a) : launch_mma<32>(a);
-    if (dtype == 1) return d == 64 ? launch_simt<__nv_bfloat16, 64>(a) : launch_simt<__nv_bfloat16, 32>(a);
-    return d == 64 ? launch_simt<float, 64>(a) : launch_simt<float, 32>(a);
+                    attn_drop::Params{seed, threshold, keep_scale, row0, head0}, static_cast<cudaStream_t>(stream)};
+    return dispatch(d, seed != nullptr, [&](auto inst) {
+        constexpr int D = decltype(inst)::D;
+        constexpr bool DROP = decltype(inst)::DROP;
+        if (impl == 1) return launch_mma<D, DROP>(a);
+        if (dtype == 1) return launch_simt<__nv_bfloat16, D, DROP>(a);
+        return launch_simt<float, D, DROP>(a);
+    });
 }
 
-// What the compiler and the card make of one instantiation: out[0] registers
-// a thread, out[1] local-memory (spill) bytes a thread, out[2] blocks that
-// fit on one SM, out[3] shared-memory bytes a block.
-extern "C" int attn_fwd_kernel_info(int impl, int dtype, int d, int* out) {
-    if (!known(impl, dtype, d)) return cudaErrorInvalidValue;
-    if (impl == 1) {
-        return d == 64 ? kernel_info(attn_fwd_mma_kernel<64>, THREADS, 0, out)
-                       : kernel_info(attn_fwd_mma_kernel<32>, THREADS, 0, out);
-    }
-    if (dtype == 1) {
-        return d == 64 ? kernel_info(attn_fwd_kernel<__nv_bfloat16, 64>, SIMT_THREADS, smem_bytes<64>(), out)
-                       : kernel_info(attn_fwd_kernel<__nv_bfloat16, 32>, SIMT_THREADS, smem_bytes<32>(), out);
-    }
-    return d == 64 ? kernel_info(attn_fwd_kernel<float, 64>, SIMT_THREADS, smem_bytes<64>(), out)
-                   : kernel_info(attn_fwd_kernel<float, 32>, SIMT_THREADS, smem_bytes<32>(), out);
+// What the compiler and the card make of one instantiation (drop: the
+// dropout mode's): out[0] registers a thread, out[1] local-memory (spill)
+// bytes a thread, out[2] blocks that fit on one SM, out[3] shared-memory
+// bytes a block.
+extern "C" int attn_fwd_kernel_info(int impl, int dtype, int d, int drop, int* out) {
+    if (!known(impl, dtype)) return cudaErrorInvalidValue;
+    return dispatch(d, drop != 0, [&](auto inst) {
+        constexpr int D = decltype(inst)::D;
+        constexpr bool DROP = decltype(inst)::DROP;
+        if (impl == 1) return kernel_info(attn_fwd_mma_kernel<D, DROP>, THREADS, mma_smem_bytes<D>(), out);
+        if (dtype == 1) return kernel_info(attn_fwd_kernel<__nv_bfloat16, D, DROP>, SIMT_THREADS, smem_bytes<D>(), out);
+        return kernel_info(attn_fwd_kernel<float, D, DROP>, SIMT_THREADS, smem_bytes<D>(), out);
+    });
 }

@@ -38,13 +38,20 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Offset, in elements, of 16-byte chunk `chunk` of row `row` in a [TILE][D]
 // bf16 tile.  The eight rows one ldmatrix reads at one chunk index must fall
-// into different banks: a 128-byte row (D = 64) takes chunk ^ (row & 7); two
-// 64-byte rows (D = 32) share 128 bytes, so the pair index is XORed in.
+// into different banks, i.e. onto the eight 16-byte slots of a 128-byte line:
+// rows of at least 128 bytes (D >= 64) take chunk ^ (row & 7); shorter rows
+// share a line (two at D = 32, four at D = 16), so the index of the row's
+// group of lines is XORed in.
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
-    static_assert(D == 64 || D == 32, "head dim 32 or 64");
-    if (D == 64) return row * 64 + ((chunk ^ (row & 7)) << 3);
-    return row * 32 + ((chunk ^ ((row >> 1) & 3)) << 3);
+    static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
+    constexpr int CH = D / 8;  // 16-byte chunks a row
+    if constexpr (CH >= 8) {
+        return row * D + ((chunk ^ (row & 7)) << 3);
+    } else {
+        constexpr int ROWS_A_LINE = 8 / CH;
+        return row * D + ((chunk ^ ((row / ROWS_A_LINE) & (CH - 1))) << 3);
+    }
 }
 
 // ---- cp.async: src_bytes < the copy size zero-fills the rest
@@ -68,8 +75,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // a thread and copy; rows past s are zero-filled (garbage times p = 0 would
 // be NaN in an accumulator).  A copy of 0 source bytes reads nothing, so its
 // address may lie past the stripe: the thread's copies are then one address
-// plus constants on both sides (16 rows apart at D = 64, where the swizzle
-// repeats every 8 rows; 32 apart at D = 32).
+// plus constants on both sides (STEP rows apart, a multiple of the 8 rows
+// after which the swizzle repeats).
 template <int D>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* tile, const __nv_bfloat16* stripe,
                                                 int row0, int s, int tid) {
@@ -142,6 +149,14 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
+// A fragments of rows r0 .. r0+15 of a swizzled tile for the 16-deep step kk
+// over the head dim, read with ldmatrix as the tile lies (lanes 0-15 address
+// the rows at chunk 2 kk, lanes 16-31 at chunk 2 kk + 1).
+template <int D>
+__device__ __forceinline__ void load_a_smem(uint32_t (&a)[4], const __nv_bfloat16* tile, int r0, int kk, int lane) {
+    ldmatrix_x4(a, smem_u32(tile + swz<D>(r0 + (lane & 15), kk * 2 + (lane >> 4))));
+}
+
 // C fragments of the 8-column tiles 2i (even) and 2i+1 (odd), rounded to
 // bf16, as the A fragment of the 16-deep step i of the next product.
 __device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&even)[4], const float (&odd)[4]) {
@@ -202,6 +217,44 @@ __device__ __forceinline__ void block_coords(int n_tiles, int longest_first, boo
         tile = bid % n_tiles;
         bh = bid / n_tiles;
     }
+}
+
+// Blocks a SM the register allocation of a tensor-core kernel aims at: three
+// (at most 168 registers a thread) up to D = 64; two at D = 128, whose o (or
+// dq, dk and dv) accumulators alone are 64 registers each.
+template <int D>
+constexpr int min_blocks() {
+    return D >= 128 ? 2 : 3;
+}
+
+// ---- the instantiations
+
+// The head dims the kernels are compiled for; the wrapper pads d up to the
+// next one with zero columns.  DROP selects the dropout mode.
+template <int D_, bool DROP_>
+struct Inst {
+    static constexpr int D = D_;
+    static constexpr bool DROP = DROP_;
+};
+
+// fn(Inst<D, DROP>{}) for the instantiation of head dim d; cudaErrorInvalidValue for another d.
+template <typename Fn>
+cudaError_t dispatch(int d, bool drop, Fn fn) {
+    switch (d) {
+        case 16: return drop ? fn(Inst<16, true>{}) : fn(Inst<16, false>{});
+        case 32: return drop ? fn(Inst<32, true>{}) : fn(Inst<32, false>{});
+        case 64: return drop ? fn(Inst<64, true>{}) : fn(Inst<64, false>{});
+        case 128: return drop ? fn(Inst<128, true>{}) : fn(Inst<128, false>{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// Sets the dynamic shared-memory limit of `kernel` where a block needs more
+// than the default 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // What the compiler and the card make of a kernel: out[0] registers a thread,

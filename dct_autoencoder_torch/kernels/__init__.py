@@ -14,6 +14,9 @@ COUNTERS = {
     "attention_causal": (attention, "LAUNCHES_CAUSAL"),
     "attention_dq_causal": (attention, "LAUNCHES_DQ_CAUSAL"),
     "attention_dkv_causal": (attention, "LAUNCHES_DKV_CAUSAL"),
+    "attention_dropout": (attention, "LAUNCHES_DROPOUT"),
+    "attention_dq_dropout": (attention, "LAUNCHES_DQ_DROPOUT"),
+    "attention_dkv_dropout": (attention, "LAUNCHES_DKV_DROPOUT"),
     "dct_patchify": (dct_patchify, "LAUNCHES"),
     "idct_unpatchify": (idct_unpatchify, "LAUNCHES"),
 }

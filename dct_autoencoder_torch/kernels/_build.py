@@ -1,10 +1,12 @@
 """Build the CUDA sources under csrc/ with nvcc and load them with ctypes.
 
-Each source becomes its own shared library with a plain C interface,
-compiled for Hopper (sm_90a) at first use into ``kernels/build/``.  A
-library's file name carries a hash of its source, the headers it includes
-and the flags, so an edited source is rebuilt and a stale one is never
-loaded.  ``build_all`` starts one nvcc per source at once.
+Each library is one source (with its own defines) compiled into a shared
+library with a plain C interface, for Hopper (sm_90a), at first use into
+``kernels/build/``; attention_bwd.cu makes two, one a kernel, so that the
+largest source compiles in two halves at once.  A library's file name
+carries a hash of its source, the headers it includes, the flags and the
+defines, so an edited source is rebuilt and a stale one is never loaded.
+``build_all`` starts one nvcc per library at once.
 """
 from __future__ import annotations
 
@@ -28,9 +30,15 @@ NVCC_FLAGS = [
 # kernel library name -> its .cu source (headers in csrc/ are hashed too)
 SOURCES = {
     "attention_fwd": "attention_fwd.cu",
-    "attention_bwd": "attention_bwd.cu",
+    "attention_bwd_dq": "attention_bwd.cu",
+    "attention_bwd_dkv": "attention_bwd.cu",
     "dct_patchify": "dct_patchify.cu",
     "idct_unpatchify": "idct_unpatchify.cu",
+}
+# kernel library name -> the defines its source is compiled with
+DEFINES = {
+    "attention_bwd_dq": ["-DATTN_BWD_PART=0"],
+    "attention_bwd_dkv": ["-DATTN_BWD_PART=1"],
 }
 
 _lock = threading.Lock()
@@ -48,8 +56,12 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + DEFINES.get(name, [])
+
+
 def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for fname in sorted(os.listdir(CSRC)):
         if fname == SOURCES[name] or fname.endswith(".cuh"):
             with open(os.path.join(CSRC, fname), "rb") as f:
@@ -63,7 +75,7 @@ def _start(name: str) -> "subprocess.Popen | None":
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
+    cmd = [_nvcc(), *_flags(name), "-o", tmp, os.path.join(CSRC, SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.out_path, proc.tmp_path = out, tmp  # type: ignore[attr-defined]
     return proc

@@ -92,9 +92,9 @@ class DCTAutoencoderModule(nn.Module):
         w = F.embedding(x.w_indices.long(), getattr(self, f"{prefix}_pos_embed_width"))
         return (c + h + w).to(self.dtype)
 
-    def _stack(self, stack: nn.Module, feats: torch.Tensor, x: DCTPatches, training=False, generator=None):
+    def _stack(self, stack: nn.Module, feats: torch.Tensor, x: DCTPatches, training=False, generator=None, row0=0):
         return stack(
-            feats, x.batched_image_ids, x.key_pad_mask, self.config.attn_mask_mode, training, generator
+            feats, x.batched_image_ids, x.key_pad_mask, self.config.attn_mask_mode, training, generator, row0=row0
         )
 
     def encode(
@@ -112,10 +112,11 @@ class DCTAutoencoderModule(nn.Module):
 
         shard (parallel/mesh.py's DataShard): x is this rank's rows of a
         data-parallel batch, and the quantizer's statistics are summed over
-        the shard's group."""
+        the shard's group, and the encoder's attention dropout draws the
+        single-device mask's block of the shard's rows."""
         feats = self.patch_embed_norm(self.patch_embed_linear(x.patches.to(self.dtype)))
         feats = feats + self._pos_embedding("encoder", x)
-        feats = self._stack(self.encoder, feats, x, training, generator)
+        feats = self._stack(self.encoder, feats, x, training, generator, 0 if shard is None else shard.row_start)
         mask = ~x.key_pad_mask
         if self.config.vq_type == "vq":
             quantized, codes, commit_loss, vq_z = self.vq_model(

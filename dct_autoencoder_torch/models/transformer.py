@@ -18,11 +18,16 @@ products run in bf16.  A weight cast once and a weight cast per call are
 the same bf16 numbers.
 
 Training adds MLP dropout when ``cfg.dropout > 0`` (the draw takes an
-explicit ``torch.Generator``) and per-layer recomputation when
-``cfg.remat`` is set.  Attention dropout exists in the JAX package only on
-its XLA attention path, never under the kernel; the port's attention is the
-kernel, so a training forward with ``attention_dropout > 0`` raises
-NotImplementedError rather than train another function.
+explicit ``torch.Generator``), attention dropout when
+``cfg.attention_dropout > 0`` and per-layer recomputation when
+``cfg.remat`` is set.  JAX drops the softmax weights with ``nn.Dropout`` on
+its XLA attention path; here the attention kernels drop them themselves:
+each layer draws one 64-bit seed from the same generator (before its MLP
+dropout's mask, in JAX's order) and the kernels derive the mask from it,
+for this rank's rows and heads (``row0``, and the head offset of a
+tensor-parallel rank).  Under remat both draws come from the default
+generator, whose state the recomputation restores, so the recomputed layer
+draws the same seed and masks.
 
 ``causal=True`` (the autoregressive token model, models/ar.py) goes down to
 the attention kernels' causal mode.  Token-at-a-time decoding has its own
@@ -65,7 +70,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.attention import NEG_INF, packed_flash_attention
+from ..kernels.attention import NEG_INF, draw_dropout_seed, packed_flash_attention
 from ..parallel.mesh import copy_to_model, gather_tokens, reduce_from_model, sp_gather, sp_scatter, split_tokens
 from .config import TransformerConfig
 from .quant import dense
@@ -162,14 +167,17 @@ class MultiHeadAttention(nn.Module):
         return split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
 
     def forward(
-        self, x: torch.Tensor, image_ids: torch.Tensor, key_pad_mask: torch.Tensor, mode: str, causal: bool = False
+        self, x: torch.Tensor, image_ids: torch.Tensor, key_pad_mask: torch.Tensor, mode: str, causal: bool = False,
+        dropout_rate: float = 0.0, seed: Optional[torch.Tensor] = None, row0: int = 0,
     ) -> torch.Tensor:
         if self.mp is not None:
             x = column_input(x, self.mp)
         b, s, _ = x.shape
         q, k, v = self._qkv(x)
+        head0 = 0 if self.mp is None else self.mp.rank * q.shape[1]
         out = packed_flash_attention(
-            q, k, v, image_ids, key_pad_mask, self.head_dim**-0.5, mode=mode, causal=causal
+            q, k, v, image_ids, key_pad_mask, self.head_dim**-0.5, mode=mode, causal=causal,
+            dropout_rate=dropout_rate, seed=seed, row0=row0, head0=head0,
         )
         out = out.transpose(1, 2).reshape(b, s, q.shape[1] * self.head_dim)
         return self.out_proj(out) if self.mp is None else row_parallel(self.out_proj, out, self.mp)
@@ -215,12 +223,16 @@ class EncoderLayer(nn.Module):
             y = dropout(y, self.dropout, generator)
         return x + (self.fc2(y) if self.mp is None else row_parallel(self.fc2, y, self.mp))
 
-    def forward(self, x, image_ids, key_pad_mask, mode, training: bool = False, generator=None, causal: bool = False):
+    def forward(
+        self, x, image_ids, key_pad_mask, mode, training: bool = False, generator=None, causal: bool = False,
+        row0: int = 0,
+    ):
+        """`row0`: where x's rows start in the whole batch (a data-parallel
+        rank's share), which the attention dropout's mask is drawn by."""
+        rate, seed = 0.0, None
         if training and self.attention_dropout > 0.0:
-            raise NotImplementedError(
-                f"attention_dropout={self.attention_dropout!r}: attention dropout is not ported yet"
-            )
-        x = x + self.self_attn(self.layer_norm1(x), image_ids, key_pad_mask, mode, causal)
+            rate, seed = self.attention_dropout, draw_dropout_seed(generator, x.device)
+        x = x + self.self_attn(self.layer_norm1(x), image_ids, key_pad_mask, mode, causal, rate, seed, row0)
         return self._mlp(x, training, generator)
 
     def decode_step(self, x, cache_k, cache_v, idx):
@@ -297,14 +309,15 @@ class TransformerEncoder(nn.Module):
 
     def forward(
         self, x, image_ids, key_pad_mask, mode: str = "block", training: bool = False, generator=None,
-        causal: bool = False,
+        causal: bool = False, row0: int = 0,
     ):
         remat = self.remat and torch.is_grad_enabled()
         if self.pipeline is not None:
             return self._pipelined(x, image_ids, key_pad_mask, mode, training, causal, remat)
-        if remat and training and generator is not None and self.layers and self.layers[0].dropout > 0.0:
-            # a recomputed layer must redraw the same mask; checkpoint restores
-            # only the default generators' state
+        drops = self.config.dropout > 0.0 or self.config.attention_dropout > 0.0
+        if remat and training and generator is not None and drops:
+            # a recomputed layer must redraw the same masks and seeds; checkpoint
+            # restores only the default generators' state
             raise ValueError("remat with dropout draws from the default generator: pass generator=None")
         sp = self.mp is not None and self.mp.sequence_parallel
         if sp:
@@ -316,10 +329,10 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             if remat:
                 x = checkpoint(
-                    layer, x, image_ids, key_pad_mask, mode, training, generator, causal, use_reentrant=False
+                    layer, x, image_ids, key_pad_mask, mode, training, generator, causal, row0, use_reentrant=False
                 )
             else:
-                x = layer(x, image_ids, key_pad_mask, mode, training, generator, causal)
+                x = layer(x, image_ids, key_pad_mask, mode, training, generator, causal, row0)
         if sp:
             x = gather_tokens(x, self.mp)
         return x

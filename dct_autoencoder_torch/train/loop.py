@@ -45,9 +45,12 @@ port's random draws (gumbel, k-means, expiry) are its own, not JAX's
 streams; each is a function of (seed, step), as JAX's fold_in is, so a
 resumed run draws what the uninterrupted run drew.
 
-Not ported: attention dropout; it raises NotImplementedError by name.  A
-pipeline raises ValueError by name where JAX asserts: n_model_parallel = 1,
-layers that do not divide into the stages, dropout in a pipelined stack.
+Dropout, MLP and attention alike, draws from a generator seeded by `seed`
+(the default generator under remat, whose state the recomputation
+restores); JAX's own train step passes no dropout stream and raises on any
+dropout rate.  A pipeline raises ValueError by name where JAX asserts:
+n_model_parallel = 1, layers that do not divide into the stages, dropout in
+a pipelined stack.
 With sequence_parallel set, the pipelined stacks run without the token
 split, which changes no number.  One default differs from JAX on purpose: the
 RSS watchdog is off (rss_limit_gb=0), since it works around a memory leak
@@ -354,7 +357,6 @@ def make_train_step(
     """
     from ..parallel.pipeline import staged_pipeline
 
-    _refuse_attention_dropout(module.config)
     pipeline = staged_pipeline(module)
     if pipeline is not None and pipeline.mesh is not mesh:
         raise ValueError(
@@ -366,8 +368,8 @@ def make_train_step(
     generators: Dict[torch.device, torch.Generator] = {}
 
     def dropout_generator(device: torch.device) -> Optional[torch.Generator]:
-        cfg = module.config
-        if cfg.encoder_config.dropout <= 0.0 or cfg.encoder_config.remat:
+        enc = module.config.encoder_config
+        if (enc.dropout <= 0.0 and enc.attention_dropout <= 0.0) or enc.remat:
             return None  # remat redraws from the default generator
         if device not in generators:
             generators[device] = torch.Generator(device=device).manual_seed(seed)
@@ -627,12 +629,6 @@ def train_patch_norm(
     return state
 
 
-def _refuse_unported(**asked) -> None:
-    for name, (value, off, part) in asked.items():
-        if value != off:
-            raise NotImplementedError(f"{name}={value!r}: {part} is not ported yet")
-
-
 def check_pipeline(config, n_model_parallel: int, pipeline_microbatches: int) -> None:
     """Raise ValueError by name where train() cannot run this pipeline (JAX
     asserts): fewer than two stages or microbatches, then what
@@ -648,15 +644,6 @@ def check_pipeline(config, n_model_parallel: int, pipeline_microbatches: int) ->
     if pipeline_microbatches < 1:
         raise ValueError(f"pipeline_microbatches={pipeline_microbatches}: 0 for no pipeline, else at least 1")
     check_stackable(config, n_model_parallel, training=True)
-
-
-def _refuse_attention_dropout(config) -> None:
-    """The JAX package drops attention weights in training on its XLA
-    attention path only; the port's attention is the kernel, which has no
-    dropout, so it refuses rather than train another function."""
-    _refuse_unported(
-        attention_dropout=(config.encoder_config.attention_dropout, 0.0, "attention dropout (the encoder's)")
-    )
 
 
 def train(
@@ -746,7 +733,6 @@ def train(
     loop.py:950), each rank holds its stage's layers and their moments, and
     checkpoints gather them into the single-device files.
     """
-    _refuse_attention_dropout(model.config)
     if pipeline_microbatches:
         check_pipeline(model.config, n_model_parallel, pipeline_microbatches)
     if nan_policy not in ("abort", "restore"):

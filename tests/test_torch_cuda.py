@@ -27,7 +27,11 @@ version, each kernel's largest error at most 8 x the fp32 plain
 version's, over the whole output and over the high-frequency quarter alone
 (one TF32 product would miss this by orders of magnitude:
 tests/test_torch_dct_tf32.py argues the limit on the CPU); two launches give
-the same bits.
+the same bits.  Head dims between the kernels' instantiations (16, 32, 64,
+128) and the dropout mode are held to the plain versions at the larger of
+those limits and one bf16 ulp of the largest value in bf16 (dropout scales
+values by 1 / (1 - rate)), and 1e-5 of the largest value in fp32; the
+dropout mode's keep bits to the plain twin's bit for bit.
 """
 import math
 
@@ -174,9 +178,9 @@ def test_attention_backward_refuses_bad_input_on_cuda(cuda):
     o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, 1.0)
     with pytest.raises(ValueError):
         tatt.attention_bwd(q, k, v, q_ids, kv_ids, o, lse, q.mT.contiguous().mT, 1.0)  # not contiguous
-    with pytest.raises(ValueError):
-        half = lambda t: t[..., :16].contiguous()  # head dim 16 has no kernel
-        tatt.attention_bwd(half(q), half(k), half(v), q_ids, kv_ids, half(o), lse, half(q), 1.0)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = lambda t: t.repeat(1, 1, 1, 5)[..., :136].contiguous()  # head dims above 128 have no kernel
+        tatt.attention_bwd(wide(q), wide(k), wide(v), q_ids, kv_ids, wide(o), lse, wide(q), 1.0)
 
 
 CAUSAL_CASES = [
@@ -428,15 +432,78 @@ def test_forward_impl_argument_and_kernel_info_on_cuda(cuda):
     assert tatt.attention_kernel_info("fwd", "simt", torch.float32, 64)["num_regs"] > 0
 
 
-def test_attention_refuses_head_dim_16_on_cuda(cuda):
-    """Head dim 16 (the JAX tests' tiny AR model) has no kernel: the card raises, causal or not."""
-    q, k, v, ids, pad = _attn_inputs(1, 4, 24, 16, torch.float32, cuda)
-    for causal in (False, True):
-        with pytest.raises(ValueError, match="head dim"):
-            tatt.packed_flash_attention(q, k, v, ids, pad, 0.25, causal=causal)
-        with pytest.raises(ValueError, match="head dim"):
-            tatt.packed_flash_attention(q.requires_grad_(True), k, v, ids, pad, 0.25, causal=causal)
-        q = q.detach()
+def _tol(dtype, limit, ref):
+    """bf16: the larger of `limit` and one ulp of the largest value; fp32: 1e-5 of it, at least 1e-5."""
+    top = ref.float().abs().max().item()
+    if dtype != torch.bfloat16:
+        return 1e-5 * max(1.0, top)
+    return max(limit, 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0)
+
+
+def _kernels_against_plain(q, k, v, ids, pad, mode, causal, impl=None, dropout=None):
+    """The forward, dq and dk/dv kernels against the plain versions on the same inputs."""
+    b, h, s, d = q.shape
+    scale = d**-0.5
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(q.dtype).to(q.device)
+    o, lse = tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=impl, dropout=dropout)
+    dq, delta = tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, impl=impl, dropout=dropout)
+    dk, dv = tatt.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, causal, impl=impl, dropout=dropout)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, causal, dropout)
+    refs = tatt.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, dropout)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    for got, ref, limit in ((o, o_ref, 2e-2), *((g, r, 3e-2) for g, r in zip((dq, dk, dv), refs))):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert (got.float() - ref.float()).abs().max().item() <= _tol(q.dtype, limit, ref)
+    return o, dq, dk, dv
+
+
+@pytest.mark.parametrize("d", [16, 24, 48, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_refuses_head_dim_16_on_cuda(cuda, d, dtype):
+    """Once refused on the card, head dim 16 (the JAX tests' tiny AR model)
+    and every other 1 <= d <= 128 now run there: the kernels (instantiated at
+    16, 32, 64 and 128, the rest padded) against the plain versions, causal
+    or not, in both mask modes; d > 128 raises by name."""
+    for mode, causal in (("block", False), ("bias", False), ("block", True)):
+        q, k, v, ids, pad = _attn_inputs(2, 4, 150, d, dtype, cuda, seed=d)
+        _kernels_against_plain(q, k, v, ids, pad, mode, causal)
+    q = torch.zeros((1, 2, 8, 129), dtype=dtype, device=cuda)
+    ids = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.packed_flash_attention(q, q, q, ids, ids.bool(), 1.0)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.3])
+@pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt")])
+def test_attention_dropout_kernels_match_plain(cuda, rate, dtype, impl):
+    """The dropout mode of the three kernels against the plain versions (the
+    twin's mask from the same seed), rows and heads offset, causal or not."""
+    seed = torch.tensor([12345], dtype=torch.int64, device=cuda)
+    drop = tatt.AttentionDropout(rate, seed, row0=3, head0=1)
+    tk.reset_launch_counts()
+    for mode, causal in (("block", False), ("bias", False), ("block", True)):
+        q, k, v, ids, pad = _attn_inputs(2, 4, 200, 64, dtype, cuda, seed=7)
+        o, *_ = _kernels_against_plain(q, k, v, ids, pad, mode, causal, impl, drop)
+        o0, _ = tatt.attention_fwd_cuda(q, k, v, *tatt.segment_ids(ids, pad), 0.125, mode, causal, impl=impl)
+        assert not torch.equal(o, o0)
+    counts = tk.launch_counts()
+    assert counts["attention_dropout"] == counts["attention_dq_dropout"] == counts["attention_dkv_dropout"] == 3
+
+
+@pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
+def test_attention_dropout_mask_equals_the_twin_bit_for_bit(cuda, dtype, impl):
+    """With every p = 1/s (q = 0) and v = I, the forward's o is z / ((1 - rate) s):
+    its nonzeros are the kernel's keep bits, which equal the plain twin's."""
+    b, h, s = 2, 2, 128
+    drop = tatt.AttentionDropout(0.3, torch.tensor([2**40 + 9], dtype=torch.int64, device=cuda), row0=5, head0=3)
+    zeros = torch.zeros(b, h, s, s, dtype=dtype, device=cuda)
+    eye = torch.eye(s, dtype=dtype, device=cuda).expand(b, h, s, s).contiguous()
+    ids = torch.zeros(b, s, dtype=torch.int32, device=cuda)
+    o, _ = tatt.attention_fwd_cuda(zeros, eye, eye, ids, ids, s**-0.5, impl=impl, dropout=drop)
+    want = tatt.attention_dropout_keep_mask(drop.seed, 0.3, b, h, s, 5, 3)
+    assert torch.equal(o != 0, want)
 
 
 @pytest.mark.parametrize("b,h,w,ch,cw,p", [(2, 43, 61, 40, 56, 8), (2, 448, 448, 448, 448, 14), (1, 700, 1000, 700, 994, 14)])

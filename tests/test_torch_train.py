@@ -396,17 +396,32 @@ def _dropout_config(rate: float) -> TorchConfig:
 
 @pytest.mark.parametrize("where", ["make_train_step", "train", "training_forward"])
 def test_attention_dropout_is_refused_by_name(where):
-    """JAX drops attention weights in training on its XLA path; the port's
-    attention is the kernel, so every training path refuses the rate rather
-    than train another function."""
-    model, proc = torch_model_and_processor(_dropout_config(0.3), sample_patches_beta=0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="attention_dropout"):
+    """Once refused, attention dropout now trains on every training path, as
+    JAX's XLA attention drops the softmax weights: the numbers are finite,
+    the rate takes effect (they move against the same path at rate 0), and
+    serving ignores the rate."""
+    def run(rate):
+        model, proc = torch_model_and_processor(_dropout_config(rate), sample_patches_beta=0.0, seed=3, device="cpu")
+        proc.rng = random.Random(0)
         if where == "make_train_step":
-            tloop.make_train_step(model.module, tloop.make_optimizer())
-        elif where == "train":
-            tloop.train(model, proc, _stream(proc, 1), batch_size=None, max_iters=1)
-        else:
-            batch = next(proc.iter_batches(_stream(proc, 1), batch_size=None))
-            model.module(model.normalize_(batch), training=True, generator=torch.Generator().manual_seed(0))
+            batch = tloop.prepare_train_batch(next(proc.iter_batches(_stream(proc, 1), batch_size=None)))[0]
+            tx = tloop.make_optimizer()
+            step = tloop.make_train_step(model.module, tx)
+            _, metrics = step(tloop.TrainState.create(model.module, tx), model.patchnorm, batch)
+            return torch.stack([metrics["loss"], metrics["grad_norm"]]), None
+        if where == "train":
+            logs = []
+            tloop.train(model, proc, _stream(proc, 1), batch_size=None, max_iters=1, log_every=1, prefetch_batches=0,
+                        log=logs.append)
+            assert len(logs) == 1
+            return torch.tensor([logs[0]["loss"], logs[0]["grad_norm"]]), None
+        batch = model.normalize_(next(proc.iter_batches(_stream(proc, 1), batch_size=None)))
+        with torch.no_grad():
+            out = model.module(batch, training=True, generator=torch.Generator().manual_seed(0))
+            return out["dct_patches"].patches, model.forward(batch)["dct_patches"].patches
 
-
+    (dropped, served), (undropped, served_at_0) = run(0.3), run(0.0)
+    assert torch.isfinite(dropped).all()
+    assert not torch.allclose(dropped, undropped, atol=1e-6)
+    if served is not None:
+        assert torch.equal(served, served_at_0)  # serving never reads the rate
