@@ -7,8 +7,12 @@ Builds the five hand-written CUDA kernels from dct_autoencoder_torch/csrc
 kernels, against its plain PyTorch version at the shapes the main paths give
 it (the bfloat16 attention kernels, forward and backward, which multiply on
 the tensor cores, also against their CUDA-core versions, `impl="simt"`,
-timed beside them; the DCT and IDCT kernels, 3xTF32 on the tensor cores,
-also against a float64 plain version), and then drives the paths themselves:
+timed beside them; the float32 dq and dk/dv kernels, 3xTF32 on the tensor
+cores, `impl="tf32x3"`, also against their CUDA-core versions and a float64
+plain version, and timed with them and SDPA's fp32 backward at rows 1-3's,
+the sweep's and the AR example's shapes; the DCT and IDCT kernels, 3xTF32
+on the tensor cores, also against a float64 plain version), and then drives
+the paths themselves:
   * the serving round trip with the trained checkpoint in
     docs/calibrated_run_r3b/model (its gated int8 sibling, and the same
     batch through the port on the CPU in fp32), timed warm beside the float
@@ -57,7 +61,8 @@ also against a float64 plain version), and then drives the paths themselves:
     moments, expiry every 2 steps), its checkpoint served by DCTPipeline;
   * the sweep's shared-step campaign (train/sweep.py run_onchip) over the same
     shards with conf/small-448.json in fp32, as `--onchip` runs it (the
-    CUDA-core attention kernels), both methods, 5 trials each;
+    CUDA-core attention forward, the 3xTF32 backward), both methods, 5
+    trials each, under torch.profiler: its device time a step by kernel;
   * the AR token dump (tools/prepare_autoregressive_dataset.py) at the full
     width of patch14-L (random init, saved and loaded, bf16) over 64 PNG
     images with captions, with JAX's defaults: records in key order with
@@ -65,7 +70,7 @@ also against a float64 plain version), and then drives the paths themselves:
     of one; then tools/eval.py on that checkpoint over 16 of the images;
   * tools/eval.py on the trained checkpoint in fp32, on the card against the
     CPU, and --scan over two copies of it (one pipeline, equal rows);
-  * decode_gif, diagnose (fp32: the CUDA-core attention kernels) and
+  * decode_gif, diagnose (fp32: the CUDA-core attention forward) and
     testpipe (no model), each on the card against the CPU;
   * the int8 study (tools/int8_study.py) at its defaults: patch14-L at
     random init, bf16, 16 x 256 synthetic patches, every variant;
@@ -106,8 +111,7 @@ launches on the main paths, errors, times and bounds; the last line is
 {"ok": true, "device": {...}}.
 
 `--attention-device-times` only times the attention kernels without dropout
-from CUDA graphs (no result line);
-`--kernels-only` stops after the kernels' phase (no result line);
+from CUDA graphs (no result line); `--kernels-only` stops after the kernels' phase (no result line);
 `--kernels-only=dct` runs only its DCT and IDCT cases: the quick loop while
 one of those sources is being changed (the build's hash follows the source).
 
@@ -158,6 +162,14 @@ DCT_REL_TOL = 1e-5
 # and over the high-frequency quarter alone; 3xTF32 keeps ~22 bits and passes,
 # one TF32 product (11 bits) fails by orders of magnitude
 DCT_F64_RATIO = 8.0
+# the same test for the fp32 attention backward in 3xTF32 (impl tf32x3): each of
+# dq, dk, dv against float64 on the same inputs within this many times the fp32
+# plain version's error (cuBLAS SGEMM), and at least ATTN_F64_FLOOR x the largest
+# gradient of the case: where the exact value is 0 and both sides give rounding
+# noise (at s = 1, dp - delta cancels), 22 bits of noise against 24 can stand
+# 8x apart; one TF32 product is off by ~1e-4 of the largest gradient
+ATTN_F64_RATIO = 8.0
+ATTN_F64_FLOOR = 1e-6
 MIN_CODE_AGREEMENT = 0.95
 MAX_PSNR_DELTA_DB = 0.5
 MIN_LOSSLESS_PSNR_DB = 100.0
@@ -349,14 +361,13 @@ def _fwd_against_simt(A, q, d, o, simt, what):
 
 
 def _bwd_against_simt(A, q, d, got, dq_simt, dkv_simt, what):
-    """For bfloat16: the tensor-core kernels' results `got` = (dq, dk, dv)
-    against the CUDA-core kernels on the same inputs, the CUDA-core kernels'
-    times, and what the compiler made of both instantiations.  For float32
-    (one implementation): only the kernel info."""
+    """The tensor-core kernels' results `got` = (dq, dk, dv) (bfloat16: impl
+    mma; float32: impl tf32x3) against the CUDA-core kernels on the same
+    inputs, the CUDA-core kernels' times, and what the compiler made of both
+    instantiations.  The limit is `simt_tol` in bfloat16 and 1e-5 of the
+    largest value in float32."""
+    impl = A._kernel_impl(None, q.dtype, "dq")
     info = lambda kernel, impl: A.attention_kernel_info(kernel, impl, q.dtype, d)
-    if q.dtype != torch.bfloat16:
-        rows = {name: {"impl": "simt", "simt_ms": None, "kernel_info": info(name, "simt")} for name in ("dq", "dkv")}
-        return rows["dq"], rows["dkv"]
     dq_s, delta_s = dq_simt()
     dk_s, dv_s = dkv_simt(delta_s)
     torch.cuda.synchronize()
@@ -364,16 +375,56 @@ def _bwd_against_simt(A, q, d, got, dq_simt, dkv_simt, what):
     for name, new, old in (("dq", got[0], dq_s), ("dk", got[1], dk_s), ("dv", got[2], dv_s)):
         diffs[name] = (new.float() - old.float()).abs().max().item()
         top = max(top, old.float().abs().max().item())
-    tol = simt_tol(ATTN_BWD_ATOL_BF16, top)
+    tol = simt_tol(ATTN_BWD_ATOL_BF16, top) if q.dtype == torch.bfloat16 else 1e-5 * max(1.0, top)
     for name, diff in diffs.items():
-        check(diff <= tol, f"{what}: {name} of impl mma and impl simt differ by {diff} > {tol}")
-    common = {"impl": "mma", "simt_tol": tol, "max_abs_grad": top}
+        check(diff <= tol, f"{what}: {name} of impl {impl} and impl simt differ by {diff} > {tol}")
+    common = {"impl": impl, "simt_tol": tol, "max_abs_grad": top}
     return (
         {**common, "simt_max_abs_diff": diffs["dq"], "simt_ms": time_ms(dq_simt, reps=10),
-         "kernel_info": info("dq", "mma"), "simt_kernel_info": info("dq", "simt")},
+         "kernel_info": info("dq", impl), "simt_kernel_info": info("dq", "simt")},
         {**common, "simt_max_abs_diff": max(diffs["dk"], diffs["dv"]), "simt_ms": time_ms(lambda: dkv_simt(delta_s), reps=10),
-         "kernel_info": info("dkv", "mma"), "simt_kernel_info": info("dkv", "simt")},
+         "kernel_info": info("dkv", impl), "simt_kernel_info": info("dkv", "simt")},
     )
+
+
+def attention_bwd_f64(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal=False, dropout=None):
+    """attention_bwd_plain's function computed in float64 on the same inputs
+    (o and lse as the forward kernel gave them): the yardstick that the fp32
+    backward kernels and the fp32 plain version are both read against."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    qq, kk, vv, oo, dd = (t.double() for t in (q, k, v, o, do))
+    logits = torch.einsum("bhqd,bhkd->bhqk", qq, kk) * scale
+    allowed = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+    if causal:
+        pos = torch.arange(q.shape[2], device=q.device)
+        allowed = allowed & (pos[None, :] <= pos[:, None])
+    logits = logits + allowed.double() if mode == "bias" else torch.where(allowed, logits, torch.full_like(logits, A.NEG_INF))
+    p = torch.exp(logits - lse.double()[..., None])
+    dp, pv = torch.einsum("bhqd,bhkd->bhqk", dd, vv), p
+    if dropout is not None:
+        b, h, s, _ = q.shape
+        keep = A.attention_dropout_keep_mask(dropout.seed, dropout.rate, b, h, s, dropout.row0, dropout.head0)
+        z = keep.double() * dropout.keep_scale
+        pv, dp = p * z, dp * z
+    dv = torch.einsum("bhqk,bhqd->bhkd", pv, dd)
+    ds = p * (dp - (dd * oo).sum(dim=-1, keepdim=True)) * scale
+    return torch.einsum("bhqk,bhkd->bhqd", ds, kk), torch.einsum("bhqk,bhqd->bhkd", ds, qq), dv
+
+
+def _hold_bwd_to_f64(what, got, plain, ref64) -> dict:
+    """Each of dq, dk, dv of a 3xTF32 backward against float64: its largest
+    error at most ATTN_F64_RATIO x the fp32 plain version's, or
+    ATTN_F64_FLOOR of the case's largest gradient where that is more (an
+    output that both sides get as rounding noise around 0).  Returns the
+    errors and their ratios."""
+    row, top = {}, max(r.abs().max().item() for r in ref64)
+    for name, x, pl, r in zip(("dq", "dk", "dv"), got, plain, ref64):
+        e64, p64 = (x.double() - r).abs().max().item(), (pl.double() - r).abs().max().item()
+        limit = max(ATTN_F64_RATIO * p64, ATTN_F64_FLOOR * top)
+        check(e64 <= limit, f"{what}: {name} float64 error {e64} > {limit} ({ATTN_F64_RATIO} x the plain version's {p64})")
+        row[name] = {"f64_err": e64, "plain_f64_err": p64, "f64_ratio": e64 / p64 if p64 > 0 else None}
+    return {"f64": row, "f64_ratio": max((r["f64_ratio"] or 0.0) for r in row.values())}
 
 
 def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
@@ -402,6 +453,10 @@ def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
         check(errs[name] <= tol, f"attention backward {name} {mode} {(b, h, s, d)}: max|diff| {errs[name]} > {tol}")
     delta_err = (delta - (do.float() * o.float()).sum(-1)).abs().max().item()
     check(delta_err <= 1e-3, f"delta from the dq kernel: max|diff| {delta_err}")
+    f64_row = {}
+    if dtype == torch.float32:
+        f64_row = _hold_bwd_to_f64(f"attention backward {mode} {(b, h, s, d)}", (dq, dk, dv), (dq_ref, dk_ref, dv_ref),
+                                   attention_bwd_f64(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode))
     if mode == "block" and pad.any():
         pad_max = dq.transpose(1, 2)[pad].abs().max().item()
         check(pad_max == 0.0, f"attention backward block mode: dq of padded queries not 0 ({pad_max})")
@@ -430,7 +485,7 @@ def _attention_bwd_case(b, h, s, d, dtype, mode, gen):
     common = {
         "shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "tol": tol,
         "plain_ms": plain_ms, "plain_computes": "dq, dk and dv", "library_ms": library_ms,
-        "library_computes": "dq, dk and dv (backward of scaled_dot_product_attention)",
+        "library_computes": "dq, dk and dv (backward of scaled_dot_product_attention)", **f64_row,
     }
     return {
         "attention_dq": {
@@ -474,15 +529,17 @@ def attention_grads_f64(q, k, v, ids, pad, scale, mode):
 
 
 def _attention_bwd_determinism(mode: str, runs: int = 20):
-    """The fp32 backward kernels through packed_flash_attention's autograd at
-    (2, 4, 173, 32) (a ragged last tile, the head merge's transposed
-    grad_output; the inputs of tests/test_torch_cuda.py::test_attention_gradients_match_cpu),
-    `runs` times, each after poisoning the allocator.  Checks: every run gives
-    the same bits, within 1e-5 (+ 1e-5 relative) of the plain versions
-    (attention_fwd_plain, attention_bwd_plain) on the card and of a float64
-    computation.  The plain versions on the CPU are read and reported beside
-    them; a disagreement with them emits the places where it lies, so that
-    an occurrence names the side that moved."""
+    """The fp32 backward kernels at (2, 4, 173, 32) (a ragged last tile; the
+    inputs of tests/test_torch_cuda.py::test_attention_gradients_match_cpu),
+    `runs` times for each implementation, each run after poisoning the
+    allocator: the default, tf32x3, through packed_flash_attention's autograd
+    (the head merge's transposed grad_output), and simt through the wrappers
+    with the grad_output autograd hands over (2 o).  Checks, for each: every
+    run gives the same bits, within 1e-5 (+ 1e-5 relative) of the plain
+    versions (attention_fwd_plain, attention_bwd_plain) on the card and of a
+    float64 computation.  The plain versions on the CPU are read and reported
+    beside them; a disagreement with them emits the places where it lies, so
+    that an occurrence names the side that moved."""
     from dct_autoencoder_torch.kernels import attention as A
 
     b, h, s, d = 2, 4, 173, 32
@@ -499,6 +556,13 @@ def _attention_bwd_determinism(mode: str, runs: int = 20):
         (o.transpose(1, 2).reshape(b, s, h * d) ** 2).sum().backward()
         return [t.grad.cpu() for t in (qq, kk, vv)]
 
+    def grads_simt():
+        qq, kk, vv = (t.to("cuda") for t in (q, k, v))
+        q_ids, kv_ids = A.segment_ids(ids.cuda(), pad.cuda())
+        o, lse = A.attention_fwd_cuda(qq, kk, vv, q_ids, kv_ids, scale, mode)
+        dq, delta = A.attention_dq_cuda(qq, kk, vv, q_ids, kv_ids, o, lse, 2 * o, scale, mode, impl="simt")
+        return [t.cpu() for t in (dq, *A.attention_dkv_cuda(qq, kk, vv, q_ids, kv_ids, lse, delta, 2 * o, scale, mode, impl="simt"))]
+
     def plain(dev):
         qq, kk, vv = (t.to(dev) for t in (q, k, v))
         q_ids, kv_ids = A.segment_ids(ids.to(dev), pad.to(dev))
@@ -509,30 +573,32 @@ def _attention_bwd_determinism(mode: str, runs: int = 20):
     max_err = lambda got, ref: max((x.double() - r.double()).abs().max().item() for x, r in zip(got, ref))
     ref = plain("cuda")
     ref64 = attention_grads_f64(q, k, v, ids, pad, scale, mode)
-    first, differing = None, 0
-    for _ in range(runs):
-        _poison_allocator()
-        got = grads("cuda")
-        if first is None:
-            first = got
-        differing += not all(torch.equal(x, y) for x, y in zip(first, got))
     cpu_kernel_path = grads("cpu")  # the same autograd path, which runs the plain versions on the CPU
-    row = {"mode": mode, "shape": [b, h, s, d], "runs": runs, "runs_differing": differing,
-           "max_abs_err": max_err(first, ref), "max_abs_err_vs_f64": max_err(first, ref64), "tol": "1e-5 + 1e-5 |ref|",
+    row = {"mode": mode, "shape": [b, h, s, d], "runs": runs, "tol": "1e-5 + 1e-5 |ref|",
            "plain_on_card_vs_f64": max_err(ref, ref64), "cpu_plain_vs_f64": max_err(cpu_kernel_path, ref64),
-           "max_abs_err_vs_cpu_plain": max_err(first, cpu_kernel_path), "max_abs_grad": max(r.abs().max().item() for r in ref64)}
-    if differing or outside(first, ref) or outside(first, ref64) or outside(first, cpu_kernel_path):
-        where = {}
-        for name, x, r in zip(("dq", "dk", "dv"), first, cpu_kernel_path):
-            bad = ((x - r).abs() > 1e-5 + 1e-5 * r.abs()).nonzero()
-            where[name] = {"elements": int(bad.shape[0]), "batch_head_pairs": sorted({(int(i), int(j)) for i, j, _, _ in bad.tolist()}),
-                           "rows": sorted({int(t) for t in bad[:, 2].tolist()})[:40]}
-        emit({"phase": "attention_bwd_fp32_disagreement", **row, "card_vs_cpu_plain_where": where,
-              "cpu_plain_again_vs_f64": max_err(grads("cpu"), ref64), "threads": torch.get_num_threads()})
-    what = f"fp32 attention backward {mode} {(b, h, s, d)}"
-    check(differing == 0, f"{what}: {differing} of {runs} runs after poisoning differ from the first")
-    check(outside(first, ref) == 0, f"{what}: off the plain versions on the card by more than 1e-5 (max {row['max_abs_err']})")
-    check(outside(first, ref64) == 0, f"{what}: off float64 by more than 1e-5 (max {row['max_abs_err_vs_f64']})")
+           "max_abs_grad": max(r.abs().max().item() for r in ref64)}
+    for impl, run in (("tf32x3", lambda: grads("cuda")), ("simt", grads_simt)):
+        first, differing = None, 0
+        for _ in range(runs):
+            _poison_allocator()
+            got = run()
+            if first is None:
+                first = got
+            differing += not all(torch.equal(x, y) for x, y in zip(first, got))
+        row[impl] = {"runs_differing": differing, "max_abs_err": max_err(first, ref), "max_abs_err_vs_f64": max_err(first, ref64),
+                     "max_abs_err_vs_cpu_plain": max_err(first, cpu_kernel_path)}
+        if differing or outside(first, ref) or outside(first, ref64) or outside(first, cpu_kernel_path):
+            where = {}
+            for name, x, r in zip(("dq", "dk", "dv"), first, cpu_kernel_path):
+                bad = ((x - r).abs() > 1e-5 + 1e-5 * r.abs()).nonzero()
+                where[name] = {"elements": int(bad.shape[0]), "batch_head_pairs": sorted({(int(i), int(j)) for i, j, _, _ in bad.tolist()}),
+                               "rows": sorted({int(t) for t in bad[:, 2].tolist()})[:40]}
+            emit({"phase": "attention_bwd_fp32_disagreement", "impl": impl, **row, "card_vs_cpu_plain_where": where,
+                  "cpu_plain_again_vs_f64": max_err(grads("cpu"), ref64), "threads": torch.get_num_threads()})
+        what = f"fp32 attention backward {impl} {mode} {(b, h, s, d)}"
+        check(differing == 0, f"{what}: {differing} of {runs} runs after poisoning differ from the first")
+        check(outside(first, ref) == 0, f"{what}: off the plain versions on the card by more than 1e-5 (max {row[impl]['max_abs_err']})")
+        check(outside(first, ref64) == 0, f"{what}: off float64 by more than 1e-5 (max {row[impl]['max_abs_err_vs_f64']})")
     return row
 
 
@@ -571,6 +637,10 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
         errs[name] = (got.float() - refs[name].float()).abs().max().item()
         check(torch.isfinite(got).all().item(), f"{what}: {name} not finite")
         check(errs[name] <= tol_b, f"{what}: {name} max|diff| {errs[name]} > {tol_b}")
+    f64_row = {}
+    if not bf16:
+        f64_row = _hold_bwd_to_f64(what, (dq, dk, dv), tuple(refs.values()),
+                                   attention_bwd_f64(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, True))
     del o_ref, lse_ref, refs
     if mode == "block":
         if pad.any():
@@ -621,7 +691,7 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
     }
     bwd_notes = {
         "plain_computes": "dq, dk and dv",
-        "library_computes": "dq, dk and dv (backward of scaled_dot_product_attention)",
+        "library_computes": "dq, dk and dv (backward of scaled_dot_product_attention)", **f64_row,
     }
     rows = {
         "attention_causal": {**common, "tol": tol_f, "max_abs_err": errs["o"], "lse_max_abs_err": lse_err,
@@ -647,6 +717,9 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
 # (16, 32, 64, 128): 24, 48 and 80 run padded to the next one
 DROPOUT_RATES = (0.1, 0.3)
 HEAD_DIM_CASES = (16, 24, 48, 80, 128)
+# (dtype, impl) of every implementation of the backward pair; the forward's is
+# _fwd_impl(impl)
+ATTENTION_IMPLS = ((torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt"), (torch.float32, "tf32x3"))
 
 
 def _dropout(A, rate, seed, row0=0, head0=0):
@@ -665,18 +738,25 @@ def _mode_tol(dtype, limit, ref) -> float:
     return simt_tol(limit, top) if dtype == torch.bfloat16 else 1e-5 * max(1.0, top)
 
 
+def _fwd_impl(impl: str) -> str:
+    """The forward's implementation beside backward kernels of `impl`: the
+    fp32 forward has no 3xTF32 kernel, so tf32x3's forward is simt."""
+    return "simt" if impl == "tf32x3" else impl
+
+
 def _attention_mode_case(b, h, s, d, dtype, mode, causal, impl, rate, gen, seed=7, row0=0, head0=0):
     """The forward, dq and dk/dv kernels of one implementation at head dim d
     (padded by the wrappers where d is no instantiation) and, at rate > 0, in
     the dropout mode, against the plain versions on the same inputs and
     seed: within `_mode_tol`, finite, the same bits on a second launch,
-    padded queries 0 in 'block' mode.  Returns one row a kernel."""
+    padded queries 0 in 'block' mode; impl tf32x3 (with the simt forward)
+    also against float64 (_hold_bwd_to_f64).  Returns one row a kernel."""
     from dct_autoencoder_torch.kernels import attention as A
 
     (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, dtype, gen, 4)
     scale = d**-0.5
     drop = _dropout(A, rate, seed, row0, head0)
-    fwd = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=impl, dropout=drop)
+    fwd = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=_fwd_impl(impl), dropout=drop)
     o, lse = fwd()
     dq_k = lambda: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, impl=impl, dropout=drop)
     dq, delta = dq_k()
@@ -700,12 +780,16 @@ def _attention_mode_case(b, h, s, d, dtype, mode, causal, impl, rate, gen, seed=
         check(dq.transpose(1, 2)[pad].abs().max().item() == 0.0, f"{what}: dq of padded queries not 0")
     again = (*fwd(), *dq_k(), *dkv_k())
     check(all(torch.equal(x, y) for x, y in zip((o, lse, dq, delta, dk, dv), again)), f"{what}: two launches differ")
+    f64_row = {}
+    if impl == "tf32x3":
+        f64_row = _hold_bwd_to_f64(what, (dq, dk, dv), refs,
+                                   attention_bwd_f64(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, drop))
     common = {"shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "causal": causal,
               "impl": impl, "rate": rate, "kernel_head_dim": A.kernel_head_dim(d)}
     return {
-        "fwd": {**common, "max_abs_err": errs["o"], "tol": tols["o"], "lse_max_abs_err": lse_err},
-        "dq": {**common, "max_abs_err": errs["dq"], "tol": tols["dq"]},
-        "dkv": {**common, "max_abs_err": max(errs["dk"], errs["dv"]), "tol": max(tols["dk"], tols["dv"])},
+        "fwd": {**common, "impl": _fwd_impl(impl), "max_abs_err": errs["o"], "tol": tols["o"], "lse_max_abs_err": lse_err},
+        "dq": {**common, "max_abs_err": errs["dq"], "tol": tols["dq"], **f64_row},
+        "dkv": {**common, "max_abs_err": max(errs["dk"], errs["dv"]), "tol": max(tols["dk"], tols["dv"]), **f64_row},
     }
 
 
@@ -730,10 +814,11 @@ def _dropout_mask_readout(dtype, impl, rate, gen, row0=3, head0=5):
     k = torch.randn(b, h, s, s, generator=gen).to(dtype).to(dev)
     scale = s**-0.5
     kw = dict(impl=impl, dropout=drop)
-    o, lse = A.attention_fwd_cuda(zeros, k, eye, ids, ids, scale, **kw)
+    fwd_kw = dict(impl=_fwd_impl(impl), dropout=drop)
+    o, lse = A.attention_fwd_cuda(zeros, k, eye, ids, ids, scale, **fwd_kw)
     _, delta = A.attention_dq_cuda(zeros, k, eye, ids, ids, o, lse, eye, scale, **kw)
     _, dv = A.attention_dkv_cuda(zeros, k, eye, ids, ids, lse, delta, eye, scale, **kw)
-    o2, lse2 = A.attention_fwd_cuda(zeros, eye, e0, ids, ids, scale, **kw)
+    o2, lse2 = A.attention_fwd_cuda(zeros, eye, e0, ids, ids, scale, **fwd_kw)
     dq, _ = A.attention_dq_cuda(zeros, eye, e0, ids, ids, o2, lse2, e0, scale, **kw)
     torch.cuda.synchronize()
     z = want.float() * drop.keep_scale
@@ -757,8 +842,9 @@ def _dropout_mask_readout(dtype, impl, rate, gen, row0=3, head0=5):
 def _dropout_and_dim_cases(gen):
     """Every new mode and dim against its plain version: the dropout mode at
     both rates in both mask modes, causal or not, in the tensor-core kernels
-    (bf16), the CUDA-core kernels on bf16 (impl="simt") and in fp32; the head
-    dims of HEAD_DIM_CASES with and without dropout, in both implementations.
+    (bf16), the CUDA-core kernels on bf16 (impl="simt") and in fp32, and the
+    3xTF32 backward (fp32, impl="tf32x3", beside the simt forward); the head
+    dims of HEAD_DIM_CASES with and without dropout, in every implementation.
     Returns rows by kernel key."""
     out = {key: [] for key in ("attention", "attention_dq", "attention_dkv", "attention_causal", "attention_dq_causal",
                                "attention_dkv_causal", "attention_dropout", "attention_dq_dropout", "attention_dkv_dropout")}
@@ -768,7 +854,7 @@ def _dropout_and_dim_cases(gen):
         for kernel, key in (("fwd", "attention"), ("dq", "attention_dq"), ("dkv", "attention_dkv")):
             out[key + suffix].append(rows[kernel])
 
-    impls = ((torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt"))
+    impls = ATTENTION_IMPLS
     for rate in DROPOUT_RATES:
         for mode in ("block", "bias"):
             for causal in (False, True):
@@ -871,8 +957,7 @@ def phase_attention_modes(gen):
     from dct_autoencoder_torch.kernels import attention as A
 
     t0 = time.perf_counter()
-    readouts = [_dropout_mask_readout(dtype, impl, rate, gen)
-                for rate in DROPOUT_RATES for dtype, impl in ((torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt"))]
+    readouts = [_dropout_mask_readout(dtype, impl, rate, gen) for rate in DROPOUT_RATES for dtype, impl in ATTENTION_IMPLS]
     timed = _timed_rows(A, 64, 16, 256, 64, torch.bfloat16, "block", 0.1, gen)  # the patch14-L train step's shape
     torch.cuda.empty_cache()
     dims = {d: _timed_rows(A, 64, 8, 256, d, torch.bfloat16, "block", 0.0, gen) for d in (16, 48, 128)}
@@ -1079,6 +1164,106 @@ def attention_device_times(reps: int = 3) -> None:
                   "graph_ms": [graph_ms(fn) for _ in range(reps)], "event_ms": time_ms(fn, inner=TIMED_LAUNCHES)})
 
 
+# the fp32 attention's timed shapes ((b, h, s, d), causal, one image a row): rows 1-3's;
+# the sweep's (conf/small-448.json at 4 x 3072 rows, beta 0: one 448^2 image a row,
+# every pair allowed); the AR example's (batch 8 x 128, hidden 256, 4 heads)
+FP32_TIMED_SHAPES = (((64, 16, 256, 64), False, False), ((4, 8, 3072, 32), False, True), ((8, 4, 128, 64), True, False))
+# the fp32 backward pair's implementations, timed side by side
+FP32_BWD_IMPLS = ("simt", "tf32x3")
+
+
+def _sdpa_fp32_times(q, k, v, do, mask, scale) -> dict:
+    """SDPA's fp32 forward and whole backward, pinned to the memory-efficient
+    backend (CUTLASS; 3xTF32 on sm_80 and later), or to the math backend where
+    that one refuses the inputs, and unpinned (the backend the dispatcher
+    picks).  library_fwd_ms and library_bwd_ms are the faster of the two,
+    library_fwd_backend and library_bwd_backend the call that gave each."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    timed, refused = {"fwd": {}, "bwd": {}}, []
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                fwd, bwd = _sdpa_calls(q, k, v, do, mask, scale, 0.0)
+                timed["fwd"][backend.name] = time_ms(fwd, inner=TIMED_LAUNCHES)
+                timed["bwd"][backend.name] = time_ms(bwd, inner=TIMED_LAUNCHES)
+            break
+        except RuntimeError as e:
+            refused.append(f"{backend.name}: {str(e)[:200]}")
+    picked = SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask=mask, dropout_p=0.0, is_causal=False, scale=scale)).name
+    fwd, bwd = _sdpa_calls(q, k, v, do, mask, scale, 0.0)
+    timed["fwd"][f"unpinned ({picked})"] = time_ms(fwd, inner=TIMED_LAUNCHES)
+    timed["bwd"][f"unpinned ({picked})"] = time_ms(bwd, inner=TIMED_LAUNCHES)
+    out = {"library_refused": refused, "library_ms_by_backend": timed}
+    for kind, by_backend in timed.items():
+        out[f"library_{kind}_backend"], out[f"library_{kind}_ms"] = min(by_backend.items(), key=lambda kv: kv[1])
+    return out
+
+
+def fp32_attention_times(reps: int = 25) -> dict:
+    """The fp32 attention kernels at FP32_TIMED_SHAPES: the forward (simt)
+    and the backward pair in each of FP32_BWD_IMPLS, each held to
+    the plain versions (1e-5 of the largest value), beside SDPA's fp32 forward
+    and backward (_sdpa_fp32_times), the plain versions and the bounds (each
+    input and output once, allowed pairs only; operations at 3xTF32, 495 / 3
+    TFLOP/s, and on the CUDA cores at 67).  One JSON line a shape; returns
+    them by shape."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    gen = torch.Generator().manual_seed(3)
+    rows = {}
+    for (b, h, s, d), causal, one_image in FP32_TIMED_SHAPES:
+        (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, torch.float32, gen, 4)
+        if one_image:
+            pad = torch.zeros_like(pad)
+            q_ids, kv_ids = A.segment_ids(torch.zeros_like(q_ids), pad)
+        scale = d**-0.5
+        fwd = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, "block", causal)
+        o, lse = fwd()
+        dq_k = lambda impl: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, "block", causal, impl=impl)
+        dkv_k = lambda impl, dl: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, dl, do, scale, "block", causal, impl=impl)
+        fwd_plain = lambda: A.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, "block", causal)
+        bwd_plain = lambda: A.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, "block", causal)
+        o_ref, _ = fwd_plain()
+        refs = bwd_plain()
+        what = f"fp32 attention {(b, h, s, d)} causal={causal}"
+        errs = {"fwd": (o - o_ref).abs().max().item()}
+        check(errs["fwd"] <= _mode_tol(torch.float32, 0.0, o_ref), f"{what}: o max|diff| {errs['fwd']}")
+        ms = {"fwd": {"simt": time_ms(fwd, reps=reps, inner=TIMED_LAUNCHES)}, "dq": {}, "dkv": {}}
+        for impl in FP32_BWD_IMPLS:
+            dq, delta = dq_k(impl)
+            dk, dv = dkv_k(impl, delta)
+            torch.cuda.synchronize()
+            for name, got, ref in (("dq", dq, refs[0]), ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+                err, tol = (got - ref).abs().max().item(), _mode_tol(torch.float32, 0.0, ref)
+                check(err <= tol, f"{what}: {impl} {name} max|diff| {err} > {tol}")
+                errs[f"{impl}_{name}"] = err
+            ms["dq"][impl] = time_ms(lambda: dq_k(impl), reps=reps, inner=TIMED_LAUNCHES)
+            ms["dkv"][impl] = time_ms(lambda: dkv_k(impl, delta), reps=reps, inner=TIMED_LAUNCHES)
+            del dq, dk, dv
+        del o_ref, refs
+        mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, "block", torch.float32, causal)
+        n, vec, ids_bytes = b * h * s * d, b * h * s * 4, 2 * b * s * 4
+        nbytes = {"fwd": 4 * n * 4 + ids_bytes + vec, "dq": 6 * n * 4 + 2 * vec + ids_bytes, "dkv": 6 * n * 4 + 2 * vec + ids_bytes}
+        flops = {"fwd": 4 * h * d * pairs, "dq": 6 * h * d * pairs, "dkv": 8 * h * d * pairs}
+        row = {
+            "phase": "fp32_attention_times", "shape": [b, h, s, d], "mode": "block", "causal": causal,
+            "allowed_pairs_share": pairs / (b * s * s), "ms": ms, "max_abs_err": errs,
+            "bound_tf32x3": {k_: bound(nbytes[k_], 3 * flops[k_], "tf32") for k_ in flops},
+            "bound_fp32_cuda_cores": {k_: bound(nbytes[k_], flops[k_], torch.float32) for k_ in flops},
+            "plain_fwd_ms": time_ms(fwd_plain, reps=3), "plain_bwd_ms": time_ms(bwd_plain, reps=3),
+            "kernel_info": {f"{kernel}_{impl}": A.attention_kernel_info(kernel, impl, torch.float32, d)
+                            for kernel, kimpls in (("fwd", ("simt",)), ("dq", FP32_BWD_IMPLS), ("dkv", FP32_BWD_IMPLS))
+                            for impl in kimpls},
+            **_sdpa_fp32_times(q, k, v, do, mask, scale),
+        }
+        emit(row)
+        rows[(b, h, s, d)] = row
+        del q, k, v, do, o, lse, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernels_only(argv) -> "str | None":
     """What `--kernels-only` asks for: None (every phase), "all" (stop after
     the kernels' phase) or "dct" (only its DCT and IDCT cases, then stop)."""
@@ -1128,6 +1313,8 @@ def phase_kernels(which: str = "all"):
     for mode in ("block", "bias"):
         emit({"phase": "attention_bwd_fp32_determinism", **_attention_bwd_determinism(mode)})
     torch.cuda.empty_cache()
+    fp32_times = fp32_attention_times()
+    torch.cuda.empty_cache()
     cases = {
         "attention": attn,
         "attention_dq": [c["attention_dq"] for c in bwd],
@@ -1144,7 +1331,28 @@ def phase_kernels(which: str = "all"):
             if "rate" in row and "ms" not in row:
                 continue  # phase_attention_modes emitted a summary of these
             emit({"phase": "kernel_vs_plain", "kernel": name, **row})
+    cases["fp32_times"] = list(fp32_times.values())  # fp32_attention_times emitted these
     return cases
+
+
+def fp32_figures(rows, kernel: str) -> list:
+    """One attention kernel's ("fwd", "dq" or "dkv") fp32 figures at each shape
+    of fp32_attention_times' rows: ms by implementation, SDPA's fp32 time
+    (the forward, or the whole backward), the bounds and the errors."""
+    out = []
+    for r in rows:
+        tf32x3_ms, by = r["bound_tf32x3"][kernel]
+        suffixes = {"fwd": ("fwd",), "dq": ("_dq",), "dkv": ("_dk", "_dv")}[kernel]
+        errs = {k: v for k, v in r["max_abs_err"].items() if k.endswith(suffixes)}
+        out.append({
+            "shape": r["shape"], "causal": r["causal"], "allowed_pairs_share": r["allowed_pairs_share"], "ms": r["ms"][kernel],
+            "library_ms": r["library_fwd_ms" if kernel == "fwd" else "library_bwd_ms"],
+            "library_backend": r["library_fwd_backend" if kernel == "fwd" else "library_bwd_backend"],
+            "bound_ms": tf32x3_ms, "bound_by": by,
+            "bound_fp32_cuda_cores_ms": r["bound_fp32_cuda_cores"][kernel][0],
+            "plain_ms": r["plain_fwd_ms" if kernel == "fwd" else "plain_bwd_ms"], "max_abs_err": errs,
+        })
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1742,8 +1950,8 @@ def phase_train_dropout_patch14l(steps=8, rows=64, rate=0.1):
 def phase_ar_example_head_dims(steps=20):
     """tools/train_ar_example's loop (train_ar: train, save, sample, decode) on
     the card at --hidden 192 and --hidden 64, whose 4 heads are 48 and 16 wide:
-    in fp32 as the tool trains (the CUDA-core kernels) and in bf16 (the tensor
-    cores), a few steps each."""
+    in fp32 as the tool trains (the CUDA-core forward, the 3xTF32 backward)
+    and in bf16 (the tensor cores), a few steps each."""
     import tempfile
 
     import dct_autoencoder_torch as dt
@@ -1769,7 +1977,7 @@ def phase_ar_example_head_dims(steps=20):
         check(head_dim == hidden // 4, f"{what}: head dim {head_dim}")
         for name in CAUSAL_KERNELS:
             check(launches[name] == tcfg.num_hidden_layers * steps, f"{what}: {launches[name]} {name} launches")
-        check_impl_launches(launches, "mma", "simt" if dtype == torch.float32 else "mma")
+        check_impl_launches(launches, *PATH_IMPLS["ar_example"] if dtype == torch.float32 else BF16_PATH)
         losses, img = result["losses"], result["image"]
         check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{what}: losses {losses}")
         check(img.shape == (3, 448, 448) and np.isfinite(img).all(), f"{what}: the decoded sample")
@@ -2673,8 +2881,13 @@ def phase_sweep_small_448(shards, trials=5, max_iters=6, batch_size=4):
     """train/sweep.py run_onchip with conf/small-448.json (the JAX function's
     default) over the shards, as `--onchip` runs it: fp32, both methods,
     `trials` trials each, more than TPE's random start-up trials so that
-    its own suggestion runs."""
+    its own suggestion runs.  The whole campaign runs under torch.profiler
+    (s_per_trial included) and the line adds its device time by kernel, per
+    step of a trial (the set-up's one calibration step included)."""
     import tempfile
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     from dct_autoencoder_torch import kernels as K
     from dct_autoencoder_torch.train import sweep
@@ -2686,9 +2899,10 @@ def phase_sweep_small_448(shards, trials=5, max_iters=6, batch_size=4):
     torch.cuda.synchronize()
     K.reset_launch_counts()
     logs = []
-    results = sweep.run_onchip(shards, model_config_path=SMALL_448, trials=trials, max_iters=max_iters,
-                               batch_size=batch_size, score_last=2, calib_steps=1, out_file=out_file, log=logs.append)
-    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        results = sweep.run_onchip(shards, model_config_path=SMALL_448, trials=trials, max_iters=max_iters,
+                                   batch_size=batch_size, score_last=2, calib_steps=1, out_file=out_file, log=logs.append)
+        torch.cuda.synchronize()
     launches = path_launches()
     recs = [json.loads(x) for x in open(out_file)]
     os.remove(out_file)
@@ -2705,8 +2919,23 @@ def phase_sweep_small_448(shards, trials=5, max_iters=6, batch_size=4):
         "s_per_trial": statistics.mean(r["wall_s"] for r in recs),
         "best": {m: results[m]["rec_loss"] for m in ("tpe", "random")}, "data_log": [x for x in logs if "sweep data" in x],
         "launches": launches, "phase_s": time.perf_counter() - t_phase,
+        "device_per_step": _device_by_kernel(prof, 2 * trials * max_iters),
     })
     return launches
+
+
+def _device_by_kernel(prof, steps: int, top: int = 12) -> dict:
+    """Device ms a step by kernel from a profiler run over `steps` steps, the
+    attention kernels' share of it, and the top kernels."""
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps, e.count / steps) for e in device_rows(prof)),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    check(busy > 0, "the profiler saw no device time")
+    as_dict = lambda r: {"kernel": r[0][:120], "ms_per_step": r[1], "launches_per_step": r[2]}
+    attn = [r for r in rows if "attn_" in r[0]]
+    return {"steps": steps, "device_ms_per_step": busy, "attention_ms_per_step": sum(r[1] for r in attn),
+            "attention_share": sum(r[1] for r in attn) / busy, "attention_kernels": [as_dict(r) for r in attn],
+            "top_kernels": [as_dict(r) for r in rows[:top]]}
 
 
 # ---------------------------------------------------------------- the offline tools
@@ -2986,7 +3215,7 @@ def phase_tools_eval_r3b(n_images=8, size=448):
         with open(os.path.join(scan, "eval.jsonl")) as f:
             check([json.loads(x) for x in f] == rows, "eval.jsonl holds other rows than the scan printed")
         emit({
-            "phase": "tools_eval_r3b", "images": n_images, "size": size, "dtype": "float32 (the CUDA-core attention kernels)",
+            "phase": "tools_eval_r3b", "images": n_images, "size": size, "dtype": "float32 (the CUDA-core attention forward)",
             "card": card, "cpu": cpu, "code_agreement_vs_cpu": agree, "psnr_delta_db": card["psnr"] - cpu["psnr"],
             "perplexity_rel_delta": ppl_rel, "card_wall_s": card_s, "cpu_wall_s": cpu_s,
             "scan": {"rows": rows, "s_per_checkpoint": ev.seconds, "wall_s": scan_s, "pipelines_built": len(built.calls),
@@ -3014,7 +3243,7 @@ def _numbers(text) -> list:
 
 def phase_tools_demos_r3b(n_frames=8, size=448, n_images=4, n_diagnose=2):
     """decode_gif and diagnose on r3b (fp32: the CUDA-core attention
-    kernels) and testpipe (no model), each on the card against the CPU."""
+    forward) and testpipe (no model), each on the card against the CPU."""
     import shutil
     import tempfile
 
@@ -3088,7 +3317,7 @@ def phase_tools_demos_r3b(n_frames=8, size=448, n_images=4, n_diagnose=2):
         check(tl["dct_patchify"] == n_images and tl["idct_unpatchify"] == 1 and tl["attention"] == 0,
               f"testpipe launches {tl}")
         emit({
-            "phase": "tools_demos_r3b", "dtype": "float32 (the CUDA-core attention kernels)",
+            "phase": "tools_demos_r3b", "dtype": "float32 (the CUDA-core attention forward)",
             "decode_gif": {"frames": n_frames, "size": size, "frame_psnr_db": frame_psnr,
                            "frame_card_vs_cpu_psnr_db": card_vs_cpu, "card_s": frames["cuda_s"], "cpu_s": frames["cpu_s"],
                            "launches": launches["tools_decode_gif"]},
@@ -3909,24 +4138,29 @@ SERVING_KERNELS = ("attention", "dct_patchify", "idct_unpatchify")
 FWD_KERNELS = ("attention", "attention_causal", "attention_dropout")
 BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attention_dkv_causal", "attention_dq_dropout",
                "attention_dkv_dropout")
-# path -> (impl of its non-causal attention launches, impl of its causal ones):
-# bfloat16 runs on the tensor cores; the AR example tokenizes in bfloat16 and
-# trains its AR model in float32, and the sweep trains in float32 as its
-# command line does, on the CUDA-core kernels; the offline tools that run
-# float32 (eval on r3b as the phase asks, decode_gif and diagnose as their
-# tools do) run there too.  testpipe runs no model, so no attention: its
-# launches are read by its phase and listed in launches_by_path only
+# path -> ((impl of its non-causal forward launches, of its causal ones),
+#          (impl of its non-causal backward launches, of its causal ones)):
+# bfloat16 runs on the tensor cores (BF16_PATH); float32 runs the forward on
+# the CUDA cores and the backward on the tensor cores in 3xTF32 (FP32_PATH).
+# The sweep trains in float32 as its command line does; the AR example
+# tokenizes in bfloat16 (non-causal forward) and trains its AR model in
+# float32 (causal); the offline tools that run float32 (eval on r3b as the
+# phase asks, decode_gif and diagnose as their tools do) launch forwards
+# only.  testpipe runs no model, so no attention: its launches are read by
+# its phase and listed in launches_by_path only
+BF16_PATH = (("mma", "mma"), ("mma", "mma"))
+FP32_PATH = (("simt", "simt"), ("tf32x3", "tf32x3"))
 PATH_IMPLS = {
-    "serving": ("mma", "mma"), "reconstruct_direct": ("mma", "mma"), "serving_daemon": ("mma", "mma"),
-    "full_width": ("mma", "mma"), "train_r3b": ("mma", "mma"),
-    "train_patch14l": ("mma", "mma"), "ar_train": ("mma", "mma"), "ar_example": ("mma", "simt"),
-    "train_pixel_r3b": ("mma", "mma"), "train_cli": ("mma", "mma"),
-    "train_vq_patch14l": ("mma", "mma"), "train_vq_r3b": ("mma", "mma"), "train_cli_vq": ("mma", "mma"),
-    "sweep": ("simt", "simt"),
-    "tools_prepare_ar": ("mma", "mma"), "tools_eval_patch14l": ("mma", "mma"), "int8_study": ("mma", "mma"),
-    "tools_eval_r3b": ("simt", "simt"), "tools_decode_gif": ("simt", "simt"), "tools_diagnose": ("simt", "simt"),
-    "parallel_patch14l": ("mma", "mma"), "pipeline_patch14l": ("mma", "mma"),
-    "compile_probe": ("mma", "mma"), "train_dropout_patch14l": ("mma", "mma"),
+    "serving": BF16_PATH, "reconstruct_direct": BF16_PATH, "serving_daemon": BF16_PATH,
+    "full_width": BF16_PATH, "train_r3b": BF16_PATH,
+    "train_patch14l": BF16_PATH, "ar_train": BF16_PATH, "ar_example": (("mma", "simt"), ("mma", "tf32x3")),
+    "train_pixel_r3b": BF16_PATH, "train_cli": BF16_PATH,
+    "train_vq_patch14l": BF16_PATH, "train_vq_r3b": BF16_PATH, "train_cli_vq": BF16_PATH,
+    "sweep": FP32_PATH,
+    "tools_prepare_ar": BF16_PATH, "tools_eval_patch14l": BF16_PATH, "int8_study": BF16_PATH,
+    "tools_eval_r3b": FP32_PATH, "tools_decode_gif": FP32_PATH, "tools_diagnose": FP32_PATH,
+    "parallel_patch14l": BF16_PATH, "pipeline_patch14l": BF16_PATH,
+    "compile_probe": BF16_PATH, "train_dropout_patch14l": BF16_PATH,
 }
 
 
@@ -3937,10 +4171,11 @@ def path_launches() -> dict:
     return {**K.launch_counts(), "fwd_impl": K.fwd_impl_launch_counts(), "bwd_impl": K.bwd_impl_launch_counts()}
 
 
-def check_impl_launches(launches: dict, impl: str, causal_impl: str) -> None:
-    """Every attention launch of one path, forward and backward, was counted
-    under `impl`, or under `causal_impl` for a causal one."""
-    for kind, kernels in (("fwd", FWD_KERNELS), ("bwd", BWD_KERNELS)):
+def check_impl_launches(launches: dict, fwd_impls: tuple, bwd_impls: tuple) -> None:
+    """Every attention forward launch of one path was counted under
+    fwd_impls[0], or fwd_impls[1] for a causal one, and every backward launch
+    under bwd_impls[0] or bwd_impls[1] alike."""
+    for kind, kernels, (impl, causal_impl) in (("fwd", FWD_KERNELS, fwd_impls), ("bwd", BWD_KERNELS, bwd_impls)):
         want = {name: 0 for name in launches[f"{kind}_impl"]}
         for k in kernels:
             want[causal_impl if k.endswith("_causal") else impl] += launches[k]
@@ -4019,7 +4254,9 @@ def main() -> int:
     from dct_autoencoder_torch.kernels.attention import HEAD_DIMS
 
     # what every attention kernel is compiled for; other head dims run padded to the next
-    instantiations = {"head_dims": list(HEAD_DIMS), "dropout_mode": [False, True], "impls": ["mma (bfloat16)", "simt"]}
+    instantiations = {"head_dims": list(HEAD_DIMS), "dropout_mode": [False, True],
+                      "impls": ["mma (bfloat16)", "tf32x3 (float32 dq and dk/dv)", "simt"]}
+    fp32_kernel = {"attention": "fwd", "attention_dq": "dq", "attention_dkv": "dkv"}
     kernels = []
     for key, name, source, replaces, counter, path in KERNEL_TABLE:
         head = cases[key][0]  # the main path's shape
@@ -4036,6 +4273,8 @@ def main() -> int:
             "impl": head.get("impl"), "simt_ms": head.get("simt_ms"), "kernel_info": head.get("kernel_info"),
             "instantiations": instantiations if key.startswith("attention") else None,
             "ms_no_dropout": head.get("ms_no_dropout"),
+            "fp32": {"source": "dct_autoencoder_torch/csrc/" + ("attention_fwd.cu" if key == "attention" else "attention_bwd_tf32x3.cu"),
+                     "shapes": fp32_figures(cases["fp32_times"], fp32_kernel[key])} if key in fp32_kernel else None,
             **{k: head[k] for k in ("wrapper_ms", "bound_tf32x3_ms", "bound_fp32_cuda_cores_ms", "bound_bytes_ms") if k in head},
         })
     emit({"kernels": kernels})

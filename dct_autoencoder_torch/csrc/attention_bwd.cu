@@ -95,10 +95,12 @@
 //
 // impl 0, "simt": attn_dq_kernel and attn_dkv_kernel multiply in float32 on
 // the CUDA cores, keep p and ds in float32 and round once at the store.
-// float32 inputs always take them (true fp32; TF32 would not hold 1e-5).
-// Their bfloat16 instantiations stay for timing the old design against the
-// new one on one card.  They are arithmetic-bound at a few milliseconds
-// (67 TFLOP/s peak).  Design: both sides tiled 64 x 64, the opposite side
+// float32 launches take impl 2, "tf32x3" (attention_bwd_tf32x3.cu: the
+// tensor cores in 3xTF32, which hold fp32's 1e-5 where one TF32 product
+// would not), unless impl 0 is asked for; the instantiations of both types
+// stay for timing the old design against the new ones on one card.  They
+// are arithmetic-bound at a few milliseconds (67 TFLOP/s peak).  Design:
+// both sides tiled 64 x 64, the opposite side
 // streams through shared memory widened to fp32; four threads share one row
 // of the block's own side, which stays in registers; each takes 16 rows of
 // the streamed tile for the logits and d/4 columns of the accumulators.
@@ -403,43 +405,6 @@ __device__ __forceinline__ float pair_prob(float dot, float scale_log2e, float n
     return in ? p : 0.f;
 }
 
-// The dropout mode's keep bits of one pass: bit 4 j + e says whether element
-// e of the 8-column tile j of the pass's (16 x PASS) accumulators is kept
-// (e = 0, 1 on the own row r_lo, e = 2, 3 on r_lo + 8; column 8 j + 2t +
-// (e & 1) from col0).  One Philox call for each quadruple of
-// attn_dropout.cuh; `own_g` is the group of the thread's own rows, which are
-// queries in the dq kernel and keys in the dk/dv kernel (OWN_IS_QUERY), so
-// the group words land on other elements in the two.
-template <bool OWN_IS_QUERY>
-__device__ __forceinline__ uint32_t keep_bits(uint2 key, const attn_drop::Params& drop, int row, int head,
-                                              uint32_t own_g, int col0, int t) {
-    uint32_t bits = 0;
-#pragma unroll
-    for (int jj = 0; jj < PASS / 16; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            const uint32_t col_g = attn_drop::group_of(col0 + 16 * jj + 2 * t + e);
-            const uint4 w = attn_drop::philox(
-                OWN_IS_QUERY ? make_uint4((uint32_t)row, (uint32_t)head, own_g, col_g)
-                             : make_uint4((uint32_t)row, (uint32_t)head, col_g, own_g),
-                key);
-            // w.x (q, k), w.y (q, k + 8), w.z (q + 8, k), w.w (q + 8, k + 8); the
-            // own row's + 8 is e + 2, the column's + 8 the tile 2 jj + 1
-            const int lo = 8 * jj + e, hi = 8 * jj + 4 + e;  // bit of (own, column) and of (own, column + 8)
-            bits |= (uint32_t)(w.x >= drop.threshold) << lo;
-            bits |= (uint32_t)(w.w >= drop.threshold) << (hi + 2);
-            if (OWN_IS_QUERY) {
-                bits |= (uint32_t)(w.y >= drop.threshold) << hi;
-                bits |= (uint32_t)(w.z >= drop.threshold) << (lo + 2);
-            } else {
-                bits |= (uint32_t)(w.y >= drop.threshold) << (lo + 2);
-                bits |= (uint32_t)(w.z >= drop.threshold) << hi;
-            }
-        }
-    }
-    return bits;
-}
-
 // Dynamic shared memory of the dq kernel: the K and V rings and the tile's kv ids.
 template <int D>
 constexpr size_t dq_mma_smem_bytes() {
@@ -577,7 +542,7 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
             }
             uint32_t keep = 0;
             if constexpr (DROP) {
-                keep = keep_bits<true>(key, drop, drop.row0 + b, drop.head0 + bh % h, attn_drop::group_of(r_lo),
+                keep = attn_drop::keep_bits<true, PASS>(key, drop, drop.row0 + b, drop.head0 + bh % h, attn_drop::group_of(r_lo),
                                        k0 + c0, t);
             }
             // ds in fragment coordinates, in place of S
@@ -745,7 +710,7 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
             }
             uint32_t keep = 0;
             if constexpr (DROP) {
-                keep = keep_bits<false>(key, drop, drop.row0 + b, drop.head0 + bh % h, attn_drop::group_of(r_lo),
+                keep = attn_drop::keep_bits<false, PASS>(key, drop, drop.row0 + b, drop.head0 + bh % h, attn_drop::group_of(r_lo),
                                         q0 + c0, t);
             }
             // p^T in place of S^T, ds^T in place of dP^T; lse, delta and q ids go by column
@@ -884,7 +849,7 @@ cudaError_t launch_dkv_mma(const BwdArgs& a) {
     return cudaGetLastError();
 }
 
-// impl 1 takes bfloat16 only; float32 has the CUDA-core kernels alone
+// impl 1 takes bfloat16 only; impl 2 (float32) is attention_bwd_tf32x3.cu's
 bool known(int impl, int dtype) {
     return (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
 }

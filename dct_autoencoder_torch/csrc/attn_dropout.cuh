@@ -73,4 +73,42 @@ __device__ __forceinline__ bool keep_pair(uint2 key, uint32_t threshold, int row
     return x >= threshold;
 }
 
+// The keep bits of one pass of a tensor-core backward kernel (attention_bwd.cu,
+// attention_bwd_tf32x3.cu), whose m16n8 accumulators share one layout: bit
+// 4 j + e says whether element e of the 8-column tile j of the pass's
+// (16 x PASS) accumulators is kept (e = 0, 1 on the own row r_lo, e = 2, 3 on
+// r_lo + 8; column 8 j + 2t + (e & 1) from col0).  One Philox call for each
+// quadruple above; `own_g` is the group of the thread's own rows, which are
+// queries in the dq kernel and keys in the dk/dv kernel (OWN_IS_QUERY), so
+// the group words land on other elements in the two.
+template <bool OWN_IS_QUERY, int PASS>
+__device__ __forceinline__ uint32_t keep_bits(uint2 key, const Params& drop, int row, int head, uint32_t own_g,
+                                              int col0, int t) {
+    static_assert(PASS % 16 == 0 && PASS <= 32, "whole 16-column steps, 32 bits");
+    uint32_t bits = 0;
+#pragma unroll
+    for (int jj = 0; jj < PASS / 16; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const uint32_t col_g = group_of(col0 + 16 * jj + 2 * t + e);
+            const uint4 w = philox(OWN_IS_QUERY ? make_uint4((uint32_t)row, (uint32_t)head, own_g, col_g)
+                                                : make_uint4((uint32_t)row, (uint32_t)head, col_g, own_g),
+                                   key);
+            // w.x (q, k), w.y (q, k + 8), w.z (q + 8, k), w.w (q + 8, k + 8); the
+            // own row's + 8 is e + 2, the column's + 8 the tile 2 jj + 1
+            const int lo = 8 * jj + e, hi = 8 * jj + 4 + e;  // bit of (own, column) and of (own, column + 8)
+            bits |= (uint32_t)(w.x >= drop.threshold) << lo;
+            bits |= (uint32_t)(w.w >= drop.threshold) << (hi + 2);
+            if (OWN_IS_QUERY) {
+                bits |= (uint32_t)(w.y >= drop.threshold) << hi;
+                bits |= (uint32_t)(w.z >= drop.threshold) << (lo + 2);
+            } else {
+                bits |= (uint32_t)(w.y >= drop.threshold) << (lo + 2);
+                bits |= (uint32_t)(w.z >= drop.threshold) << hi;
+            }
+        }
+    }
+    return bits;
+}
+
 }  // namespace attn_drop

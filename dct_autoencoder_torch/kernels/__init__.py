@@ -40,5 +40,5 @@ def fwd_impl_launch_counts() -> dict:
 
 
 def bwd_impl_launch_counts() -> dict:
-    """Launches of the two attention backward kernels by implementation ("mma", "simt")."""
+    """Launches of the two attention backward kernels by implementation ("mma", "simt", "tf32x3")."""
     return dict(attention.LAUNCHES_BWD_IMPL)

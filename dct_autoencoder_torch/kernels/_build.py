@@ -2,8 +2,8 @@
 
 Each library is one source (with its own defines) compiled into a shared
 library with a plain C interface, for Hopper (sm_90a), at first use into
-``kernels/build/``; attention_bwd.cu makes two, one a kernel, so that the
-largest source compiles in two halves at once.  A library's file name
+``kernels/build/``; attention_bwd.cu and attention_bwd_tf32x3.cu make two
+each, one a kernel, so that the largest sources compile in halves at once.  A library's file name
 carries a hash of its source, the headers it includes, the flags and the
 defines, so an edited source is rebuilt and a stale one is never loaded.
 ``build_all`` starts one nvcc per library at once.
@@ -32,6 +32,8 @@ SOURCES = {
     "attention_fwd": "attention_fwd.cu",
     "attention_bwd_dq": "attention_bwd.cu",
     "attention_bwd_dkv": "attention_bwd.cu",
+    "attention_bwd_tf32x3_dq": "attention_bwd_tf32x3.cu",
+    "attention_bwd_tf32x3_dkv": "attention_bwd_tf32x3.cu",
     "dct_patchify": "dct_patchify.cu",
     "idct_unpatchify": "idct_unpatchify.cu",
 }
@@ -39,6 +41,8 @@ SOURCES = {
 DEFINES = {
     "attention_bwd_dq": ["-DATTN_BWD_PART=0"],
     "attention_bwd_dkv": ["-DATTN_BWD_PART=1"],
+    "attention_bwd_tf32x3_dq": ["-DATTN_BWD_PART=0"],
+    "attention_bwd_tf32x3_dkv": ["-DATTN_BWD_PART=1"],
 }
 
 _lock = threading.Lock()

@@ -12,22 +12,25 @@ from the saved row log-sum-exp.  The mask is derived from per-token ids
 inside the kernels.  On the H100 the bound of these calls is memory (the
 q/k/v/o/do bytes).
 
-Each kernel has two implementations (see the sources' headers).  For
-bfloat16 the products run on the tensor cores (``mma.sync``, bf16 operands,
-fp32 accumulators); what holds them above their byte bound is inside the SM
-(one ``ldmatrix`` feeds two ``mma``, and the mask and the exp run on the CUDA
-cores between the products).  p (and in the backward ds) is rounded to bf16
-before the second product, as the Pallas kernels round it
+Each kernel has several implementations (see the sources' headers).  For
+bfloat16 the products run on the tensor cores ("mma": ``mma.sync``, bf16
+operands, fp32 accumulators); what holds them above their byte bound is
+inside the SM (one ``ldmatrix`` feeds two ``mma``, and the mask and the exp
+run on the CUDA cores between the products).  p (and in the backward ds) is
+rounded to bf16 before the second product, as the Pallas kernels round it
 (``p.astype(v.dtype)``), because the tensor cores take it as a bf16 operand;
 the plain versions round at the same places, so the kernels and the plain
 versions compute the same function.  The forward's online softmax rounds p
 relative to the running row max where the Pallas kernel rounds it relative
 to the row's final max, so o can differ by one bf16 ulp now and then; no bit
-of the masking differs.  float32 keeps the CUDA-core kernels, which are true
-fp32 and bound by the CUDA cores' fp32 rate.  ``impl="simt"`` on the
-``*_cuda`` wrappers runs the CUDA-core kernels on bfloat16 too, for timing
-the old design beside the new one on one card; nothing on a model's path
-passes it.
+of the masking differs.  For float32 the two backward kernels run on the
+tensor cores in 3xTF32 ("tf32x3", csrc/attention_bwd_tf32x3.cu: each
+product as three TF32 products of hi and lo parts, about 22 significant
+bits, within fp32's 1e-5); the float32 forward keeps the CUDA-core kernel
+("simt"), true fp32 and bound by the CUDA cores' fp32 rate.
+``impl="simt"`` on the ``*_cuda`` wrappers runs the CUDA-core kernels on
+bfloat16 and on the float32 backward too, for timing the old design beside
+the new one on one card; nothing on a model's path passes it.
 
 ``packed_flash_attention`` keeps the JAX layout (b, h, s, d) and contract,
 and carries the gradient through a ``torch.autograd.Function`` whenever an
@@ -68,8 +71,9 @@ kernel launches without dropout, ``LAUNCHES_CAUSAL``, ``LAUNCHES_DQ_CAUSAL``
 and ``LAUNCHES_DKV_CAUSAL`` the causal ones; ``LAUNCHES_DROPOUT``,
 ``LAUNCHES_DQ_DROPOUT`` and ``LAUNCHES_DKV_DROPOUT`` the launches in the
 dropout mode, causal or not.  ``LAUNCHES_FWD_IMPL`` counts the
-forward's launches, causal or not, and ``LAUNCHES_BWD_IMPL`` those of both
-backward kernels, by implementation ("mma", "simt").
+forward's launches, causal or not, by implementation ("mma", "simt"), and
+``LAUNCHES_BWD_IMPL`` those of both backward kernels ("mma", "simt",
+"tf32x3").
 """
 from __future__ import annotations
 
@@ -93,9 +97,10 @@ LAUNCHES_DROPOUT = 0
 LAUNCHES_DQ_DROPOUT = 0
 LAUNCHES_DKV_DROPOUT = 0
 LAUNCHES_FWD_IMPL = {"mma": 0, "simt": 0}
-LAUNCHES_BWD_IMPL = {"mma": 0, "simt": 0}
+LAUNCHES_BWD_IMPL = {"mma": 0, "simt": 0, "tf32x3": 0}
 
-IMPLS = ("simt", "mma")  # the index is the `impl` argument of the C entry points
+IMPLS = ("simt", "mma", "tf32x3")  # the index is the `impl` argument of the C entry points
+FWD_IMPLS = ("simt", "mma")  # the forward has no 3xTF32 implementation
 
 
 def segment_ids(image_ids: torch.Tensor, key_pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -282,16 +287,22 @@ def attention_fwd_plain(
     return o.to(q.dtype), lse
 
 
-def _kernel_impl(impl: Optional[str], dtype: torch.dtype) -> str:
-    """The implementation an attention launch takes (forward and backward
-    alike): tensor cores ("mma") for bfloat16 unless "simt" is asked for, the
-    CUDA-core kernels for float32."""
+def _kernel_impl(impl: Optional[str], dtype: torch.dtype, kernel: str = "fwd") -> str:
+    """The implementation a launch of attention kernel `kernel` ("fwd", "dq"
+    or "dkv") takes: for bfloat16 the tensor cores ("mma") unless "simt" is
+    asked for; for float32 the CUDA-core forward ("simt") and the 3xTF32
+    tensor-core backward ("tf32x3") unless "simt" is asked for."""
+    known = FWD_IMPLS if kernel == "fwd" else IMPLS
     if impl is None:
-        return "mma" if dtype == torch.bfloat16 else "simt"
-    if impl not in IMPLS:
-        raise ValueError(f"unknown attention kernel impl {impl!r}: one of {IMPLS}")
+        if dtype == torch.bfloat16:
+            return "mma"
+        return "simt" if kernel == "fwd" else "tf32x3"
+    if impl not in known:
+        raise ValueError(f"unknown attention {kernel} kernel impl {impl!r}: one of {known}")
     if impl == "mma" and dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core attention kernels take bfloat16, got {dtype}")
+        raise TypeError(f"the bf16 tensor-core attention kernels take bfloat16, got {dtype}")
+    if impl == "tf32x3" and dtype != torch.float32:
+        raise TypeError(f"the 3xTF32 attention kernels take float32, got {dtype}")
     return impl
 
 
@@ -299,6 +310,18 @@ def _check_mma_alignment(tensors: Dict[str, torch.Tensor]) -> None:
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start at a 16-byte boundary for the tensor-core kernels")
+
+
+def _bwd_entry(kernel: str, impl: str, info: bool = False):
+    """The C entry point of backward kernel `kernel` ("dq" or "dkv") in
+    implementation `impl` (its kernel-info function with `info`):
+    csrc/attention_bwd_tf32x3.cu for "tf32x3", csrc/attention_bwd.cu for the
+    others; each source builds one library a kernel."""
+    from . import _build
+
+    tag = "_tf32x3" if impl == "tf32x3" else ""
+    lib = _build.load(f"attention_bwd{tag}_{kernel}")
+    return getattr(lib, f"attn_bwd{tag}_kernel_info" if info else f"attn_bwd{tag}_{kernel}")
 
 
 # the dropout arguments of the C entry points: seed pointer, threshold, 1 / (1 - rate), row0, head0
@@ -416,18 +439,20 @@ def attention_dq_cuda(
     q, k, v, q_ids, kv_ids, o, lse, do, scale: float, mode: str = "block", causal: bool = False,
     skip_tiles: bool = True, impl: Optional[str] = None, dropout: Optional[AttentionDropout] = None,
 ):
-    """Launch the dq kernel of csrc/attention_bwd.cu: returns (dq, delta).
+    """Launch the dq kernel of csrc/attention_bwd.cu (csrc/attention_bwd_tf32x3.cu
+    for "tf32x3"): returns (dq, delta).
 
     delta = rowsum(do * o) (b, h, s) fp32 is computed in the kernel's
     prologue; ``attention_dkv_cuda`` takes it.  ``impl``: None takes the
-    tensor-core kernel for bfloat16 and the CUDA-core kernel for float32;
-    "simt" asks for the CUDA-core kernel on bfloat16 too; "mma" with float32
-    raises TypeError.  Head dims are padded as in ``attention_fwd_cuda``.
+    tensor-core kernel of the dtype ("mma" for bfloat16, "tf32x3" for
+    float32); "simt" asks for the CUDA-core kernel; "mma" with float32 or
+    "tf32x3" with bfloat16 raises TypeError.  Head dims are padded as in
+    ``attention_fwd_cuda``.
     """
     global LAUNCHES_DQ, LAUNCHES_DQ_CAUSAL, LAUNCHES_DQ_DROPOUT
     from . import _build
 
-    impl = _kernel_impl(impl, q.dtype)
+    impl = _kernel_impl(impl, q.dtype, "dq")
     like_q = {"k": k, "v": v, "o": o, "do": do}
     _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode, {"lse": lse}, dropout)
     b, h, s, d = q.shape
@@ -436,9 +461,9 @@ def attention_dq_cuda(
     like_q = {name: pad_head_dim(t, dim) for name, t in like_q.items()}
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if impl == "mma":
+    if impl != "simt":
         _check_mma_alignment({"q": q, **like_q, "dq": dq})
-    fn = _build.load("attention_bwd_dq").attn_bwd_dq
+    fn = _bwd_entry("dq", impl)
     fn.restype = ctypes.c_int
     fn.argtypes = _BWD_ARGTYPES
     k, v, o, do = like_q["k"], like_q["v"], like_q["o"], like_q["do"]
@@ -463,11 +488,12 @@ def attention_dkv_cuda(
     q, k, v, q_ids, kv_ids, lse, delta, do, scale: float, mode: str = "block", causal: bool = False,
     skip_tiles: bool = True, impl: Optional[str] = None, dropout: Optional[AttentionDropout] = None,
 ):
-    """Launch the dk/dv kernel of csrc/attention_bwd.cu: returns (dk, dv).  ``impl`` and head dims as in ``attention_dq_cuda``."""
+    """Launch the dk/dv kernel of csrc/attention_bwd.cu (csrc/attention_bwd_tf32x3.cu
+    for "tf32x3"): returns (dk, dv).  ``impl`` and head dims as in ``attention_dq_cuda``."""
     global LAUNCHES_DKV, LAUNCHES_DKV_CAUSAL, LAUNCHES_DKV_DROPOUT
     from . import _build
 
-    impl = _kernel_impl(impl, q.dtype)
+    impl = _kernel_impl(impl, q.dtype, "dkv")
     like_q = {"k": k, "v": v, "do": do}
     _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode, {"lse": lse, "delta": delta}, dropout)
     b, h, s, d = q.shape
@@ -476,9 +502,9 @@ def attention_dkv_cuda(
     like_q = {name: pad_head_dim(t, dim) for name, t in like_q.items()}
     k, v, do = like_q["k"], like_q["v"], like_q["do"]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if impl == "mma":
+    if impl != "simt":
         _check_mma_alignment({"q": q, **like_q, "dk": dk, "dv": dv})
-    fn = _build.load("attention_bwd_dkv").attn_bwd_dkv
+    fn = _bwd_entry("dkv", impl)
     fn.restype = ctypes.c_int
     fn.argtypes = _BWD_ARGTYPES
     err = fn(
@@ -513,15 +539,11 @@ def attention_kernel_info(
 
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"unknown attention kernel {kernel!r}: one of fwd, dq, dkv")
-    impl = _kernel_impl(impl, dtype)
+    impl = _kernel_impl(impl, dtype, kernel)
     out = (ctypes.c_int * 4)()
     dim = kernel_head_dim(d)
-    if kernel == "fwd":
-        fn = _build.load("attention_fwd").attn_fwd_kernel_info
-        args = (IMPLS.index(impl), int(dtype == torch.bfloat16), dim, int(dropout))
-    else:
-        fn = _build.load(f"attention_bwd_{kernel}").attn_bwd_kernel_info
-        args = (IMPLS.index(impl), int(dtype == torch.bfloat16), dim, int(dropout))
+    fn = _build.load("attention_fwd").attn_fwd_kernel_info if kernel == "fwd" else _bwd_entry(kernel, impl, info=True)
+    args = (IMPLS.index(impl), int(dtype == torch.bfloat16), dim, int(dropout))
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     _build.check(fn(*args, ctypes.addressof(out)), f"attention {kernel} ({impl}) info")

@@ -62,12 +62,13 @@ def test_kernel_table_names_every_counter_and_source():
     # the backward kernels, whose launches are also counted by implementation
     assert set(chip_smoke.BWD_KERNELS) == {c for c in counters if "_dq" in c or "_dkv" in c}
     assert all(rows[c][2].endswith("attention_bwd.cu") for c in chip_smoke.BWD_KERNELS)
-    assert set(tk.bwd_impl_launch_counts()) == set(tk.fwd_impl_launch_counts()) == {"mma", "simt"}
+    assert set(tk.fwd_impl_launch_counts()) == {"mma", "simt"}
+    assert set(tk.bwd_impl_launch_counts()) == {"mma", "simt", "tf32x3"}
     # the forward kernels, counted by implementation too
     assert set(chip_smoke.FWD_KERNELS) == {c for c in counters if c.startswith("attention")} - set(chip_smoke.BWD_KERNELS)
     assert all(rows[c][2].endswith("attention_fwd.cu") for c in chip_smoke.FWD_KERNELS)
     # every attention row is read from a path that runs in bfloat16, on the tensor cores
-    assert all(chip_smoke.PATH_IMPLS[rows[c][5]] == ("mma", "mma") for c in chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS)
+    assert all(chip_smoke.PATH_IMPLS[rows[c][5]] == chip_smoke.BF16_PATH for c in chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS)
 
 
 @pytest.mark.parametrize("mode", ["block", "bias"])
@@ -159,25 +160,37 @@ def _fake_path(fwd=0, causal=0, bwd=0, bwd_causal=0, fwd_impl=None, bwd_impl=Non
     return {**counts, "fwd_impl": fwd_impl, "bwd_impl": bwd_impl}
 
 
+BF16, FP32 = chip_smoke.BF16_PATH, chip_smoke.FP32_PATH
+AR_EXAMPLE = chip_smoke.PATH_IMPLS["ar_example"]
+
+
 @pytest.mark.parametrize(
     "launches,impls,ok",
     [
         # serving: 40 forward launches on the tensor cores, no backward
-        (_fake_path(40, fwd_impl={"mma": 40, "simt": 0}, bwd_impl={"mma": 0, "simt": 0}), ("mma", "mma"), True),
-        (_fake_path(40, fwd_impl={"mma": 39, "simt": 1}, bwd_impl={"mma": 0, "simt": 0}), ("mma", "mma"), False),
+        (_fake_path(40, fwd_impl={"mma": 40, "simt": 0}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, True),
+        (_fake_path(40, fwd_impl={"mma": 39, "simt": 1}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, False),
         # a train step: 16 + 16 + 16
-        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0}, bwd_impl={"mma": 32, "simt": 0}), ("mma", "mma"), True),
-        (_fake_path(16, bwd=16, fwd_impl={"mma": 0, "simt": 16}, bwd_impl={"mma": 32, "simt": 0}), ("mma", "mma"), False),
-        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0}, bwd_impl={"mma": 16, "simt": 16}), ("mma", "mma"), False),
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0}, bwd_impl={"mma": 32, "simt": 0, "tf32x3": 0}), BF16, True),
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 0, "simt": 16}, bwd_impl={"mma": 32, "simt": 0, "tf32x3": 0}), BF16, False),
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0}, bwd_impl={"mma": 16, "simt": 16, "tf32x3": 0}), BF16, False),
         # the AR train step: causal only
-        (_fake_path(causal=8, bwd_causal=8, fwd_impl={"mma": 8, "simt": 0}, bwd_impl={"mma": 16, "simt": 0}), ("mma", "mma"), True),
-        # the AR example: a bf16 tokenizer and an fp32 AR model
-        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 24, "simt": 800}, bwd_impl={"mma": 0, "simt": 1600}),
-         ("mma", "simt"), True),
-        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 824, "simt": 0}, bwd_impl={"mma": 0, "simt": 1600}),
-         ("mma", "simt"), False),
+        (_fake_path(causal=8, bwd_causal=8, fwd_impl={"mma": 8, "simt": 0}, bwd_impl={"mma": 16, "simt": 0, "tf32x3": 0}),
+         BF16, True),
+        # the AR example: a bf16 tokenizer and an fp32 AR model (simt forward, tf32x3 backward)
+        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 24, "simt": 800},
+                    bwd_impl={"mma": 0, "simt": 0, "tf32x3": 1600}), AR_EXAMPLE, True),
+        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 824, "simt": 0},
+                    bwd_impl={"mma": 0, "simt": 0, "tf32x3": 1600}), AR_EXAMPLE, False),
+        # the fp32 backward on the CUDA-core kernels where 3xTF32 is due
+        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 24, "simt": 800},
+                    bwd_impl={"mma": 0, "simt": 1600, "tf32x3": 0}), AR_EXAMPLE, False),
+        # the sweep (fp32): forward simt, backward tf32x3; one simt backward launch fails it
+        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 480}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 960}), FP32, True),
+        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 480}, bwd_impl={"mma": 0, "simt": 1, "tf32x3": 959}), FP32, False),
+        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 480}, bwd_impl={"mma": 0, "simt": 960, "tf32x3": 0}), FP32, False),
         # no forward launch at all
-        (_fake_path(fwd_impl={"mma": 0, "simt": 0}, bwd_impl={"mma": 0, "simt": 0}), ("mma", "mma"), False),
+        (_fake_path(fwd_impl={"mma": 0, "simt": 0}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, False),
     ],
 )
 def test_check_impl_launches_holds_every_path_to_its_implementations(launches, impls, ok):
@@ -319,8 +332,8 @@ def test_training_cli_slice_phases_run_after_the_train_steps():
 def test_vq_and_sweep_slice_phases_and_limits():
     """The VQ and sweep phases run after the training CLI and before the AR
     phases, with the limits their checks state.  The VQ paths' launches are
-    held to the tensor-core kernels; the sweep's, in fp32 as its command
-    line runs it, to the CUDA-core ones."""
+    held to the bf16 tensor-core kernels; the sweep's, in fp32 as its
+    command line runs it, to the CUDA-core forward and the 3xTF32 backward."""
     import inspect
 
     main = inspect.getsource(chip_smoke.main)
@@ -328,7 +341,7 @@ def test_vq_and_sweep_slice_phases_and_limits():
              "phase_train_cli_vq_r3b(", "phase_sweep_small_448(", "phase_ar_train_full_width(profile)"]
     assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
     for path in ("train_vq_patch14l", "train_vq_r3b", "train_cli_vq", "sweep"):
-        assert chip_smoke.PATH_IMPLS[path] == (("simt", "simt") if path == "sweep" else ("mma", "mma")), path
+        assert chip_smoke.PATH_IMPLS[path] == (chip_smoke.FP32_PATH if path == "sweep" else chip_smoke.BF16_PATH), path
         assert f'launches["{path}"]' in main
     sig = lambda fn: {k: v.default for k, v in inspect.signature(fn).parameters.items()}  # noqa: E731
     assert sig(chip_smoke.phase_train_vq_patch14l) == {"profile": False, "steps": 8, "expire_every": 4, "n_images": 16, "size": 448}
@@ -384,7 +397,7 @@ def test_replaced_rows_requires_zeroed_moments():
 def test_offline_tool_phases_and_limits():
     """The offline tools' phases run after the daemon, with the limits and
     checks their contract states; fp32 tool paths are held to the CUDA-core
-    kernels, bf16 ones to the tensor cores."""
+    forward (and the 3xTF32 backward), bf16 ones to the tensor cores."""
     import inspect
 
     main = inspect.getsource(chip_smoke.main)
@@ -393,9 +406,9 @@ def test_offline_tool_phases_and_limits():
     assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
     assert order[-1] in main.split("for path, impls in PATH_IMPLS.items()")[0]
     for path in ("tools_prepare_ar", "tools_eval_patch14l", "int8_study"):
-        assert chip_smoke.PATH_IMPLS[path] == ("mma", "mma"), path
+        assert chip_smoke.PATH_IMPLS[path] == chip_smoke.BF16_PATH, path
     for path in ("tools_eval_r3b", "tools_decode_gif", "tools_diagnose"):
-        assert chip_smoke.PATH_IMPLS[path] == ("simt", "simt"), path
+        assert chip_smoke.PATH_IMPLS[path] == chip_smoke.FP32_PATH, path
     assert "tools_testpipe" not in chip_smoke.PATH_IMPLS  # no model, no attention
     assert (chip_smoke.MAX_EVAL_PSNR_DELTA_DB, chip_smoke.MAX_EVAL_PERPLEXITY_REL) == (0.2, 0.02)
     assert (chip_smoke.MAX_DIAGNOSE_PSNR_DELTA_DB, chip_smoke.MAX_TESTPIPE_STAT_DELTA) == (0.1, 1e-3)
@@ -496,7 +509,7 @@ def test_parallel_slice_phase_and_limits():
     assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
     assert order[-1] in main.split("for path, impls in PATH_IMPLS.items()")[0]
     assert 'launches["parallel_patch14l"]' in main
-    assert chip_smoke.PATH_IMPLS["parallel_patch14l"] == ("mma", "mma")
+    assert chip_smoke.PATH_IMPLS["parallel_patch14l"] == chip_smoke.BF16_PATH
     assert chip_smoke.MAX_SHARDED_VS_UNSHARDED_DIFF == 0.0
     sig = {k: v.default for k, v in inspect.signature(chip_smoke.phase_parallel_patch14l).parameters.items()}
     assert sig == {"steps": 8, "rows": 64, "n_images": 16, "size": 448}
@@ -548,7 +561,7 @@ def test_pipeline_slice_phase_and_limits():
     order = ["phase_parallel_patch14l()", "phase_pipeline_patch14l()", "phase_parallel_four_cards()"]
     assert [main.index(call) for call in order] == sorted(main.index(call) for call in order)
     assert 'launches["pipeline_patch14l"], launches["compile_probe"]' in main
-    assert chip_smoke.PATH_IMPLS["pipeline_patch14l"] == chip_smoke.PATH_IMPLS["compile_probe"] == ("mma", "mma")
+    assert chip_smoke.PATH_IMPLS["pipeline_patch14l"] == chip_smoke.PATH_IMPLS["compile_probe"] == chip_smoke.BF16_PATH
     assert chip_smoke.MAX_PIPELINE_LOSS_REL == 1e-3 and chip_smoke.MAX_PIPELINE_UPDATE_REL == 0.6
     assert chip_smoke.SHARED_STEPS == 2 and chip_smoke.MAX_PIPELINE_SHARED_LOSS_REL == 1e-5
     assert chip_smoke.MAX_PIPELINE_GRAD_NORM_REL == 1e-4
@@ -575,3 +588,40 @@ def test_pipeline_slice_phase_and_limits():
     assert "PIPELINE_FOUR_CARD_CASES" in rank and "four_cards_pipeline_patch14l" in rank
     assert "--pipeline_microbatches" in inspect.getsource(chip_smoke.phase_parallel_four_cards)
     assert chip_smoke._rel(1.0, 2.0) == 0.5
+
+
+def test_hold_bwd_to_f64_reads_the_ratio_and_the_floor():
+    """The 3xTF32 backward is held to float64 at ATTN_F64_RATIO x the fp32
+    plain version's error, or ATTN_F64_FLOOR of the case's largest gradient
+    where that is more; a TF32-sized error fails."""
+    ref = [torch.full((2, 3), 4.0, dtype=torch.float64), torch.zeros(2, 3, dtype=torch.float64),
+           torch.ones(2, 3, dtype=torch.float64)]
+    plain = [r.float() + 1e-6 for r in ref]
+    ok = [r.float() + 7e-6 for r in ref]  # 7x the plain error; under the floor (4e-6) for the zero output too
+    row = chip_smoke._hold_bwd_to_f64("case", ok, plain, ref)
+    assert 6.0 < row["f64_ratio"] < 8.0 and set(row["f64"]) == {"dq", "dk", "dv"}
+    with pytest.raises(AssertionError, match="dq float64 error"):
+        chip_smoke._hold_bwd_to_f64("case", [r.float() + 1e-4 for r in ref], plain, ref)
+    exact = [r.float() for r in ref]  # the plain version exact: the floor decides
+    chip_smoke._hold_bwd_to_f64("case", [r.float() + 3e-6 for r in ref], exact, ref)
+    with pytest.raises(AssertionError):
+        chip_smoke._hold_bwd_to_f64("case", [r.float() + 5e-6 for r in ref], exact, ref)
+
+
+def test_fp32_figures_pick_each_kernel_s_numbers():
+    row = {"shape": [4, 8, 3072, 32], "causal": False, "allowed_pairs_share": 1.0,
+           "ms": {"fwd": {"simt": 3.0}, "dq": {"simt": 4.0, "tf32x3": 1.4}, "dkv": {"simt": 5.4, "tf32x3": 1.7}},
+           "max_abs_err": {"fwd": 1e-7, "simt_dq": 2e-7, "simt_dk": 3e-7, "simt_dv": 4e-7, "tf32x3_dq": 5e-7,
+                           "tf32x3_dk": 6e-7, "tf32x3_dv": 7e-7},
+           "bound_tf32x3": {"fwd": (0.23, "operations"), "dq": (0.35, "operations"), "dkv": (0.47, "operations")},
+           "bound_fp32_cuda_cores": {"fwd": (0.58, "operations"), "dq": (0.87, "operations"), "dkv": (1.15, "operations")},
+           "library_fwd_ms": 2.4, "library_bwd_ms": 5.1, "library_fwd_backend": "unpinned (EFFICIENT_ATTENTION)",
+           "library_bwd_backend": "EFFICIENT_ATTENTION",
+           "plain_fwd_ms": 7.0, "plain_bwd_ms": 11.0}
+    fwd, dq, dkv = (chip_smoke.fp32_figures([row], k)[0] for k in ("fwd", "dq", "dkv"))
+    assert fwd["ms"] == {"simt": 3.0} and fwd["library_ms"] == 2.4 and fwd["plain_ms"] == 7.0 and fwd["max_abs_err"] == {"fwd": 1e-7}
+    assert dq["ms"]["tf32x3"] == 1.4 and dq["bound_ms"] == 0.35 and dq["bound_fp32_cuda_cores_ms"] == 0.87
+    assert set(dq["max_abs_err"]) == {"simt_dq", "tf32x3_dq"} and dq["library_ms"] == 5.1
+    assert fwd["library_backend"] == "unpinned (EFFICIENT_ATTENTION)" and dq["library_backend"] == "EFFICIENT_ATTENTION"
+    assert set(dkv["max_abs_err"]) == {"simt_dk", "simt_dv", "tf32x3_dk", "tf32x3_dv"} and dkv["bound_by"] == "operations"
+    assert [s for s, _, _ in chip_smoke.FP32_TIMED_SHAPES] == [(64, 16, 256, 64), (4, 8, 3072, 32), (8, 4, 128, 64)]

@@ -20,7 +20,12 @@ the tensor cores and round p and ds to bf16, as the plain version does; they
 are also held against the CUDA-core kernels (`impl="simt"`, p and ds in
 fp32), to the larger of 3e-2 and one bf16 ulp of the largest gradient (two
 results rounded once each can land one ulp apart, which from |g| = 4 on is
-3.1e-2), and two launches on the same inputs to the same bits.  DCT and
+3.1e-2), and two launches on the same inputs to the same bits.  In fp32
+the backward kernels multiply on the tensor cores in 3xTF32 (impl tf32x3);
+they are held to 1e-5 of the largest value against the plain version and
+against the CUDA-core kernels (impl simt), and against float64 to at most
+8 x the fp32 plain version's error (tests/test_torch_attention_bwd_tf32x3.py
+argues the limit on the CPU).  DCT and
 IDCT (products on the tensor cores in 3xTF32) max|diff| <= 1e-5 x
 max|value| against the fp32 plain version; against the float64 plain
 version, each kernel's largest error at most 8 x the fp32 plain
@@ -34,14 +39,18 @@ values by 1 / (1 - rate)), and 1e-5 of the largest value in fp32; the
 dropout mode's keep bits to the plain twin's bit for bit.
 """
 import math
+import os
+import sys
 
 import pytest
 import torch
 
-from dct_autoencoder_torch import kernels as tk
-from dct_autoencoder_torch.kernels import attention as tatt
-from dct_autoencoder_torch.kernels import dct_patchify as tdp
-from dct_autoencoder_torch.kernels import idct_unpatchify as tid
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402  (imports no JAX)
+from dct_autoencoder_torch import kernels as tk  # noqa: E402
+from dct_autoencoder_torch.kernels import attention as tatt  # noqa: E402
+from dct_autoencoder_torch.kernels import dct_patchify as tdp  # noqa: E402
+from dct_autoencoder_torch.kernels import idct_unpatchify as tid  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -140,8 +149,9 @@ def _grads_f64(q, k, v, ids, pad, scale, mode):
 
 @pytest.mark.parametrize("mode", ["block", "bias"])
 def test_attention_gradients_match_cpu(cuda, mode):
-    """fp32 gradients through the autograd.Function on the card against the
-    plain path on the CPU, with the head merge's transposed grad_output.  The
+    """fp32 gradients through the autograd.Function on the card (the
+    backward's default there, impl tf32x3) against the plain path on the CPU,
+    with the head merge's transposed grad_output.  The
     card's computation is repeated 5 times, each after filling the memory the
     allocator hands out next with NaN: every repeat must give the same bits (a
     kernel that read memory nothing wrote would not).  Both sides are also
@@ -170,6 +180,39 @@ def test_attention_gradients_match_cpu(cuda, mode):
             torch.testing.assert_close(c.double(), r, atol=1e-5, rtol=1e-5, msg=lambda m: f"the card against float64: {m}")
         for a, c in zip(want, got):
             torch.testing.assert_close(c, a, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["block", "bias"])
+def test_attention_gradients_match_cpu_simt(cuda, mode):
+    """test_attention_gradients_match_cpu's case on the CUDA-core backward
+    (impl simt, which float32 took before the 3xTF32 kernels), through the
+    wrappers with the grad_output autograd hands over (2 o): the same bits in
+    5 poisoned repeats, and within 1e-5 (+ 1e-5 relative) of float64 and of
+    the plain path on the CPU."""
+    b, h, s, d = 2, 4, 173, 32
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.float32, "cpu", seed=2)
+    ref64 = _grads_f64(q, k, v, ids, pad, d**-0.5, mode)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    o, lse = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, d**-0.5, mode)
+    want = tatt.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, 2 * o, d**-0.5, mode)
+
+    def grads():
+        qq, kk, vv = (t.to(cuda) for t in (q, k, v))
+        qi, ki = q_ids.to(cuda), kv_ids.to(cuda)
+        oo, ll = tatt.attention_fwd_cuda(qq, kk, vv, qi, ki, d**-0.5, mode)
+        dq, delta = tatt.attention_dq_cuda(qq, kk, vv, qi, ki, oo, ll, 2 * oo, d**-0.5, mode, impl="simt")
+        dk, dv = tatt.attention_dkv_cuda(qq, kk, vv, qi, ki, ll, delta, 2 * oo, d**-0.5, mode, impl="simt")
+        return [t.cpu() for t in (dq, dk, dv)]
+
+    first = None
+    for _ in range(5):
+        _poison_allocator()
+        got = grads()
+        first = first or got
+        assert all(torch.equal(x, y) for x, y in zip(first, got)), "a repeat on the card gave other bits"
+    for c, r, a in zip(first, ref64, want):
+        torch.testing.assert_close(c.double(), r, atol=1e-5, rtol=1e-5, msg=lambda m: f"the card against float64: {m}")
+        torch.testing.assert_close(c, a, atol=1e-5, rtol=1e-5)
 
 
 def test_attention_backward_refuses_bad_input_on_cuda(cuda):
@@ -292,7 +335,7 @@ def test_tensor_core_backward_kernels(cuda, d, mode, causal, s):
     tk.reset_launch_counts()
     got = run()
     torch.cuda.synchronize()
-    assert tk.bwd_impl_launch_counts() == {"mma": 2, "simt": 0}
+    assert tk.bwd_impl_launch_counts() == {"mma": 2, "simt": 0, "tf32x3": 0}
     want = tatt.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
@@ -301,7 +344,7 @@ def test_tensor_core_backward_kernels(cuda, d, mode, causal, s):
     if mode == "block" and pad.any():
         assert (got[0].transpose(1, 2)[pad] == 0).all()
     old = run("simt")
-    assert tk.bwd_impl_launch_counts() == {"mma": 2, "simt": 2}
+    assert tk.bwd_impl_launch_counts() == {"mma": 2, "simt": 2, "tf32x3": 0}
     atol = max(3e-2, _bf16_ulp(max(t.float().abs().max().item() for t in old[:3])))
     for g, w in zip(got[:3], old[:3]):
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
@@ -327,24 +370,81 @@ def test_bf16_attention_gradients_match_cpu(cuda, mode, causal):
         valid = (~pad).to(dev)[:, :, None]
         ((o.transpose(1, 2).reshape(b, s, h * d).float() * valid) ** 2).sum().backward()
         grads[dev] = [t.grad.float().cpu() for t in (qq, kk, vv)]
-        assert tk.bwd_impl_launch_counts() == ({"mma": 2, "simt": 0} if dev == "cuda" else {"mma": 0, "simt": 0})
+        assert tk.bwd_impl_launch_counts() == ({"mma": 2, "simt": 0, "tf32x3": 0} if dev == "cuda" else {"mma": 0, "simt": 0, "tf32x3": 0})
     for a, c in zip(grads["cpu"], grads["cuda"]):
         torch.testing.assert_close(c, a, atol=4 * _bf16_ulp(a.abs().max().item()), rtol=0)
 
 
 def test_backward_impl_argument_on_cuda(cuda):
-    """fp32 takes the CUDA-core kernels whatever is left out; asking for mma with fp32 raises."""
+    """fp32 takes the 3xTF32 tensor-core kernels (tf32x3) when the impl is
+    left out, simt when asked; asking for mma with fp32, or tf32x3 with
+    bf16, raises."""
     q, k, v, ids, pad = _attn_inputs(1, 2, 64, 32, torch.float32, cuda)
     q_ids, kv_ids = tatt.segment_ids(ids, pad)
     o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, 1.0)
     tk.reset_launch_counts()
     tatt.attention_bwd(q, k, v, q_ids, kv_ids, o, lse, q, 1.0)
-    assert tk.bwd_impl_launch_counts() == {"mma": 0, "simt": 2}
+    assert tk.bwd_impl_launch_counts() == {"mma": 0, "simt": 0, "tf32x3": 2}
+    assert tk.fwd_impl_launch_counts() == {"mma": 0, "simt": 0}
+    tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, q, 1.0, impl="simt")
+    assert tk.bwd_impl_launch_counts() == {"mma": 0, "simt": 1, "tf32x3": 2}
     with pytest.raises(TypeError):
         tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, q, 1.0, impl="mma")
+    with pytest.raises(TypeError):
+        tatt.attention_dq_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16(), q_ids, kv_ids, o.bfloat16(), lse, q.bfloat16(),
+                               1.0, impl="tf32x3")
     for kernel in ("dq", "dkv"):
         info = tatt.attention_kernel_info(kernel, "mma", torch.bfloat16, 64)
         assert info["num_regs"] > 0 and info["blocks_per_sm"] >= 1
+        for d in tatt.HEAD_DIMS:
+            info = tatt.attention_kernel_info(kernel, "tf32x3", torch.float32, d)
+            assert info["num_regs"] > 0 and info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("s", [1, 64, 173, 256, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mode", ["block", "bias"])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+def test_tf32x3_backward_kernels(cuda, d, mode, causal, s):
+    """The fp32 dq and dk/dv kernels (impl tf32x3) against the plain version
+    (1e-5 of the largest value), against impl simt (the same), and against
+    float64 (at most 8 x the fp32 plain version's error, as chip_smoke.py's
+    ATTN_F64_RATIO; 1e-6 of the largest gradient at least, ATTN_F64_FLOOR:
+    at s = 1 dq and dk are rounding noise around 0); deterministic; tile
+    skipping changes no bit; delta and the dq of padded queries as the
+    contract says."""
+    b, h = 2, 3
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.float32, cuda, seed=s + d)
+    do = torch.randn(b, h, s, d, generator=torch.Generator().manual_seed(1)).to(cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    scale = d**-0.5
+    o, lse = tatt.attention_fwd(q, k, v, q_ids, kv_ids, scale, mode, causal)
+
+    def run(impl=None, skip_tiles=True):
+        dq, delta = tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, skip_tiles, impl)
+        dk, dv = tatt.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, causal, skip_tiles, impl)
+        return dq, dk, dv, delta
+
+    tk.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert tk.bwd_impl_launch_counts() == {"mma": 0, "simt": 0, "tf32x3": 2}
+    want = tatt.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal)
+    ref64 = chip_smoke.attention_bwd_f64(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal)
+    old = run("simt")
+    top = max(r.abs().max().item() for r in ref64)
+    for g, w, r, x in zip(got, want, ref64, old):
+        assert torch.isfinite(g).all()
+        tol = 1e-5 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol
+        assert (g - x).abs().max().item() <= tol
+        e64, p64 = (g.double() - r).abs().max().item(), (w.double() - r).abs().max().item()
+        assert e64 <= max(8.0 * p64, 1e-6 * top), (e64, p64)
+    torch.testing.assert_close(got[3], (do * o).sum(-1), atol=1e-5, rtol=1e-5)
+    if mode == "block" and pad.any():
+        assert (got[0].transpose(1, 2)[pad] == 0).all()
+    assert all(torch.equal(x, y) for x, y in zip(got, run()))
+    assert all(torch.equal(x, y) for x, y in zip(got, run(skip_tiles=False)))
 
 
 FWD_MMA_CASES = [
@@ -446,7 +546,7 @@ def _kernels_against_plain(q, k, v, ids, pad, mode, causal, impl=None, dropout=N
     scale = d**-0.5
     q_ids, kv_ids = tatt.segment_ids(ids, pad)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(q.dtype).to(q.device)
-    o, lse = tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=impl, dropout=dropout)
+    o, lse = tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=chip_smoke._fwd_impl(impl), dropout=dropout)
     dq, delta = tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, impl=impl, dropout=dropout)
     dk, dv = tatt.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, causal, impl=impl, dropout=dropout)
     torch.cuda.synchronize()
@@ -476,7 +576,9 @@ def test_attention_refuses_head_dim_16_on_cuda(cuda, d, dtype):
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.3])
-@pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt")])
+@pytest.mark.parametrize(
+    "dtype,impl", [(torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt"), (torch.float32, "tf32x3")]
+)
 def test_attention_dropout_kernels_match_plain(cuda, rate, dtype, impl):
     """The dropout mode of the three kernels against the plain versions (the
     twin's mask from the same seed), rows and heads offset, causal or not."""
@@ -486,7 +588,7 @@ def test_attention_dropout_kernels_match_plain(cuda, rate, dtype, impl):
     for mode, causal in (("block", False), ("bias", False), ("block", True)):
         q, k, v, ids, pad = _attn_inputs(2, 4, 200, 64, dtype, cuda, seed=7)
         o, *_ = _kernels_against_plain(q, k, v, ids, pad, mode, causal, impl, drop)
-        o0, _ = tatt.attention_fwd_cuda(q, k, v, *tatt.segment_ids(ids, pad), 0.125, mode, causal, impl=impl)
+        o0, _ = tatt.attention_fwd_cuda(q, k, v, *tatt.segment_ids(ids, pad), 0.125, mode, causal, impl=chip_smoke._fwd_impl(impl))
         assert not torch.equal(o, o0)
     counts = tk.launch_counts()
     assert counts["attention_dropout"] == counts["attention_dq_dropout"] == counts["attention_dkv_dropout"] == 3
@@ -504,6 +606,35 @@ def test_attention_dropout_mask_equals_the_twin_bit_for_bit(cuda, dtype, impl):
     o, _ = tatt.attention_fwd_cuda(zeros, eye, eye, ids, ids, s**-0.5, impl=impl, dropout=drop)
     want = tatt.attention_dropout_keep_mask(drop.seed, 0.3, b, h, s, 5, 3)
     assert torch.equal(o != 0, want)
+
+
+@pytest.mark.parametrize("impl", ["tf32x3", "simt"])
+def test_fp32_backward_keep_bits_equal_the_twin_bit_for_bit(cuda, impl):
+    """With every p = 1/s (q = 0): dv with do = I is (z / (1 - rate) / s)^T, so
+    its nonzeros are the dk/dv kernel's keep bits; dq with k = I and
+    v = do = e_0 is (z - mean(z)) / (1 - rate) scale / s, whose sign is the dq
+    kernel's keep bit where that value is clear of 0."""
+    b, h, s = 2, 2, 128
+    drop = tatt.AttentionDropout(0.3, torch.tensor([2**41 + 7], dtype=torch.int64, device=cuda), row0=3, head0=5)
+    zeros = torch.zeros(b, h, s, s, device=cuda)
+    eye = torch.eye(s, device=cuda).expand(b, h, s, s).contiguous()
+    e0 = zeros.clone()
+    e0[..., 0] = 1
+    ids = torch.zeros(b, s, dtype=torch.int32, device=cuda)
+    k = torch.randn(b, h, s, s, generator=torch.Generator().manual_seed(0)).to(cuda)
+    scale = s**-0.5
+    want = tatt.attention_dropout_keep_mask(drop.seed, 0.3, b, h, s, 3, 5)
+    o, lse = tatt.attention_fwd_cuda(zeros, k, eye, ids, ids, scale, dropout=drop)
+    _, delta = tatt.attention_dq_cuda(zeros, k, eye, ids, ids, o, lse, eye, scale, impl=impl, dropout=drop)
+    _, dv = tatt.attention_dkv_cuda(zeros, k, eye, ids, ids, lse, delta, eye, scale, impl=impl, dropout=drop)
+    assert torch.equal(dv.transpose(-1, -2) != 0, want)
+    o2, lse2 = tatt.attention_fwd_cuda(zeros, eye, e0, ids, ids, scale, dropout=drop)
+    dq, _ = tatt.attention_dq_cuda(zeros, eye, e0, ids, ids, o2, lse2, e0, scale, impl=impl, dropout=drop)
+    z = want.float() * drop.keep_scale
+    expect = z - z.mean(dim=-1, keepdim=True)
+    clear = expect.abs() > 0.05
+    assert clear.float().mean().item() > 0.9
+    assert not (((dq > 0) != want) & clear).any()
 
 
 @pytest.mark.parametrize("b,h,w,ch,cw,p", [(2, 43, 61, 40, 56, 8), (2, 448, 448, 448, 448, 14), (1, 700, 1000, 700, 994, 14)])
