@@ -7,11 +7,12 @@ Builds the five hand-written CUDA kernels from dct_autoencoder_torch/csrc
 kernels, against its plain PyTorch version at the shapes the main paths give
 it (the bfloat16 attention kernels, forward and backward, which multiply on
 the tensor cores, also against their CUDA-core versions, `impl="simt"`,
-timed beside them; the float32 dq and dk/dv kernels, 3xTF32 on the tensor
-cores, `impl="tf32x3"`, also against their CUDA-core versions and a float64
-plain version, and timed with them and SDPA's fp32 backward at rows 1-3's,
-the sweep's and the AR example's shapes; the DCT and IDCT kernels, 3xTF32
-on the tensor cores, also against a float64 plain version), and then drives
+timed beside them; the float32 forward, dq and dk/dv kernels, 3xTF32 on the
+tensor cores, `impl="tf32x3"`, also against their CUDA-core versions and a
+float64 plain version, and timed with them and SDPA's fp32 forward and
+backward at rows 1-3's, the sweep's and the AR example's shapes; the DCT
+and IDCT kernels, 3xTF32 on the tensor cores, also against a float64 plain
+version), and then drives
 the paths themselves:
   * the serving round trip with the trained checkpoint in
     docs/calibrated_run_r3b/model (its gated int8 sibling, and the same
@@ -61,7 +62,7 @@ the paths themselves:
     moments, expiry every 2 steps), its checkpoint served by DCTPipeline;
   * the sweep's shared-step campaign (train/sweep.py run_onchip) over the same
     shards with conf/small-448.json in fp32, as `--onchip` runs it (the
-    CUDA-core attention forward, the 3xTF32 backward), both methods, 5
+    attention kernels in 3xTF32), both methods, 5
     trials each, under torch.profiler: its device time a step by kernel;
   * the AR token dump (tools/prepare_autoregressive_dataset.py) at the full
     width of patch14-L (random init, saved and loaded, bf16) over 64 PNG
@@ -70,7 +71,7 @@ the paths themselves:
     of one; then tools/eval.py on that checkpoint over 16 of the images;
   * tools/eval.py on the trained checkpoint in fp32, on the card against the
     CPU, and --scan over two copies of it (one pipeline, equal rows);
-  * decode_gif, diagnose (fp32: the CUDA-core attention forward) and
+  * decode_gif, diagnose (fp32: the 3xTF32 attention forward) and
     testpipe (no model), each on the card against the CPU;
   * the int8 study (tools/int8_study.py) at its defaults: patch14-L at
     random init, bf16, 16 x 256 synthetic patches, every variant;
@@ -96,9 +97,10 @@ the paths themselves:
 The kernels' phase also runs the fp32 attention backward 20 times in each
 mask mode after filling the allocator's free memory with NaN, and requires
 the same bits every time; and it holds the attention kernels' dropout mode
-(rates 0.1 and 0.3, both mask modes, causal or not, both implementations)
+(rates 0.1 and 0.3, both mask modes, causal or not, every implementation)
 and the head dims 16, 24, 48, 80 and 128 (those between the instantiations
-16, 32, 64 and 128 run padded) against the plain versions, reads the keep
+16, 32, 64 and 128 run in place in the tensor-core kernels, with no pad copy,
+and padded in the CUDA-core ones) against the plain versions, reads the keep
 bits each kernel drew off its outputs and holds them to the plain twin of
 the random stream bit for bit, and times the dropout mode at patch14-L's
 shape beside the kernels without it and SDPA with dropout_p, and head dims
@@ -324,6 +326,8 @@ def _attention_case(b, h, s, d, dtype, mode, gen):
     check(all(torch.equal(x, y) for x, y in zip((o, lse), kernel())), f"{what}: two launches on the same inputs differ")
     simt = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, impl="simt")
     simt_row = _fwd_against_simt(A, q, d, o, simt, what)
+    if dtype == torch.float32:
+        simt_row.update(_hold_fwd_to_f64(what, o, o_ref, attention_fwd_f64(q, k, v, q_ids, kv_ids, scale, mode)[0]))
 
     sdpa_mask, pairs = _sdpa_mask_and_pairs(q_ids, kv_ids, mode, dtype)
     library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask, scale=scale)
@@ -342,21 +346,21 @@ def _attention_case(b, h, s, d, dtype, mode, gen):
 
 
 def _fwd_against_simt(A, q, d, o, simt, what):
-    """For bfloat16: the tensor-core forward's o against the CUDA-core kernel's
-    on the same inputs, the CUDA-core kernel's time, and what the compiler made
-    of both instantiations.  For float32 (one implementation): the kernel info."""
+    """The tensor-core forward's o (bfloat16: impl mma; float32: impl tf32x3)
+    against the CUDA-core kernel's on the same inputs, the CUDA-core kernel's
+    time, and what the compiler made of both instantiations.  The limit is
+    `simt_tol` in bfloat16 and 1e-5 of the largest value in float32."""
+    impl = A._kernel_impl(None, q.dtype)
     info = lambda impl: A.attention_kernel_info("fwd", impl, q.dtype, d)
-    if q.dtype != torch.bfloat16:
-        return {"impl": "simt", "simt_ms": None, "kernel_info": info("simt")}
     o_simt, _ = simt()
     torch.cuda.synchronize()
     diff = (o.float() - o_simt.float()).abs().max().item()
     top = o_simt.float().abs().max().item()
-    tol = simt_tol(ATTN_ATOL_BF16, top)
-    check(diff <= tol, f"{what}: o of impl mma and impl simt differ by {diff} > {tol}")
+    tol = simt_tol(ATTN_ATOL_BF16, top) if q.dtype == torch.bfloat16 else 1e-5 * max(1.0, top)
+    check(diff <= tol, f"{what}: o of impl {impl} and impl simt differ by {diff} > {tol}")
     return {
-        "impl": "mma", "simt_tol": tol, "max_abs_o": top, "simt_max_abs_diff": diff,
-        "simt_ms": time_ms(simt, reps=10), "kernel_info": info("mma"), "simt_kernel_info": info("simt"),
+        "impl": impl, "simt_tol": tol, "max_abs_o": top, "simt_max_abs_diff": diff,
+        "simt_ms": time_ms(simt, reps=10), "kernel_info": info(impl), "simt_kernel_info": info("simt"),
     }
 
 
@@ -410,6 +414,40 @@ def attention_bwd_f64(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal=Fa
     dv = torch.einsum("bhqk,bhqd->bhkd", pv, dd)
     ds = p * (dp - (dd * oo).sum(dim=-1, keepdim=True)) * scale
     return torch.einsum("bhqk,bhkd->bhqd", ds, kk), torch.einsum("bhqk,bhqd->bhkd", ds, qq), dv
+
+
+def attention_fwd_f64(q, k, v, q_ids, kv_ids, scale, mode, causal=False, dropout=None):
+    """attention_fwd_plain's function computed in float64 on the same inputs:
+    (o, lse), the yardstick that the fp32 forward kernels and the fp32 plain
+    version are both read against."""
+    from dct_autoencoder_torch.kernels import attention as A
+
+    qq, kk, vv = (t.double() for t in (q, k, v))
+    logits = torch.einsum("bhqd,bhkd->bhqk", qq, kk) * scale
+    allowed = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+    if causal:
+        pos = torch.arange(q.shape[2], device=q.device)
+        allowed = allowed & (pos[None, :] <= pos[:, None])
+    logits = logits + allowed.double() if mode == "bias" else torch.where(allowed, logits, torch.full_like(logits, A.NEG_INF))
+    m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=A.NEG_INF * 0.5)
+    p = torch.exp(logits - m)
+    den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-9)
+    pv = p
+    if dropout is not None:
+        b, h, s, _ = q.shape
+        keep = A.attention_dropout_keep_mask(dropout.seed, dropout.rate, b, h, s, dropout.row0, dropout.head0)
+        pv = p * keep.double() / (1.0 - dropout.rate)
+    return torch.einsum("bhqk,bhkd->bhqd", pv, vv) / den, (m + torch.log(den))[..., 0]
+
+
+def _hold_fwd_to_f64(what, o, plain, ref64) -> dict:
+    """The forward's o of a 3xTF32 kernel against float64, by _hold_bwd_to_f64's
+    rule: at most ATTN_F64_RATIO x the fp32 plain version's error, or
+    ATTN_F64_FLOOR of the largest value.  Returns the errors and their ratio."""
+    e64, p64 = (o.double() - ref64).abs().max().item(), (plain.double() - ref64).abs().max().item()
+    limit = max(ATTN_F64_RATIO * p64, ATTN_F64_FLOOR * ref64.abs().max().item())
+    check(e64 <= limit, f"{what}: o float64 error {e64} > {limit} ({ATTN_F64_RATIO} x the plain version's {p64})")
+    return {"f64": {"o": {"f64_err": e64, "plain_f64_err": p64}}, "f64_ratio": e64 / p64 if p64 > 0 else None}
 
 
 def _hold_bwd_to_f64(what, got, plain, ref64) -> dict:
@@ -641,6 +679,7 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
     if not bf16:
         f64_row = _hold_bwd_to_f64(what, (dq, dk, dv), tuple(refs.values()),
                                    attention_bwd_f64(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, True))
+        fwd_row.update(_hold_fwd_to_f64(what, o, o_ref, attention_fwd_f64(q, k, v, q_ids, kv_ids, scale, mode, True)[0]))
     del o_ref, lse_ref, refs
     if mode == "block":
         if pad.any():
@@ -714,11 +753,11 @@ def _attention_causal_case(b, h, s, d, dtype, mode, gen, reps=10):
 # ---------------------------------------------------------------- the dropout mode and the head dims
 
 # the rates the dropout mode is held at, and the head dims beside the instantiations
-# (16, 32, 64, 128): 24, 48 and 80 run padded to the next one
+# (16, 32, 64, 128): 24, 48 and 80 run in place in the tensor-core kernels (mma,
+# tf32x3) and padded to the next instantiation in the CUDA-core ones (simt)
 DROPOUT_RATES = (0.1, 0.3)
 HEAD_DIM_CASES = (16, 24, 48, 80, 128)
-# (dtype, impl) of every implementation of the backward pair; the forward's is
-# _fwd_impl(impl)
+# (dtype, impl) of every implementation of the three kernels
 ATTENTION_IMPLS = ((torch.bfloat16, "mma"), (torch.bfloat16, "simt"), (torch.float32, "simt"), (torch.float32, "tf32x3"))
 
 
@@ -738,31 +777,32 @@ def _mode_tol(dtype, limit, ref) -> float:
     return simt_tol(limit, top) if dtype == torch.bfloat16 else 1e-5 * max(1.0, top)
 
 
-def _fwd_impl(impl: str) -> str:
-    """The forward's implementation beside backward kernels of `impl`: the
-    fp32 forward has no 3xTF32 kernel, so tf32x3's forward is simt."""
-    return "simt" if impl == "tf32x3" else impl
-
-
 def _attention_mode_case(b, h, s, d, dtype, mode, causal, impl, rate, gen, seed=7, row0=0, head0=0):
     """The forward, dq and dk/dv kernels of one implementation at head dim d
-    (padded by the wrappers where d is no instantiation) and, at rate > 0, in
-    the dropout mode, against the plain versions on the same inputs and
-    seed: within `_mode_tol`, finite, the same bits on a second launch,
-    padded queries 0 in 'block' mode; impl tf32x3 (with the simt forward)
-    also against float64 (_hold_bwd_to_f64).  Returns one row a kernel."""
+    (in place, or padded by the wrappers, as `row_width` says) and, at rate >
+    0, in the dropout mode, against the plain versions on the same inputs
+    and seed: within `_mode_tol`, finite, the same bits on a second launch,
+    padded queries 0 in 'block' mode, no pad copy where the kernels take the
+    rows in place; impl tf32x3 also against float64 (_hold_fwd_to_f64,
+    _hold_bwd_to_f64).  Returns one row a kernel."""
+    from dct_autoencoder_torch import kernels as K
     from dct_autoencoder_torch.kernels import attention as A
 
     (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, dtype, gen, 4)
     scale = d**-0.5
     drop = _dropout(A, rate, seed, row0, head0)
-    fwd = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=_fwd_impl(impl), dropout=drop)
+    fwd = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=impl, dropout=drop)
+    K.reset_launch_counts()
     o, lse = fwd()
     dq_k = lambda: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, impl=impl, dropout=drop)
     dq, delta = dq_k()
     dkv_k = lambda: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, causal, impl=impl, dropout=drop)
     dk, dv = dkv_k()
     torch.cuda.synchronize()
+    pad_copies = K.pad_copy_count()
+    in_place = A.row_width(d, dtype, impl) == d
+    # q, k, v; q, k, v, o, do; q, k, v, do: 12 copies where the wrappers pad
+    check(pad_copies == (0 if in_place else 12), f"attention {impl} d = {d}: {pad_copies} pad copies")
     o_ref, lse_ref = A.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, causal, drop)
     refs = A.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, drop)
     what = f"attention {impl} {str(dtype).split('.')[-1]} {mode} causal={causal} rate={rate} {(b, h, s, d)}"
@@ -780,14 +820,16 @@ def _attention_mode_case(b, h, s, d, dtype, mode, causal, impl, rate, gen, seed=
         check(dq.transpose(1, 2)[pad].abs().max().item() == 0.0, f"{what}: dq of padded queries not 0")
     again = (*fwd(), *dq_k(), *dkv_k())
     check(all(torch.equal(x, y) for x, y in zip((o, lse, dq, delta, dk, dv), again)), f"{what}: two launches differ")
-    f64_row = {}
+    f64_row, fwd_f64 = {}, {}
     if impl == "tf32x3":
         f64_row = _hold_bwd_to_f64(what, (dq, dk, dv), refs,
                                    attention_bwd_f64(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, drop))
+        fwd_f64 = _hold_fwd_to_f64(what, o, o_ref, attention_fwd_f64(q, k, v, q_ids, kv_ids, scale, mode, causal, drop)[0])
     common = {"shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "causal": causal,
-              "impl": impl, "rate": rate, "kernel_head_dim": A.kernel_head_dim(d)}
+              "impl": impl, "rate": rate, "kernel_head_dim": A.kernel_head_dim(d), "in_place": in_place,
+              "pad_copies": pad_copies}
     return {
-        "fwd": {**common, "impl": _fwd_impl(impl), "max_abs_err": errs["o"], "tol": tols["o"], "lse_max_abs_err": lse_err},
+        "fwd": {**common, "max_abs_err": errs["o"], "tol": tols["o"], "lse_max_abs_err": lse_err, **fwd_f64},
         "dq": {**common, "max_abs_err": errs["dq"], "tol": tols["dq"], **f64_row},
         "dkv": {**common, "max_abs_err": max(errs["dk"], errs["dv"]), "tol": max(tols["dk"], tols["dv"]), **f64_row},
     }
@@ -814,11 +856,10 @@ def _dropout_mask_readout(dtype, impl, rate, gen, row0=3, head0=5):
     k = torch.randn(b, h, s, s, generator=gen).to(dtype).to(dev)
     scale = s**-0.5
     kw = dict(impl=impl, dropout=drop)
-    fwd_kw = dict(impl=_fwd_impl(impl), dropout=drop)
-    o, lse = A.attention_fwd_cuda(zeros, k, eye, ids, ids, scale, **fwd_kw)
+    o, lse = A.attention_fwd_cuda(zeros, k, eye, ids, ids, scale, **kw)
     _, delta = A.attention_dq_cuda(zeros, k, eye, ids, ids, o, lse, eye, scale, **kw)
     _, dv = A.attention_dkv_cuda(zeros, k, eye, ids, ids, lse, delta, eye, scale, **kw)
-    o2, lse2 = A.attention_fwd_cuda(zeros, eye, e0, ids, ids, scale, **fwd_kw)
+    o2, lse2 = A.attention_fwd_cuda(zeros, eye, e0, ids, ids, scale, **kw)
     dq, _ = A.attention_dq_cuda(zeros, eye, e0, ids, ids, o2, lse2, e0, scale, **kw)
     torch.cuda.synchronize()
     z = want.float() * drop.keep_scale
@@ -842,10 +883,9 @@ def _dropout_mask_readout(dtype, impl, rate, gen, row0=3, head0=5):
 def _dropout_and_dim_cases(gen):
     """Every new mode and dim against its plain version: the dropout mode at
     both rates in both mask modes, causal or not, in the tensor-core kernels
-    (bf16), the CUDA-core kernels on bf16 (impl="simt") and in fp32, and the
-    3xTF32 backward (fp32, impl="tf32x3", beside the simt forward); the head
-    dims of HEAD_DIM_CASES with and without dropout, in every implementation.
-    Returns rows by kernel key."""
+    (bf16, impl "mma"; fp32, impl "tf32x3") and the CUDA-core kernels on
+    either type (impl "simt"); the head dims of HEAD_DIM_CASES with and
+    without dropout, in every implementation.  Returns rows by kernel key."""
     out = {key: [] for key in ("attention", "attention_dq", "attention_dkv", "attention_causal", "attention_dq_causal",
                                "attention_dkv_causal", "attention_dropout", "attention_dq_dropout", "attention_dkv_dropout")}
 
@@ -885,10 +925,13 @@ def _timed_rows(A, b, h, s, d, dtype, mode, rate, gen, seed=11):
     simt_ms, plain_ms, library_ms (SDPA at dropout_p = rate), bound; in the
     dropout mode also the kernels' times without dropout on the same inputs
     and the kept share of the whole mask."""
+    from dct_autoencoder_torch import kernels as K
+
     (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, dtype, gen, 4)
     scale = d**-0.5
     drop = _dropout(A, rate, seed)
     fwd = lambda impl=None, dr=drop: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, impl=impl, dropout=dr)
+    K.reset_launch_counts()
     o, lse = fwd()
     o0, _ = fwd(dr=None)
     dq_k = lambda impl=None, dr=drop: A.attention_dq_cuda(
@@ -898,6 +941,7 @@ def _timed_rows(A, b, h, s, d, dtype, mode, rate, gen, seed=11):
         q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, impl=impl, dropout=dr)
     dk, dv = dkv_k()
     torch.cuda.synchronize()
+    pad_copies = K.pad_copy_count()  # of the four launches above
     fwd_plain = lambda: A.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, False, drop)
     bwd_plain = lambda: A.attention_bwd_plain(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, False, drop)
     o_ref, _ = fwd_plain()
@@ -928,7 +972,8 @@ def _timed_rows(A, b, h, s, d, dtype, mode, rate, gen, seed=11):
         info = lambda impl: A.attention_kernel_info(name, impl, dtype, d, dropout=drop is not None)
         rows[name] = {
             "shape": [b, h, s, d], "dtype": str(dtype).split(".")[-1], "mode": mode, "rate": rate, "impl": "mma",
-            "kernel_head_dim": A.kernel_head_dim(d), "max_abs_err": errs[name][0], "tol": errs[name][1],
+            "kernel_head_dim": A.kernel_head_dim(d), "pad_copies": pad_copies,
+            "max_abs_err": errs[name][0], "tol": errs[name][1],
             "ms": time_ms(kernel, inner=TIMED_LAUNCHES), "simt_ms": time_ms(lambda: kernel("simt"), reps=5),
             "plain_ms": plain_ms[name], "library_ms": lib_ms[name],
             "library_computes": ("the forward" if name == "fwd" else "dq, dk and dv")
@@ -974,8 +1019,13 @@ def phase_attention_modes(gen):
         emit({"phase": "attention_modes_vs_plain", "kernel": key, "cases": len(rows),
               "max_abs_err": max(r["max_abs_err"] for r in rows), "largest_err_over_tol": worst["max_abs_err"] / worst["tol"],
               "worst_case": worst})
+    pads = {}  # the wrappers' pad copies by implementation and head dim (_attention_mode_case checks each case)
+    for row in cases["attention"]:  # one a case: the three kernels' copies
+        key = f"{row['impl']} {row['dtype']} d={row['shape'][3]}"
+        pads[key] = pads.get(key, 0) + row["pad_copies"]
     emit({"phase": "attention_modes", "cases": sum(len(r) for r in cases.values()), "rates": DROPOUT_RATES,
-          "head_dims": HEAD_DIM_CASES, "instantiations": A.HEAD_DIMS, "wall_s": time.perf_counter() - t0})
+          "head_dims": HEAD_DIM_CASES, "instantiations": A.HEAD_DIMS, "pad_copies": pads,
+          "wall_s": time.perf_counter() - t0})
     return cases, dims
 
 
@@ -1142,14 +1192,17 @@ def _dct_cases(gen):
 def attention_device_times(reps: int = 3) -> None:
     """`--attention-device-times`: the device time of the three attention
     kernels without dropout (CUDA graphs, no host cost) at rows 1-3 (d = 64),
-    at (64, 8, 256, 32) and at rows 1c-3c, `reps` times each, one JSON line a
-    kernel and shape.  It uses only the wrappers' arguments that every tree
-    of the port has had since the causal mode, so a copy of this script in an
-    older tree times that tree's kernels beside this one's."""
+    at (64, 8, 256, 32), at rows 1c-3c and at (64, 8, 256, 48) (a width
+    between the instantiations: with the wrappers' pad copies where a tree
+    pads it), `reps` times each, one JSON line a kernel and shape.  It uses
+    only the wrappers' arguments that every tree of the port has had since
+    the causal mode, so a copy of this script in an older tree times that
+    tree's kernels beside this one's."""
     from dct_autoencoder_torch.kernels import attention as A
 
     gen = torch.Generator().manual_seed(0)
-    for b, h, s, d, causal in ((64, 16, 256, 64, False), (64, 8, 256, 32, False), (8, 8, 1024, 64, True)):
+    for b, h, s, d, causal in ((64, 16, 256, 64, False), (64, 8, 256, 32, False), (8, 8, 1024, 64, True),
+                               (64, 8, 256, 48, False)):
         (q, k, v, do), pad, q_ids, kv_ids = _attention_inputs(b, h, s, d, torch.bfloat16, gen, 4)
         scale = d**-0.5
         o, lse = A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, "block", causal)
@@ -1168,8 +1221,8 @@ def attention_device_times(reps: int = 3) -> None:
 # the sweep's (conf/small-448.json at 4 x 3072 rows, beta 0: one 448^2 image a row,
 # every pair allowed); the AR example's (batch 8 x 128, hidden 256, 4 heads)
 FP32_TIMED_SHAPES = (((64, 16, 256, 64), False, False), ((4, 8, 3072, 32), False, True), ((8, 4, 128, 64), True, False))
-# the fp32 backward pair's implementations, timed side by side
-FP32_BWD_IMPLS = ("simt", "tf32x3")
+# the fp32 attention kernels' implementations, timed side by side
+FP32_IMPLS = ("simt", "tf32x3")
 
 
 def _sdpa_fp32_times(q, k, v, do, mask, scale) -> dict:
@@ -1201,13 +1254,14 @@ def _sdpa_fp32_times(q, k, v, do, mask, scale) -> dict:
 
 
 def fp32_attention_times(reps: int = 25) -> dict:
-    """The fp32 attention kernels at FP32_TIMED_SHAPES: the forward (simt)
-    and the backward pair in each of FP32_BWD_IMPLS, each held to
-    the plain versions (1e-5 of the largest value), beside SDPA's fp32 forward
-    and backward (_sdpa_fp32_times), the plain versions and the bounds (each
-    input and output once, allowed pairs only; operations at 3xTF32, 495 / 3
-    TFLOP/s, and on the CUDA cores at 67).  One JSON line a shape; returns
-    them by shape."""
+    """The fp32 attention kernels at FP32_TIMED_SHAPES: the forward and the
+    backward pair in each of FP32_IMPLS, each held to the plain versions
+    (1e-5 of the largest value) and the tf32x3 forward's o to float64
+    (_hold_fwd_to_f64), beside SDPA's fp32 forward and backward
+    (_sdpa_fp32_times), the plain versions and the bounds (each input and
+    output once, allowed pairs only; operations at 3xTF32, 495 / 3 TFLOP/s,
+    and on the CUDA cores at 67).  The backward reads the tf32x3 forward's o
+    and lse.  One JSON line a shape; returns them by shape."""
     from dct_autoencoder_torch.kernels import attention as A
 
     gen = torch.Generator().manual_seed(3)
@@ -1218,8 +1272,8 @@ def fp32_attention_times(reps: int = 25) -> dict:
             pad = torch.zeros_like(pad)
             q_ids, kv_ids = A.segment_ids(torch.zeros_like(q_ids), pad)
         scale = d**-0.5
-        fwd = lambda: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, "block", causal)
-        o, lse = fwd()
+        fwd = lambda impl: A.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, "block", causal, impl=impl)
+        o, lse = fwd("tf32x3")
         dq_k = lambda impl: A.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, "block", causal, impl=impl)
         dkv_k = lambda impl, dl: A.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, dl, do, scale, "block", causal, impl=impl)
         fwd_plain = lambda: A.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, "block", causal)
@@ -1227,10 +1281,16 @@ def fp32_attention_times(reps: int = 25) -> dict:
         o_ref, _ = fwd_plain()
         refs = bwd_plain()
         what = f"fp32 attention {(b, h, s, d)} causal={causal}"
-        errs = {"fwd": (o - o_ref).abs().max().item()}
-        check(errs["fwd"] <= _mode_tol(torch.float32, 0.0, o_ref), f"{what}: o max|diff| {errs['fwd']}")
-        ms = {"fwd": {"simt": time_ms(fwd, reps=reps, inner=TIMED_LAUNCHES)}, "dq": {}, "dkv": {}}
-        for impl in FP32_BWD_IMPLS:
+        errs, ms = {}, {"fwd": {}, "dq": {}, "dkv": {}}
+        for impl in FP32_IMPLS:
+            o_impl, _ = fwd(impl)
+            torch.cuda.synchronize()
+            errs[f"{impl}_fwd"] = (o_impl - o_ref).abs().max().item()
+            check(errs[f"{impl}_fwd"] <= _mode_tol(torch.float32, 0.0, o_ref), f"{what}: {impl} o max|diff| {errs[f'{impl}_fwd']}")
+            ms["fwd"][impl] = time_ms(lambda: fwd(impl), reps=reps, inner=TIMED_LAUNCHES)
+            del o_impl
+        f64 = _hold_fwd_to_f64(what, o, o_ref, attention_fwd_f64(q, k, v, q_ids, kv_ids, scale, "block", causal)[0])
+        for impl in FP32_IMPLS:
             dq, delta = dq_k(impl)
             dk, dv = dkv_k(impl, delta)
             torch.cuda.synchronize()
@@ -1248,13 +1308,12 @@ def fp32_attention_times(reps: int = 25) -> dict:
         flops = {"fwd": 4 * h * d * pairs, "dq": 6 * h * d * pairs, "dkv": 8 * h * d * pairs}
         row = {
             "phase": "fp32_attention_times", "shape": [b, h, s, d], "mode": "block", "causal": causal,
-            "allowed_pairs_share": pairs / (b * s * s), "ms": ms, "max_abs_err": errs,
+            "allowed_pairs_share": pairs / (b * s * s), "ms": ms, "max_abs_err": errs, "fwd_f64": f64,
             "bound_tf32x3": {k_: bound(nbytes[k_], 3 * flops[k_], "tf32") for k_ in flops},
             "bound_fp32_cuda_cores": {k_: bound(nbytes[k_], flops[k_], torch.float32) for k_ in flops},
             "plain_fwd_ms": time_ms(fwd_plain, reps=3), "plain_bwd_ms": time_ms(bwd_plain, reps=3),
             "kernel_info": {f"{kernel}_{impl}": A.attention_kernel_info(kernel, impl, torch.float32, d)
-                            for kernel, kimpls in (("fwd", ("simt",)), ("dq", FP32_BWD_IMPLS), ("dkv", FP32_BWD_IMPLS))
-                            for impl in kimpls},
+                            for kernel in ("fwd", "dq", "dkv") for impl in FP32_IMPLS},
             **_sdpa_fp32_times(q, k, v, do, mask, scale),
         }
         emit(row)
@@ -1342,7 +1401,7 @@ def fp32_figures(rows, kernel: str) -> list:
     out = []
     for r in rows:
         tf32x3_ms, by = r["bound_tf32x3"][kernel]
-        suffixes = {"fwd": ("fwd",), "dq": ("_dq",), "dkv": ("_dk", "_dv")}[kernel]
+        suffixes = {"fwd": ("_fwd",), "dq": ("_dq",), "dkv": ("_dk", "_dv")}[kernel]
         errs = {k: v for k, v in r["max_abs_err"].items() if k.endswith(suffixes)}
         out.append({
             "shape": r["shape"], "causal": r["causal"], "allowed_pairs_share": r["allowed_pairs_share"], "ms": r["ms"][kernel],
@@ -1950,8 +2009,8 @@ def phase_train_dropout_patch14l(steps=8, rows=64, rate=0.1):
 def phase_ar_example_head_dims(steps=20):
     """tools/train_ar_example's loop (train_ar: train, save, sample, decode) on
     the card at --hidden 192 and --hidden 64, whose 4 heads are 48 and 16 wide:
-    in fp32 as the tool trains (the CUDA-core forward, the 3xTF32 backward)
-    and in bf16 (the tensor cores), a few steps each."""
+    in fp32 as the tool trains (3xTF32 on the tensor cores) and in bf16 (the
+    tensor cores), a few steps each; both widths run with no pad copy."""
     import tempfile
 
     import dct_autoencoder_torch as dt
@@ -1971,10 +2030,12 @@ def phase_ar_example_head_dims(steps=20):
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             launches = path_launches()
+            pad_copies = K.pad_copy_count()
         tcfg = result["model"].config.transformer
         head_dim = tcfg.hidden_size // tcfg.num_attention_heads
         what = f"AR example hidden {hidden} {str(dtype).split('.')[-1]}"
         check(head_dim == hidden // 4, f"{what}: head dim {head_dim}")
+        check(pad_copies == 0, f"{what}: {pad_copies} pad copies at head dim {head_dim}")
         for name in CAUSAL_KERNELS:
             check(launches[name] == tcfg.num_hidden_layers * steps, f"{what}: {launches[name]} {name} launches")
         check_impl_launches(launches, *PATH_IMPLS["ar_example"] if dtype == torch.float32 else BF16_PATH)
@@ -1983,7 +2044,7 @@ def phase_ar_example_head_dims(steps=20):
         check(img.shape == (3, 448, 448) and np.isfinite(img).all(), f"{what}: the decoded sample")
         rows.append({"hidden": hidden, "head_dim": head_dim, "dtype": str(dtype).split(".")[-1],
                      "loss_first": losses[0], "loss_last": losses[-1], "sampled_tokens": len(result["sampled_record"]["codes"]),
-                     "wall_s": wall_s, "launches": {k: launches[k] for k in CAUSAL_KERNELS},
+                     "wall_s": wall_s, "launches": {k: launches[k] for k in CAUSAL_KERNELS}, "pad_copies": pad_copies,
                      "fwd_impl": launches["fwd_impl"], "bwd_impl": launches["bwd_impl"]})
     emit({"phase": "ar_example_head_dims", "steps": steps, "runs": rows})
 
@@ -3215,7 +3276,7 @@ def phase_tools_eval_r3b(n_images=8, size=448):
         with open(os.path.join(scan, "eval.jsonl")) as f:
             check([json.loads(x) for x in f] == rows, "eval.jsonl holds other rows than the scan printed")
         emit({
-            "phase": "tools_eval_r3b", "images": n_images, "size": size, "dtype": "float32 (the CUDA-core attention forward)",
+            "phase": "tools_eval_r3b", "images": n_images, "size": size, "dtype": "float32 (the 3xTF32 attention forward)",
             "card": card, "cpu": cpu, "code_agreement_vs_cpu": agree, "psnr_delta_db": card["psnr"] - cpu["psnr"],
             "perplexity_rel_delta": ppl_rel, "card_wall_s": card_s, "cpu_wall_s": cpu_s,
             "scan": {"rows": rows, "s_per_checkpoint": ev.seconds, "wall_s": scan_s, "pipelines_built": len(built.calls),
@@ -3242,8 +3303,8 @@ def _numbers(text) -> list:
 
 
 def phase_tools_demos_r3b(n_frames=8, size=448, n_images=4, n_diagnose=2):
-    """decode_gif and diagnose on r3b (fp32: the CUDA-core attention
-    forward) and testpipe (no model), each on the card against the CPU."""
+    """decode_gif and diagnose on r3b (fp32: the 3xTF32 attention forward)
+    and testpipe (no model), each on the card against the CPU."""
     import shutil
     import tempfile
 
@@ -3317,7 +3378,7 @@ def phase_tools_demos_r3b(n_frames=8, size=448, n_images=4, n_diagnose=2):
         check(tl["dct_patchify"] == n_images and tl["idct_unpatchify"] == 1 and tl["attention"] == 0,
               f"testpipe launches {tl}")
         emit({
-            "phase": "tools_demos_r3b", "dtype": "float32 (the CUDA-core attention forward)",
+            "phase": "tools_demos_r3b", "dtype": "float32 (the 3xTF32 attention forward)",
             "decode_gif": {"frames": n_frames, "size": size, "frame_psnr_db": frame_psnr,
                            "frame_card_vs_cpu_psnr_db": card_vs_cpu, "card_s": frames["cuda_s"], "cpu_s": frames["cpu_s"],
                            "launches": launches["tools_decode_gif"]},
@@ -4140,8 +4201,8 @@ BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attentio
                "attention_dkv_dropout")
 # path -> ((impl of its non-causal forward launches, of its causal ones),
 #          (impl of its non-causal backward launches, of its causal ones)):
-# bfloat16 runs on the tensor cores (BF16_PATH); float32 runs the forward on
-# the CUDA cores and the backward on the tensor cores in 3xTF32 (FP32_PATH).
+# bfloat16 runs on the tensor cores (BF16_PATH); float32 runs the three
+# kernels on the tensor cores in 3xTF32 (FP32_PATH).
 # The sweep trains in float32 as its command line does; the AR example
 # tokenizes in bfloat16 (non-causal forward) and trains its AR model in
 # float32 (causal); the offline tools that run float32 (eval on r3b as the
@@ -4149,11 +4210,11 @@ BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attentio
 # only.  testpipe runs no model, so no attention: its launches are read by
 # its phase and listed in launches_by_path only
 BF16_PATH = (("mma", "mma"), ("mma", "mma"))
-FP32_PATH = (("simt", "simt"), ("tf32x3", "tf32x3"))
+FP32_PATH = (("tf32x3", "tf32x3"), ("tf32x3", "tf32x3"))
 PATH_IMPLS = {
     "serving": BF16_PATH, "reconstruct_direct": BF16_PATH, "serving_daemon": BF16_PATH,
     "full_width": BF16_PATH, "train_r3b": BF16_PATH,
-    "train_patch14l": BF16_PATH, "ar_train": BF16_PATH, "ar_example": (("mma", "simt"), ("mma", "tf32x3")),
+    "train_patch14l": BF16_PATH, "ar_train": BF16_PATH, "ar_example": (("mma", "tf32x3"), ("mma", "tf32x3")),
     "train_pixel_r3b": BF16_PATH, "train_cli": BF16_PATH,
     "train_vq_patch14l": BF16_PATH, "train_vq_r3b": BF16_PATH, "train_cli_vq": BF16_PATH,
     "sweep": FP32_PATH,
@@ -4255,7 +4316,10 @@ def main() -> int:
 
     # what every attention kernel is compiled for; other head dims run padded to the next
     instantiations = {"head_dims": list(HEAD_DIMS), "dropout_mode": [False, True],
-                      "impls": ["mma (bfloat16)", "tf32x3 (float32 dq and dk/dv)", "simt"]}
+                      "impls": ["mma (bfloat16)", "tf32x3 (float32)", "simt"],
+                      "in_place": "mma and tf32x3 read and write rows of d in place where a row is whole 16-byte "
+                                  "chunks (d % 8 == 0 in bfloat16, d % 4 == 0 in float32); other widths, and simt, "
+                                  "are padded to the next head dim"}
     fp32_kernel = {"attention": "fwd", "attention_dq": "dq", "attention_dkv": "dkv"}
     kernels = []
     for key, name, source, replaces, counter, path in KERNEL_TABLE:
@@ -4273,7 +4337,7 @@ def main() -> int:
             "impl": head.get("impl"), "simt_ms": head.get("simt_ms"), "kernel_info": head.get("kernel_info"),
             "instantiations": instantiations if key.startswith("attention") else None,
             "ms_no_dropout": head.get("ms_no_dropout"),
-            "fp32": {"source": "dct_autoencoder_torch/csrc/" + ("attention_fwd.cu" if key == "attention" else "attention_bwd_tf32x3.cu"),
+            "fp32": {"source": "dct_autoencoder_torch/csrc/" + ("attention_fwd_tf32x3.cu" if key == "attention" else "attention_bwd_tf32x3.cu"),
                      "shapes": fp32_figures(cases["fp32_times"], fp32_kernel[key])} if key in fp32_kernel else None,
             **{k: head[k] for k in ("wrapper_ms", "bound_tf32x3_ms", "bound_fp32_cuda_cores_ms", "bound_bytes_ms") if k in head},
         })

@@ -38,7 +38,10 @@
 // not depend on skip_tiles.  In 'bias' mode nothing is skipped.
 //
 // Head dims: as the forward, every kernel is compiled for D = 16, 32, 64
-// and 128 and the wrapper pads d up to the next of them with zero columns
+// and 128; the tensor-core kernels read and write rows of any width d <= D
+// that is a multiple of 8 in place (the loads zero-fill the chunks past d,
+// the stores write only columns < d), and for other widths, and for the
+// CUDA-core kernels, the wrapper pads d up to the next D with zero columns
 // (the padded columns of dq, dk and dv are zero and cut off).
 //
 // Dropout (the `seed` argument, nullptr for none; the DROP instantiations):
@@ -432,7 +435,7 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
                    const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                    const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ delta,
-                   int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
+                   int h, int s, int ld, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
                    attn_drop::Params drop) {
     constexpr int KS = D / 16;  // 16-deep steps over the head dim
     constexpr int NO = D / 8;   // 8-column tiles of the dq accumulator
@@ -449,7 +452,7 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     block_coords(n_tiles, skip, true, bh, tile);
     const int b = bh / h;
     const int q0 = tile * TILE;
-    const size_t base = (size_t)bh * s * D;
+    const size_t base = (size_t)bh * s * ld;
     const bf16* kb = k + base;
     const bf16* vb = v + base;
     const int* kidb = kv_ids + (size_t)b * s;
@@ -458,8 +461,8 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     const int n_kt = (k_end + TILE - 1) / TILE;
 
     auto load_stage = [&](int stage, int k0) {
-        load_tile_async<D>(Ks[stage], kb, k0, s, tid);
-        load_tile_async<D>(Vs[stage], vb, k0, s, tid);
+        load_tile_async<D>(Ks[stage], kb, k0, s, ld, tid);
+        load_tile_async<D>(Vs[stage], vb, k0, s, ld, tid);
         if (tid < TILE) load_row_async(kid_s[stage], kidb, k0, s, tid);
     };
     load_stage(0, 0);
@@ -469,14 +472,14 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
     const bool in_lo = r_lo < s, in_hi = r_hi < s;
     uint32_t qa[KS][4], da[KS][4];
-    load_a_global<D>(qa, q + base, r_lo, r_hi, s, t);
-    load_a_global<D>(da, dout + base, r_lo, r_hi, s, t);
+    load_a_global<D>(qa, q + base, r_lo, r_hi, s, ld, t);
+    load_a_global<D>(da, dout + base, r_lo, r_hi, s, ld, t);
 
     // delta = rowsum(do * o): the row's four threads hold d/4 columns each
     float delta_lo = 0.f, delta_hi = 0.f;
     {
         uint32_t oa[KS][4];
-        load_a_global<D>(oa, o + base, r_lo, r_hi, s, t);
+        load_a_global<D>(oa, o + base, r_lo, r_hi, s, ld, t);
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
@@ -579,11 +582,14 @@ attn_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
         __syncthreads();  // the stage is free for the load after next
     }
 
-    bf16* dq_lo = dq + base + (size_t)r_lo * D;
-    bf16* dq_hi = dq + base + (size_t)r_hi * D;
+    bf16* dq_lo = dq + base + (size_t)r_lo * ld;
+    bf16* dq_hi = dq + base + (size_t)r_hi * ld;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
         const int col = 8 * j + 2 * t;
+        // the 8-column tiles past the caller's head dim (a multiple of 8) are not stored: a guard
+        // on j alone, the same for the whole block
+        if (8 * j >= ld) continue;
         if (in_lo) *reinterpret_cast<__nv_bfloat162*>(dq_lo + col) = __floats2bfloat162_rn(acc[j][0], acc[j][1]);
         if (in_hi) *reinterpret_cast<__nv_bfloat162*>(dq_hi + col) = __floats2bfloat162_rn(acc[j][2], acc[j][3]);
     }
@@ -596,7 +602,7 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
                     const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
+                    int h, int s, int ld, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
                     attn_drop::Params drop) {
     constexpr int KS = D / 16;
     constexpr int NO = D / 8;
@@ -618,7 +624,7 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     block_coords(n_tiles, skip, false, bh, tile);
     const int b = bh / h;
     const int kt0 = tile * TILE;
-    const size_t base = (size_t)bh * s * D;
+    const size_t base = (size_t)bh * s * ld;
     const bf16* qb = q + base;
     const bf16* dob = dout + base;
     const float* lseb = lse + (size_t)bh * s;
@@ -629,8 +635,8 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     const int n_qt = n_tiles - qt_begin;
 
     auto load_stage = [&](int stage, int q0) {
-        load_tile_async<D>(Qs[stage], qb, q0, s, tid);
-        load_tile_async<D>(Os[stage], dob, q0, s, tid);
+        load_tile_async<D>(Qs[stage], qb, q0, s, ld, tid);
+        load_tile_async<D>(Os[stage], dob, q0, s, ld, tid);
         if (tid < TILE) {
             load_row_async(lse_s[stage], lseb, q0, s, tid);
             load_row_async(delta_s[stage], deltab, q0, s, tid);
@@ -638,8 +644,8 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
         }
     };
     if constexpr (OWN_SMEM) {  // in the first group: it has arrived when tile 0 has
-        load_tile_async<D>(k_own, k + base, kt0, s, tid);
-        load_tile_async<D>(v_own, v + base, kt0, s, tid);
+        load_tile_async<D>(k_own, k + base, kt0, s, ld, tid);
+        load_tile_async<D>(v_own, v + base, kt0, s, ld, tid);
     }
     load_stage(0, qt_begin * TILE);
     cp_async_commit();
@@ -649,8 +655,8 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     const bool in_lo = r_lo < s, in_hi = r_hi < s;
     uint32_t ka[OWN_SMEM ? 1 : KS][4], va[OWN_SMEM ? 1 : KS][4];
     if constexpr (!OWN_SMEM) {
-        load_a_global<D>(ka, k + base, r_lo, r_hi, s, t);
-        load_a_global<D>(va, v + base, r_lo, r_hi, s, t);
+        load_a_global<D>(ka, k + base, r_lo, r_hi, s, ld, t);
+        load_a_global<D>(va, v + base, r_lo, r_hi, s, ld, t);
     }
     const int kid_lo = in_lo ? kv_ids[(size_t)b * s + r_lo] : -3;
     const int kid_hi = in_hi ? kv_ids[(size_t)b * s + r_hi] : -3;
@@ -762,10 +768,11 @@ attn_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
         __syncthreads();
     }
 
-    const size_t lo = base + (size_t)r_lo * D, hi = base + (size_t)r_hi * D;
+    const size_t lo = base + (size_t)r_lo * ld, hi = base + (size_t)r_hi * ld;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
         const int col = 8 * j + 2 * t;
+        if (8 * j >= ld) continue;  // as in the dq kernel
         if (in_lo) {
             *reinterpret_cast<__nv_bfloat162*>(dk + lo + col) = __floats2bfloat162_rn(dk_acc[j][0], dk_acc[j][1]);
             *reinterpret_cast<__nv_bfloat162*>(dv + lo + col) = __floats2bfloat162_rn(dv_acc[j][0], dv_acc[j][1]);
@@ -785,7 +792,7 @@ struct BwdArgs {
     const float* lse;
     float* delta;  // written by dq, read by dk/dv
     void *dq, *dk, *dv;
-    int b, h, s;
+    int b, h, s, ld;  // ld: the row width in device memory (the caller's head dim in the tensor-core kernels)
     float scale;
     int bias_mode, causal, skip_tiles;
     attn_drop::Params drop;
@@ -830,7 +837,7 @@ cudaError_t launch_dq_mma(const BwdArgs& a) {
     attn_dq_mma_kernel<D, DROP><<<a.b * a.h * n_tiles, THREADS, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
         static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.q_ids, a.kv_ids, a.lse,
-        static_cast<bf16*>(a.dq), a.delta, a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal, a.skip_tiles,
+        static_cast<bf16*>(a.dq), a.delta, a.h, a.s, a.ld, n_tiles, a.scale, a.bias_mode, a.causal, a.skip_tiles,
         a.drop);
     return cudaGetLastError();
 }
@@ -844,7 +851,7 @@ cudaError_t launch_dkv_mma(const BwdArgs& a) {
     attn_dkv_mma_kernel<D, DROP><<<a.b * a.h * n_tiles, THREADS, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
         static_cast<const bf16*>(a.dout), a.q_ids, a.kv_ids, a.lse, a.delta,
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal,
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.h, a.s, a.ld, n_tiles, a.scale, a.bias_mode, a.causal,
         a.skip_tiles, a.drop);
     return cudaGetLastError();
 }
@@ -854,12 +861,16 @@ bool known(int impl, int dtype) {
     return (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
 }
 
-// One backward kernel (DKV: dk/dv, else dq) of head dim d: launched, or
-// (info != nullptr) described.
+// One backward kernel (DKV: dk/dv, else dq) for rows of d values: launched,
+// or (info != nullptr, d an instantiation) described.  The tensor-core
+// kernels run the instantiation instantiation_for(d) on rows of d in place
+// (d a multiple of 8); the CUDA-core kernels take an instantiation's d only.
 template <bool DKV>
 cudaError_t run(int impl, int dtype, int d, bool drop, const BwdArgs* a, int* info) {
     if (!known(impl, dtype)) return cudaErrorInvalidValue;
-    return dispatch(d, drop, [&](auto inst) {
+    const int dim = instantiation_for(d);
+    if (impl == 1 ? d % 8 != 0 : dim != d) return cudaErrorInvalidValue;
+    return dispatch(dim, drop, [&](auto inst) {
         constexpr int D = decltype(inst)::D;
         constexpr bool DROP = decltype(inst)::DROP;
         using bf = __nv_bfloat16;
@@ -897,7 +908,8 @@ cudaError_t run(int impl, int dtype, int d, bool drop, const BwdArgs* a, int* in
 #endif
 
 // dtype: 0 = float32, 1 = bfloat16; impl: 0 = CUDA cores ("simt"), 1 = tensor
-// cores ("mma", bfloat16 only); d one of 16, 32, 64, 128; causal and
+// cores ("mma", bfloat16 only); d the rows' width: one of 16, 32, 64, 128,
+// or for impl 1 any multiple of 8 up to 128 (read and written in place); causal and
 // skip_tiles as in the header; seed, threshold, keep_scale, row0 and head0
 // as in attn_fwd (attention_fwd.cu), the same as the forward got.  All
 // return a cudaError_t (0 on success).
@@ -911,7 +923,7 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const vo
                            const unsigned long long* seed, unsigned int threshold, float keep_scale, int row0,
                            int head0, void* stream) {
     const BwdArgs a{q, k, v, o, dout, q_ids, kv_ids, lse, delta, dq, nullptr, nullptr,
-                    b, h, s, scale, bias_mode, causal, skip_tiles,
+                    b, h, s, d, scale, bias_mode, causal, skip_tiles,
                     attn_drop::Params{seed, threshold, keep_scale, row0, head0}, static_cast<cudaStream_t>(stream)};
     return run<false>(impl, dtype, d, seed != nullptr, &a, nullptr);
 }
@@ -924,7 +936,7 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const v
                             const unsigned long long* seed, unsigned int threshold, float keep_scale, int row0,
                             int head0, void* stream) {
     const BwdArgs a{q, k, v, nullptr, dout, q_ids, kv_ids, lse, delta, nullptr, dk, dv,
-                    b, h, s, scale, bias_mode, causal, skip_tiles,
+                    b, h, s, d, scale, bias_mode, causal, skip_tiles,
                     attn_drop::Params{seed, threshold, keep_scale, row0, head0}, static_cast<cudaStream_t>(stream)};
     return run<true>(impl, dtype, d, seed != nullptr, &a, nullptr);
 }

@@ -11,8 +11,10 @@
 // dk/dv kernel reads, so dq is launched first on the same stream; the mask,
 // the causal mode and its tile skipping, the dropout mode (the keep bits of
 // attn_dropout.cuh at the same (row, head, query, key) counter) and the head
-// dims 16, 32, 64 and 128 are those of attention_bwd.cu.  No atomics: two
-// launches give the same bits.
+// dims 16, 32, 64 and 128 are those of attention_bwd.cu; rows of any width d
+// <= D that is a multiple of 4 are read and written in place (`ld`; the
+// loads zero-fill the columns past d, the stores write only columns < d).
+// No atomics: two launches give the same bits.
 //
 //   dq     one block per (b*h, 64-row q tile): S = Q.K^T, dP = dO.V^T,
 //          p = exp(masked S * scale - lse), ds = p (dp - delta) scale,
@@ -46,8 +48,10 @@
 // instructions) per fragment it feeds, and each slice four adds, so the
 // CUDA cores' issue slots share the bound.
 //
-// Design: as the bf16 kernels of attention_bwd.cu, 128 threads, four warps
-// each owning 16 rows of the block's own 64-row tile; the opposite side
+// Design (the building blocks are in attn_tf32x3.cuh, shared with the
+// forward, attention_fwd_tf32x3.cu): as the bf16 kernels of
+// attention_bwd.cu, 128 threads, four warps each owning 16 rows of the
+// block's own 64-row tile; the opposite side
 // streams through a two-stage cp.async ring; the dk/dv kernel computes the
 // transposed products so that P^T and dS^T come out in accumulator layout;
 // the 64 streamed rows are taken in two passes of 32.  What fp32 changes:
@@ -73,7 +77,7 @@
 
 #include "attn_dropout.cuh"
 #include "attn_mma.cuh"
-#include "tf32x3_gemm3.cuh"
+#include "attn_tf32x3.cuh"
 
 namespace {
 
@@ -83,96 +87,9 @@ using attn_mma::pair_allowed;
 using attn_mma::STAGES;
 using attn_mma::THREADS;
 using attn_mma::TILE;
-using tf32x3::mma3;
+using namespace attn_tf32x3;
 
 constexpr int PASS = 32;  // streamed rows per pass: two passes over a 64-row tile
-
-// floats a row of a tile in shared memory, and a tile (variables: device code reads them too)
-template <int D>
-constexpr int LD = D + 4;
-template <int D>
-constexpr int TILE_FLOATS = TILE * LD<D>;
-
-// x = hi + lo in TF32 parts, on the FP32 pipe: hi is x rounded to 11
-// significant bits by Veltkamp's split (c = (2^13 + 1) x, hi = c - (c - x);
-// the _rn intrinsics keep the compiler from contracting it into an FMA),
-// lo = x - hi exactly, its low 13 bits cleared (truncated to TF32).  One
-// integer operation where tf32x3::split takes four (the integer pipe runs
-// at half the FP32 pipe's rate on Hopper); hi + lo is x to within 2^-22.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    const float c = __fmul_rn(x, 8193.f);
-    const float h = __fsub_rn(c, __fsub_rn(c, x));
-    hi = __float_as_uint(h);
-    lo = __float_as_uint(__fsub_rn(x, h)) & 0xffffe000u;
-}
-
-// Blocks an SM the register allocation aims at: shared memory allows one at
-// D = 128; two below, at most 255 registers a thread (at D = 32 a cap of 168
-// for three blocks spilled 16-40 bytes, and dk/dv took 9 % longer at the
-// sweep's shape on an H100).
-template <int D>
-constexpr int min_blocks() {
-    return D >= 128 ? 1 : 2;
-}
-
-// Rows row0 .. row0 + TILE - 1 of a (s, D) stripe into a tile; rows past s
-// are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(float* tile, const float* stripe, int row0, int s, int tid) {
-    tf32x3::load_tile<TILE, D, LD<D>, true>(tile, stripe + (size_t)row0 * D, D, s - row0, D, tid);
-}
-
-// Split A fragment (16 x 8) of rows r0 .. r0 + 15 and head-dim columns
-// 8 kk .. 8 kk + 7 of a tile: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
-template <int D>
-__device__ __forceinline__ void a_frag(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* tile, int r0, int kk,
-                                       int g, int t) {
-    const float* p = tile + (r0 + g) * LD<D> + 8 * kk + t;
-    split(p[0], hi[0], lo[0]);
-    split(p[8 * LD<D>], hi[1], lo[1]);
-    split(p[4], hi[2], lo[2]);
-    split(p[8 * LD<D> + 4], hi[3], lo[3]);
-}
-
-// Split B fragment (8 x 8) of a product over the head dim whose columns are
-// the tile's rows n0 .. n0 + 7: (k = t, n = g), (k = t + 4, n = g).
-template <int D>
-__device__ __forceinline__ void b_frag_rows(uint32_t (&hi)[2], uint32_t (&lo)[2], const float* tile, int n0, int kk,
-                                            int g, int t) {
-    const float* p = tile + (n0 + g) * LD<D> + 8 * kk + t;
-    split(p[0], hi[0], lo[0]);
-    split(p[4], hi[1], lo[1]);
-}
-
-// Split B fragment of a product whose depth runs over the tile's rows
-// k0 .. k0 + 7 in the permuted order of a_from_c (slot t is row 2t, slot
-// t + 4 row 2t + 1), for the head-dim columns n0 .. n0 + 7.
-template <int D>
-__device__ __forceinline__ void b_frag_cols(uint32_t (&hi)[2], uint32_t (&lo)[2], const float* tile, int k0, int n0,
-                                            int g, int t) {
-    const float* p = tile + (k0 + 2 * t) * LD<D> + n0 + g;
-    split(p[0], hi[0], lo[0]);
-    split(p[LD<D>], hi[1], lo[1]);
-}
-
-// The accumulator fragment of an 8-column tile ((g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1)), split, as the A fragment of an 8-deep step
-// over those columns in the permuted order.
-__device__ __forceinline__ void a_from_c(uint32_t (&hi)[4], uint32_t (&lo)[4], const float (&c)[4]) {
-    split(c[0], hi[0], lo[0]);
-    split(c[2], hi[1], lo[1]);
-    split(c[1], hi[2], lo[2]);
-    split(c[3], hi[3], lo[3]);
-}
-
-// acc += the 8-deep slice's a.b, summed on the tensor cores from zero
-__device__ __forceinline__ void add_slice(float (&acc)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                          const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-    float d[4];
-    mma3<true>(d, ah, al, bh, bl);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[e] += d[e];
-}
 
 // acc[n] += A.B over the 32 rows of one pass for each 8-column tile n of the
 // head dim: A the pass's four split fragments, B the streamed tile's rows
@@ -237,7 +154,7 @@ attn_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, 
                       const float* __restrict__ o, const float* __restrict__ dout,
                       const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                       const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ delta,
-                      int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
+                      int h, int s, int ld, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
                       attn_drop::Params drop) {
     constexpr int NO = D / 8;  // 8-column tiles of the dq accumulator
     constexpr int TF = TILE_FLOATS<D>;
@@ -256,7 +173,7 @@ attn_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     block_coords(n_tiles, skip, true, bh, tile);
     const int b = bh / h;
     const int q0 = tile * TILE;
-    const size_t base = (size_t)bh * s * D;
+    const size_t base = (size_t)bh * s * ld;
     const float* kb = k + base;
     const float* vb = v + base;
     const int* kidb = kv_ids + (size_t)b * s;
@@ -265,12 +182,12 @@ attn_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, 
     const int n_kt = (k_end + TILE - 1) / TILE;
 
     auto load_stage = [&](int stage, int k0) {
-        load_tile<D>(Ks + stage * TF, kb, k0, s, tid);
-        load_tile<D>(Vs + stage * TF, vb, k0, s, tid);
+        load_tile<D>(Ks + stage * TF, kb, k0, s, ld, tid);
+        load_tile<D>(Vs + stage * TF, vb, k0, s, ld, tid);
         if (tid < TILE) attn_mma::load_row_async(kid_s + stage * TILE, kidb, k0, s, tid);
     };
-    load_tile<D>(Qs, q + base, q0, s, tid);  // in the first group: it has arrived when tile 0 has
-    load_tile<D>(Os, dout + base, q0, s, tid);
+    load_tile<D>(Qs, q + base, q0, s, ld, tid);  // in the first group: it has arrived when tile 0 has
+    load_tile<D>(Os, dout + base, q0, s, ld, tid);
     load_stage(0, 0);
     attn_mma::cp_async_commit();
 
@@ -281,8 +198,9 @@ attn_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, 
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) {
         const int c = t + 4 * i;
-        if (in_lo) delta_lo = fmaf(dout[base + (size_t)r_lo * D + c], o[base + (size_t)r_lo * D + c], delta_lo);
-        if (in_hi) delta_hi = fmaf(dout[base + (size_t)r_hi * D + c], o[base + (size_t)r_hi * D + c], delta_hi);
+        if (c >= ld) continue;
+        if (in_lo) delta_lo = fmaf(dout[base + (size_t)r_lo * ld + c], o[base + (size_t)r_lo * ld + c], delta_lo);
+        if (in_hi) delta_hi = fmaf(dout[base + (size_t)r_hi * ld + c], o[base + (size_t)r_hi * ld + c], delta_hi);
     }
     delta_lo += __shfl_xor_sync(0xffffffffu, delta_lo, 1);
     delta_lo += __shfl_xor_sync(0xffffffffu, delta_lo, 2);
@@ -350,11 +268,12 @@ attn_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, 
         __syncthreads();  // the stage is free for the load after next
     }
 
-    float* dq_lo = dq + base + (size_t)r_lo * D;
-    float* dq_hi = dq + base + (size_t)r_hi * D;
+    float* dq_lo = dq + base + (size_t)r_lo * ld;
+    float* dq_hi = dq + base + (size_t)r_hi * ld;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
         const int col = 8 * n + 2 * t;
+        if (col >= ld) continue;  // the columns past the caller's head dim are not stored
         if (in_lo) *reinterpret_cast<float2*>(dq_lo + col) = make_float2(acc[n][0], acc[n][1]);
         if (in_hi) *reinterpret_cast<float2*>(dq_hi + col) = make_float2(acc[n][2], acc[n][3]);
     }
@@ -367,7 +286,7 @@ attn_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv,
-                       int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
+                       int h, int s, int ld, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
                        attn_drop::Params drop) {
     constexpr int NO = D / 8;
     constexpr int TF = TILE_FLOATS<D>;
@@ -388,7 +307,7 @@ attn_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     block_coords(n_tiles, skip, false, bh, tile);
     const int b = bh / h;
     const int kt0 = tile * TILE;
-    const size_t base = (size_t)bh * s * D;
+    const size_t base = (size_t)bh * s * ld;
     const float* qb = q + base;
     const float* dob = dout + base;
     const float* lseb = lse + (size_t)bh * s;
@@ -399,16 +318,16 @@ attn_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int n_qt = n_tiles - qt_begin;
 
     auto load_stage = [&](int stage, int q0) {
-        load_tile<D>(Qs + stage * TF, qb, q0, s, tid);
-        load_tile<D>(Os + stage * TF, dob, q0, s, tid);
+        load_tile<D>(Qs + stage * TF, qb, q0, s, ld, tid);
+        load_tile<D>(Os + stage * TF, dob, q0, s, ld, tid);
         if (tid < TILE) {
             attn_mma::load_row_async(lse_s + stage * TILE, lseb, q0, s, tid);
             attn_mma::load_row_async(delta_s + stage * TILE, deltab, q0, s, tid);
             attn_mma::load_row_async(qid_s + stage * TILE, qidb, q0, s, tid);
         }
     };
-    load_tile<D>(Ks, k + base, kt0, s, tid);  // in the first group: it has arrived when tile 0 has
-    load_tile<D>(Vs, v + base, kt0, s, tid);
+    load_tile<D>(Ks, k + base, kt0, s, ld, tid);  // in the first group: it has arrived when tile 0 has
+    load_tile<D>(Vs, v + base, kt0, s, ld, tid);
     load_stage(0, qt_begin * TILE);
     attn_mma::cp_async_commit();
 
@@ -492,10 +411,11 @@ attn_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
         __syncthreads();
     }
 
-    const size_t lo = base + (size_t)r_lo * D, hi = base + (size_t)r_hi * D;
+    const size_t lo = base + (size_t)r_lo * ld, hi = base + (size_t)r_hi * ld;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
         const int col = 8 * n + 2 * t;
+        if (col >= ld) continue;
         if (in_lo) {
             *reinterpret_cast<float2*>(dk + lo + col) = make_float2(dk_acc[n][0], dk_acc[n][1]);
             *reinterpret_cast<float2*>(dv + lo + col) = make_float2(dv_acc[n][0], dv_acc[n][1]);
@@ -515,7 +435,7 @@ struct BwdArgs {
     const float* lse;
     float* delta;  // written by dq, read by dk/dv
     float *dq, *dk, *dv;
-    int b, h, s;
+    int b, h, s, ld;
     float scale;
     int bias_mode, causal, skip_tiles;
     attn_drop::Params drop;
@@ -529,7 +449,7 @@ cudaError_t launch_dq(const BwdArgs& a) {
     if (err != cudaSuccess) return err;
     const int n_tiles = (a.s + TILE - 1) / TILE;
     attn_dq_tf32x3_kernel<D, DROP><<<a.b * a.h * n_tiles, THREADS, smem, a.stream>>>(
-        a.q, a.k, a.v, a.o, a.dout, a.q_ids, a.kv_ids, a.lse, a.dq, a.delta, a.h, a.s, n_tiles, a.scale,
+        a.q, a.k, a.v, a.o, a.dout, a.q_ids, a.kv_ids, a.lse, a.dq, a.delta, a.h, a.s, a.ld, n_tiles, a.scale,
         a.bias_mode, a.causal, a.skip_tiles, a.drop);
     return cudaGetLastError();
 }
@@ -541,17 +461,19 @@ cudaError_t launch_dkv(const BwdArgs& a) {
     if (err != cudaSuccess) return err;
     const int n_tiles = (a.s + TILE - 1) / TILE;
     attn_dkv_tf32x3_kernel<D, DROP><<<a.b * a.h * n_tiles, THREADS, smem, a.stream>>>(
-        a.q, a.k, a.v, a.dout, a.q_ids, a.kv_ids, a.lse, a.delta, a.dk, a.dv, a.h, a.s, n_tiles, a.scale,
+        a.q, a.k, a.v, a.dout, a.q_ids, a.kv_ids, a.lse, a.delta, a.dk, a.dv, a.h, a.s, a.ld, n_tiles, a.scale,
         a.bias_mode, a.causal, a.skip_tiles, a.drop);
     return cudaGetLastError();
 }
 
-// One backward kernel (DKV: dk/dv, else dq) of head dim d: launched, or
-// (info != nullptr) described.  Takes impl 2 on float32 (dtype 0) only.
+// One backward kernel (DKV: dk/dv, else dq) for rows of d floats (the
+// instantiation attn_mma::instantiation_for(d) reads and writes them in
+// place; d a multiple of 4): launched, or (info != nullptr, d an
+// instantiation) described.  Takes impl 2 on float32 (dtype 0) only.
 template <bool DKV>
 cudaError_t run(int impl, int dtype, int d, bool drop, const BwdArgs* a, int* info) {
-    if (impl != 2 || dtype != 0) return cudaErrorInvalidValue;
-    return attn_mma::dispatch(d, drop, [&](auto inst) {
+    if (impl != 2 || dtype != 0 || d % 4) return cudaErrorInvalidValue;
+    return attn_mma::dispatch(attn_mma::instantiation_for(d), drop, [&](auto inst) {
         constexpr int D = decltype(inst)::D;
         constexpr bool DROP = decltype(inst)::DROP;
         if constexpr (DKV) {
@@ -589,7 +511,7 @@ extern "C" int attn_bwd_tf32x3_dq(const void* q, const void* k, const void* v, c
                                   float keep_scale, int row0, int head0, void* stream) {
     const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
                     static_cast<const float*>(o), static_cast<const float*>(dout), q_ids, kv_ids, lse, delta,
-                    static_cast<float*>(dq), nullptr, nullptr, b, h, s, scale, bias_mode, causal, skip_tiles,
+                    static_cast<float*>(dq), nullptr, nullptr, b, h, s, d, scale, bias_mode, causal, skip_tiles,
                     attn_drop::Params{seed, threshold, keep_scale, row0, head0}, static_cast<cudaStream_t>(stream)};
     return run<false>(impl, dtype, d, seed != nullptr, &a, nullptr);
 }
@@ -601,7 +523,7 @@ extern "C" int attn_bwd_tf32x3_dkv(const void* q, const void* k, const void* v, 
                                    float keep_scale, int row0, int head0, void* stream) {
     const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
                     nullptr, static_cast<const float*>(dout), q_ids, kv_ids, lse, delta, nullptr,
-                    static_cast<float*>(dk), static_cast<float*>(dv), b, h, s, scale, bias_mode, causal, skip_tiles,
+                    static_cast<float*>(dk), static_cast<float*>(dv), b, h, s, d, scale, bias_mode, causal, skip_tiles,
                     attn_drop::Params{seed, threshold, keep_scale, row0, head0}, static_cast<cudaStream_t>(stream)};
     return run<true>(impl, dtype, d, seed != nullptr, &a, nullptr);
 }

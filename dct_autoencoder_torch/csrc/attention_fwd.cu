@@ -33,10 +33,15 @@
 // tiles from the last to the first, so that the longest causal blocks are
 // scheduled first.
 //
-// Head dims: every kernel is compiled for D = 16, 32, 64 and 128; the
-// wrapper (kernels/attention.py) pads q, k and v with zero columns up to the
-// next of them and cuts o back, which is exact (a zero column adds nothing
-// to q.k, and a padded v column only makes an o column that is cut off).
+// Head dims: every kernel is compiled for D = 16, 32, 64 and 128.  The
+// tensor-core kernel reads and writes rows of any width d <= D that is a
+// multiple of 8 in place (`ld`, rows d apart in device memory): its loads
+// zero-fill the 16-byte chunks past d, as they zero-fill rows past s, and
+// its stores write only columns < d.  For other widths, and for the
+// CUDA-core kernel, the wrapper (kernels/attention.py) pads q, k and v with
+// zero columns up to the next D and cuts o back.  Both are exact (a zero
+// column adds nothing to q.k, and a zero v column only makes an o column
+// that is not kept).
 //
 // Dropout (the `seed` argument, nullptr for none; the DROP instantiations):
 // the softmax weights are dropped as the JAX package drops them on its XLA
@@ -49,7 +54,9 @@
 // instantiations without dropout are the kernels as they were, so they keep
 // their registers and times.
 //
-// Two implementations (the `impl` argument of the entry point):
+// Two implementations here (the `impl` argument of the entry point); the
+// third, impl 2, "tf32x3", the float32 forward on the tensor cores in
+// 3xTF32, is attention_fwd_tf32x3.cu, a library of its own:
 //
 // impl 1, "mma", bfloat16 only: attn_fwd_mma_kernel multiplies on the tensor
 // cores (mma.sync m16n8k16, bf16 operands, fp32 accumulators; the building
@@ -91,9 +98,10 @@
 //   then.  That is inside the tolerance; no bit of the masking changes.
 //
 // impl 0, "simt": attn_fwd_kernel multiplies in float32 on the CUDA cores,
-// keeps p in float32 and rounds once at the store.  float32 inputs always
-// take it (true fp32; TF32 would not hold 1e-5).  Its bfloat16 instantiation
-// stays for timing the old design against the new one on one card.  It is
+// keeps p in float32 and rounds once at the store.  It was the float32
+// forward until the 3xTF32 kernel (one TF32 product would not hold 1e-5);
+// float32 and bfloat16 take it only when asked, for timing the old design
+// against the new ones on one card.  It is
 // arithmetic-bound: ~17 GFLOP of fp32 FMAs at the main-path shape against
 // 67 TFLOP/s, with two blocks an SM at d = 64 (128 registers a thread, 50 KB
 // of shared memory).
@@ -348,7 +356,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<D>())
 attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                     const int* __restrict__ q_ids, const int* __restrict__ kv_ids,
                     bf16* __restrict__ o, float* __restrict__ lse,
-                    int h, int s, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
+                    int h, int s, int ld, int n_tiles, float scale, int bias_mode, int causal, int skip_tiles,
                     attn_drop::Params drop) {
     constexpr int KS = D / 16;    // 16-deep steps over the head dim (S = Q.K^T)
     constexpr int NS = TILE / 8;  // 8-column tiles of S over the streamed tile's keys
@@ -366,7 +374,7 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     block_coords(n_tiles, skip, true, bh, tile);
     const int b = bh / h;
     const int q0 = tile * TILE;
-    const size_t base = (size_t)bh * s * D;
+    const size_t base = (size_t)bh * s * ld;
     const bf16* kb = k + base;
     const bf16* vb = v + base;
     const int* kidb = kv_ids + (size_t)b * s;
@@ -375,8 +383,8 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     const int n_kt = (k_end + TILE - 1) / TILE;
 
     auto load_stage = [&](int stage, int k0) {
-        load_tile_async<D>(Ks[stage], kb, k0, s, tid);
-        load_tile_async<D>(Vs[stage], vb, k0, s, tid);
+        load_tile_async<D>(Ks[stage], kb, k0, s, ld, tid);
+        load_tile_async<D>(Vs[stage], vb, k0, s, ld, tid);
         if (tid < TILE) load_row_async(kid_s[stage], kidb, k0, s, tid);
     };
     load_stage(0, 0);
@@ -385,7 +393,7 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     // the block's own rows: this thread holds rows r_lo and r_lo + 8 of q
     const int r_lo = q0 + warp * 16 + g;
     uint32_t qa[KS][4];
-    load_a_global<D>(qa, q + base, r_lo, r_lo + 8, s, t);
+    load_a_global<D>(qa, q + base, r_lo, r_lo + 8, s, ld, t);
     int qid[2];
     float m[2], l[2];  // row max and this thread's share of the row sum
 #pragma unroll
@@ -460,9 +468,12 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
         float inv = 1.f / den;
         if constexpr (DROP) inv *= drop.keep_scale;
         if (r >= s) continue;
-        bf16* orow = o + base + (size_t)r * D;
+        bf16* orow = o + base + (size_t)r * ld;
 #pragma unroll
         for (int j = 0; j < NO; ++j) {
+            // the 8-column tiles past the caller's head dim (a multiple of 8) are not stored:
+            // a guard on j alone, the same for the whole block
+            if (8 * j >= ld) continue;
             *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
                 __floats2bfloat162_rn(acc[j][2 * hi] * inv, acc[j][2 * hi + 1] * inv);
         }
@@ -477,7 +488,7 @@ struct FwdArgs {
     const int *q_ids, *kv_ids;
     void* o;
     float* lse;
-    int b, h, s;
+    int b, h, s, ld;  // ld: the row width in device memory (the caller's head dim in the tensor-core kernel)
     float scale;
     int bias_mode, causal, skip_tiles;
     attn_drop::Params drop;
@@ -506,12 +517,12 @@ cudaError_t launch_mma(const FwdArgs& a) {
     const int n_tiles = (a.s + TILE - 1) / TILE;
     attn_fwd_mma_kernel<D, DROP><<<a.b * a.h * n_tiles, THREADS, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-        a.q_ids, a.kv_ids, static_cast<bf16*>(a.o), a.lse, a.h, a.s, n_tiles, a.scale, a.bias_mode, a.causal,
+        a.q_ids, a.kv_ids, static_cast<bf16*>(a.o), a.lse, a.h, a.s, a.ld, n_tiles, a.scale, a.bias_mode, a.causal,
         a.skip_tiles, a.drop);
     return cudaGetLastError();
 }
 
-// impl 1 takes bfloat16 only; float32 has the CUDA-core kernel alone
+// impl 1 takes bfloat16 only; impl 2 (float32) is attention_fwd_tf32x3.cu's
 bool known(int impl, int dtype) {
     return (dtype == 0 || dtype == 1) && (impl == 0 || (impl == 1 && dtype == 1));
 }
@@ -519,8 +530,9 @@ bool known(int impl, int dtype) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; impl: 0 = CUDA cores ("simt"), 1 = tensor
-// cores ("mma", bfloat16 only); d one of 16, 32, 64, 128; causal and
-// skip_tiles as in the header.  seed: nullptr, or the device address of the
+// cores ("mma", bfloat16 only); d the rows' width: one of 16, 32, 64, 128,
+// or for impl 1 any multiple of 8 up to 128 (read and written in place by the
+// instantiation instantiation_for(d)); causal and skip_tiles as in the header.  seed: nullptr, or the device address of the
 // 64-bit dropout seed, with the keep threshold, 1 / (1 - rate) and the
 // offsets of this call's rows and heads (attn_dropout.cuh).  Returns a
 // cudaError_t (0 on success).
@@ -530,10 +542,12 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v, const int* 
                         const unsigned long long* seed, unsigned int threshold, float keep_scale, int row0,
                         int head0, void* stream) {
     if (!known(impl, dtype)) return cudaErrorInvalidValue;
-    if (b * h == 0 || s == 0) return dispatch(d, false, [](auto) { return cudaSuccess; });
-    const FwdArgs a{q, k, v, q_ids, kv_ids, o, lse, b, h, s, scale, bias_mode, causal, skip_tiles,
+    const int dim = instantiation_for(d);
+    if (impl == 1 ? d % 8 != 0 : dim != d) return cudaErrorInvalidValue;
+    if (b * h == 0 || s == 0) return dispatch(dim, false, [](auto) { return cudaSuccess; });
+    const FwdArgs a{q, k, v, q_ids, kv_ids, o, lse, b, h, s, d, scale, bias_mode, causal, skip_tiles,
                     attn_drop::Params{seed, threshold, keep_scale, row0, head0}, static_cast<cudaStream_t>(stream)};
-    return dispatch(d, seed != nullptr, [&](auto inst) {
+    return dispatch(dim, seed != nullptr, [&](auto inst) {
         constexpr int D = decltype(inst)::D;
         constexpr bool DROP = decltype(inst)::DROP;
         if (impl == 1) return launch_mma<D, DROP>(a);

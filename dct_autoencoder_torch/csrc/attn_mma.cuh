@@ -71,23 +71,27 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows row0 .. row0+TILE-1 of a (s, D) stripe into a swizzled tile, 16 bytes
-// a thread and copy; rows past s are zero-filled (garbage times p = 0 would
-// be NaN in an accumulator).  A copy of 0 source bytes reads nothing, so its
-// address may lie past the stripe: the thread's copies are then one address
-// plus constants on both sides (STEP rows apart, a multiple of the 8 rows
-// after which the swizzle repeats).
+// Rows row0 .. row0+TILE-1 of an (s, ld) stripe into a swizzled tile of D
+// columns, 16 bytes a thread and copy; rows past s and the chunks past ld
+// (ld a multiple of 8) are zero-filled (garbage times p = 0 would be NaN in
+// an accumulator; a zero column adds nothing to a product over the head dim).
+// A copy of 0 source bytes reads nothing, so its address may lie past the
+// stripe: the thread's copies are then one address plus constants on both
+// sides (STEP rows apart, a multiple of the 8 rows after which the swizzle
+// repeats).
 template <int D>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* tile, const __nv_bfloat16* stripe,
-                                                int row0, int s, int tid) {
+                                                int row0, int s, int ld, int tid) {
     constexpr int CH = D / 8;
     constexpr int STEP = THREADS / CH;  // rows between two copies of one thread
     const int r = tid / CH, c = tid % CH;
-    const __nv_bfloat16* src = stripe + (size_t)(row0 + r) * D + c * 8;
+    const int bytes = c * 8 < ld ? 16 : 0;  // a chunk past ld reads nothing
+    const int step = STEP * ld;
+    const __nv_bfloat16* src = stripe + (size_t)(row0 + r) * ld + c * 8;
     const uint32_t dst = smem_u32(tile + swz<D>(r, c));
 #pragma unroll
     for (int i = 0; i < TILE / STEP; ++i) {
-        cp_async_16(dst + i * STEP * D * 2, src + i * STEP * D, row0 + r + i * STEP < s ? 16 : 0);
+        cp_async_16(dst + i * STEP * D * 2, src + i * step, row0 + r + i * STEP < s ? bytes : 0);
     }
 }
 
@@ -166,20 +170,23 @@ __device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&ev
     a[3] = pack_bf16(odd[2], odd[3]);
 }
 
-// A fragments of rows r_lo and r_hi (= r_lo + 8) of a (s, D) stripe, read
-// from device memory once; a row past s reads as zeros.
+// A fragments of rows r_lo and r_hi (= r_lo + 8) of an (s, ld) stripe, read
+// from device memory once; a row past s and the columns past ld (ld a
+// multiple of 8) read as zeros.
 template <int D>
 __device__ __forceinline__ void load_a_global(uint32_t (&a)[D / 16][4], const __nv_bfloat16* stripe, int r_lo,
-                                              int r_hi, int s, int t) {
-    const uint32_t* lo = reinterpret_cast<const uint32_t*>(stripe + (size_t)(r_lo < s ? r_lo : 0) * D);
-    const uint32_t* hi = reinterpret_cast<const uint32_t*>(stripe + (size_t)(r_hi < s ? r_hi : 0) * D);
+                                              int r_hi, int s, int ld, int t) {
+    const uint32_t* lo = reinterpret_cast<const uint32_t*>(stripe + (size_t)(r_lo < s ? r_lo : 0) * ld);
+    const uint32_t* hi = reinterpret_cast<const uint32_t*>(stripe + (size_t)(r_hi < s ? r_hi : 0) * ld);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
         const int w = kk * 8 + t;  // 32-bit word holding columns 16 kk + 2t, +1
-        a[kk][0] = r_lo < s ? lo[w] : 0u;
-        a[kk][1] = r_hi < s ? hi[w] : 0u;
-        a[kk][2] = r_lo < s ? lo[w + 4] : 0u;
-        a[kk][3] = r_hi < s ? hi[w + 4] : 0u;
+        // with ld a multiple of 8, a step's 8 low (high) columns lie before ld or past it together
+        const bool in0 = 16 * kk < ld, in4 = 16 * kk + 8 < ld;
+        a[kk][0] = r_lo < s && in0 ? lo[w] : 0u;
+        a[kk][1] = r_hi < s && in0 ? hi[w] : 0u;
+        a[kk][2] = r_lo < s && in4 ? lo[w + 4] : 0u;
+        a[kk][3] = r_hi < s && in4 ? hi[w + 4] : 0u;
     }
 }
 
@@ -229,13 +236,22 @@ constexpr int min_blocks() {
 
 // ---- the instantiations
 
-// The head dims the kernels are compiled for; the wrapper pads d up to the
-// next one with zero columns.  DROP selects the dropout mode.
+// The head dims the kernels are compiled for.  The tensor-core kernels read
+// and write rows of any width ld up to their D in place (16-byte chunks:
+// ld a multiple of 8 in bf16, of 4 in fp32); for other widths, and for the
+// CUDA-core kernels, the wrapper pads d up to the next D with zero columns.
+// DROP selects the dropout mode.
 template <int D_, bool DROP_>
 struct Inst {
     static constexpr int D = D_;
     static constexpr bool DROP = DROP_;
 };
+
+// The instantiation that runs rows of ld columns: the smallest of the head
+// dims above that holds them; 0 past the largest.
+inline int instantiation_for(int ld) {
+    return ld < 1 ? 0 : ld <= 16 ? 16 : ld <= 32 ? 32 : ld <= 64 ? 64 : ld <= 128 ? 128 : 0;
+}
 
 // fn(Inst<D, DROP>{}) for the instantiation of head dim d; cudaErrorInvalidValue for another d.
 template <typename Fn>

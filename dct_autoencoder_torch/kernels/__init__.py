@@ -28,6 +28,7 @@ def reset_launch_counts() -> None:
     for counts in (attention.LAUNCHES_FWD_IMPL, attention.LAUNCHES_BWD_IMPL):
         for impl in counts:
             counts[impl] = 0
+    attention.LAUNCHES_PAD = 0
 
 
 def launch_counts() -> dict:
@@ -35,10 +36,15 @@ def launch_counts() -> dict:
 
 
 def fwd_impl_launch_counts() -> dict:
-    """Launches of the attention forward kernel, causal or not, by implementation ("mma", "simt")."""
+    """Launches of the attention forward kernel, causal or not, by implementation ("mma", "simt", "tf32x3")."""
     return dict(attention.LAUNCHES_FWD_IMPL)
 
 
 def bwd_impl_launch_counts() -> dict:
     """Launches of the two attention backward kernels by implementation ("mma", "simt", "tf32x3")."""
     return dict(attention.LAUNCHES_BWD_IMPL)
+
+
+def pad_copy_count() -> int:
+    """Tensors the attention wrappers padded with zero columns (``attention.pad_head_dim``'s copies)."""
+    return attention.LAUNCHES_PAD

@@ -30,6 +30,7 @@ NVCC_FLAGS = [
 # kernel library name -> its .cu source (headers in csrc/ are hashed too)
 SOURCES = {
     "attention_fwd": "attention_fwd.cu",
+    "attention_fwd_tf32x3": "attention_fwd_tf32x3.cu",
     "attention_bwd_dq": "attention_bwd.cu",
     "attention_bwd_dkv": "attention_bwd.cu",
     "attention_bwd_tf32x3_dq": "attention_bwd_tf32x3.cu",

@@ -23,14 +23,15 @@ the plain versions round at the same places, so the kernels and the plain
 versions compute the same function.  The forward's online softmax rounds p
 relative to the running row max where the Pallas kernel rounds it relative
 to the row's final max, so o can differ by one bf16 ulp now and then; no bit
-of the masking differs.  For float32 the two backward kernels run on the
-tensor cores in 3xTF32 ("tf32x3", csrc/attention_bwd_tf32x3.cu: each
-product as three TF32 products of hi and lo parts, about 22 significant
-bits, within fp32's 1e-5); the float32 forward keeps the CUDA-core kernel
-("simt"), true fp32 and bound by the CUDA cores' fp32 rate.
-``impl="simt"`` on the ``*_cuda`` wrappers runs the CUDA-core kernels on
-bfloat16 and on the float32 backward too, for timing the old design beside
-the new one on one card; nothing on a model's path passes it.
+of the masking differs.  For float32 the three kernels run on the
+tensor cores in 3xTF32 ("tf32x3": each product as three TF32 products of hi
+and lo parts, about 22 significant bits, within fp32's 1e-5): the forward in
+csrc/attention_fwd_tf32x3.cu, the two backward kernels in
+csrc/attention_bwd_tf32x3.cu, the online softmax, p and ds in fp32.
+``impl="simt"`` on the ``*_cuda`` wrappers runs the CUDA-core kernels (true
+fp32 on the CUDA cores, their first design) on either type, for timing the
+old design beside the new one on one card; nothing on a model's path passes
+it.
 
 ``packed_flash_attention`` keeps the JAX layout (b, h, s, d) and contract,
 and carries the gradient through a ``torch.autograd.Function`` whenever an
@@ -47,11 +48,17 @@ headers); ``skip_tiles=False`` on the ``*_cuda`` wrappers runs every tile,
 for timing the difference.
 
 Head dims: the kernels are compiled for d = 16, 32, 64 and 128
-(``HEAD_DIMS``).  The ``*_cuda`` wrappers take any 1 <= d <= 128: they pad
-q, k, v (and o, do) with zero columns up to the next instantiation and cut
-the results back, which is exact (zero columns add nothing to q.k, a padded
-v column only makes an o column that is cut off, and ``scale`` stays the
-caller's).  d > 128 raises ValueError.
+(``HEAD_DIMS``), and the ``*_cuda`` wrappers take any 1 <= d <= 128
+(``row_width``).  The tensor-core kernels ("mma", "tf32x3") read and write
+rows of d in place wherever a row is whole 16-byte chunks (d % 8 == 0 in
+bfloat16, d % 4 == 0 in float32: d = 24, 48, 80, 96, 112 run with no copy):
+their loads zero-fill the columns from d to the instantiation and their
+stores write only columns < d.  Other widths, and ``impl="simt"``, are
+padded by the wrapper with zero columns up to the next instantiation
+(``pad_head_dim``, counted in ``LAUNCHES_PAD``) and the results cut back.
+Both are exact: zero columns add nothing to q.k, a zero v column only makes
+an o column that is not kept, and ``scale`` stays the caller's.  d > 128
+raises ValueError.
 
 Dropout (an ``AttentionDropout``; JAX drops the softmax weights with
 ``nn.Dropout`` on its XLA attention path): the kernels draw the keep bits
@@ -71,9 +78,9 @@ kernel launches without dropout, ``LAUNCHES_CAUSAL``, ``LAUNCHES_DQ_CAUSAL``
 and ``LAUNCHES_DKV_CAUSAL`` the causal ones; ``LAUNCHES_DROPOUT``,
 ``LAUNCHES_DQ_DROPOUT`` and ``LAUNCHES_DKV_DROPOUT`` the launches in the
 dropout mode, causal or not.  ``LAUNCHES_FWD_IMPL`` counts the
-forward's launches, causal or not, by implementation ("mma", "simt"), and
-``LAUNCHES_BWD_IMPL`` those of both backward kernels ("mma", "simt",
-"tf32x3").
+forward's launches, causal or not, and ``LAUNCHES_BWD_IMPL`` those of both
+backward kernels, by implementation ("mma", "simt", "tf32x3").
+``LAUNCHES_PAD`` counts the tensors ``pad_head_dim`` copied.
 """
 from __future__ import annotations
 
@@ -96,11 +103,11 @@ LAUNCHES_DKV_CAUSAL = 0
 LAUNCHES_DROPOUT = 0
 LAUNCHES_DQ_DROPOUT = 0
 LAUNCHES_DKV_DROPOUT = 0
-LAUNCHES_FWD_IMPL = {"mma": 0, "simt": 0}
+LAUNCHES_FWD_IMPL = {"mma": 0, "simt": 0, "tf32x3": 0}
 LAUNCHES_BWD_IMPL = {"mma": 0, "simt": 0, "tf32x3": 0}
+LAUNCHES_PAD = 0
 
 IMPLS = ("simt", "mma", "tf32x3")  # the index is the `impl` argument of the C entry points
-FWD_IMPLS = ("simt", "mma")  # the forward has no 3xTF32 implementation
 
 
 def segment_ids(image_ids: torch.Tensor, key_pad_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -120,9 +127,25 @@ def kernel_head_dim(d: int) -> int:
     raise ValueError(f"attention kernel supports head dims 1 to {HEAD_DIMS[-1]}, got head dim {d}")
 
 
+def row_width(d: int, dtype: torch.dtype, impl: str) -> int:
+    """The width of the rows that kernel `impl` reads and writes for head dim d:
+    d itself where the kernel takes rows of d in place (the tensor-core
+    kernels, "mma" and "tf32x3", on rows of whole 16-byte chunks), else
+    ``kernel_head_dim(d)``, to which the wrapper pads.  ValueError past the
+    largest instantiation."""
+    dim = kernel_head_dim(d)
+    in_place = impl != "simt" and (d * torch.finfo(dtype).bits // 8) % 16 == 0
+    return d if in_place else dim
+
+
 def pad_head_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """t with zero columns appended to its last axis up to `dim` (t itself at `dim`)."""
-    return t if t.shape[-1] == dim else F.pad(t, (0, dim - t.shape[-1]))
+    """t with zero columns appended to its last axis up to `dim` (t itself at
+    `dim`); each copy counts one in ``LAUNCHES_PAD``."""
+    global LAUNCHES_PAD
+    if t.shape[-1] == dim:
+        return t
+    LAUNCHES_PAD += 1
+    return F.pad(t, (0, dim - t.shape[-1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,16 +312,12 @@ def attention_fwd_plain(
 
 def _kernel_impl(impl: Optional[str], dtype: torch.dtype, kernel: str = "fwd") -> str:
     """The implementation a launch of attention kernel `kernel` ("fwd", "dq"
-    or "dkv") takes: for bfloat16 the tensor cores ("mma") unless "simt" is
-    asked for; for float32 the CUDA-core forward ("simt") and the 3xTF32
-    tensor-core backward ("tf32x3") unless "simt" is asked for."""
-    known = FWD_IMPLS if kernel == "fwd" else IMPLS
+    or "dkv") takes: the tensor cores of its dtype, "mma" for bfloat16 and
+    "tf32x3" for float32, unless "simt" (the CUDA cores) is asked for."""
     if impl is None:
-        if dtype == torch.bfloat16:
-            return "mma"
-        return "simt" if kernel == "fwd" else "tf32x3"
-    if impl not in known:
-        raise ValueError(f"unknown attention {kernel} kernel impl {impl!r}: one of {known}")
+        return "mma" if dtype == torch.bfloat16 else "tf32x3"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention {kernel} kernel impl {impl!r}: one of {IMPLS}")
     if impl == "mma" and dtype != torch.bfloat16:
         raise TypeError(f"the bf16 tensor-core attention kernels take bfloat16, got {dtype}")
     if impl == "tf32x3" and dtype != torch.float32:
@@ -307,9 +326,29 @@ def _kernel_impl(impl: Optional[str], dtype: torch.dtype, kernel: str = "fwd") -
 
 
 def _check_mma_alignment(tensors: Dict[str, torch.Tensor]) -> None:
+    """Raise ValueError, naming the tensor, unless every row of each tensor
+    starts on a 16-byte boundary, as the tensor-core kernels' 16-byte copies
+    need: its base address, and its row stride (contiguous rows: the row
+    width times the element size), multiples of 16 bytes."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start at a 16-byte boundary for the tensor-core kernels")
+        if t.stride(-1) != 1 or (t.stride(-2) * t.element_size()) % 16:
+            raise ValueError(
+                f"{name}'s rows must lie a multiple of 16 bytes apart for the tensor-core kernels, "
+                f"got a row stride of {t.stride(-2) * t.element_size()} bytes"
+            )
+
+
+def _fwd_entry(impl: str, info: bool = False):
+    """The C entry point of the forward in implementation `impl` (its
+    kernel-info function with `info`): csrc/attention_fwd_tf32x3.cu for
+    "tf32x3", csrc/attention_fwd.cu for the others."""
+    from . import _build
+
+    tag = "_tf32x3" if impl == "tf32x3" else ""
+    lib = _build.load(f"attention_fwd{tag}")
+    return getattr(lib, f"attn_fwd{tag}_kernel_info" if info else f"attn_fwd{tag}")
 
 
 def _bwd_entry(kernel: str, impl: str, info: bool = False):
@@ -345,12 +384,14 @@ def attention_fwd_cuda(
     q, k, v, q_ids, kv_ids, scale: float, mode: str = "block", causal: bool = False, skip_tiles: bool = True,
     impl: Optional[str] = None, dropout: Optional[AttentionDropout] = None,
 ):
-    """Launch csrc/attention_fwd.cu: returns (o, lse).
+    """Launch csrc/attention_fwd.cu (csrc/attention_fwd_tf32x3.cu for
+    "tf32x3"): returns (o, lse).
 
-    ``impl``: None takes the tensor-core kernel for bfloat16 and the
-    CUDA-core kernel for float32; "simt" asks for the CUDA-core kernel on
-    bfloat16 too; "mma" with float32 raises TypeError.  A head dim that is
-    not an instantiation is padded with zero columns and o cut back.
+    ``impl``: None takes the tensor-core kernel of the dtype ("mma" for
+    bfloat16, "tf32x3" for float32); "simt" asks for the CUDA-core kernel;
+    "mma" with float32 or "tf32x3" with bfloat16 raises TypeError.  Head
+    dims as ``row_width`` says: in place, or padded with zero columns and o
+    cut back.
     """
     global LAUNCHES, LAUNCHES_CAUSAL, LAUNCHES_DROPOUT
     from . import _build
@@ -358,18 +399,18 @@ def attention_fwd_cuda(
     impl = _kernel_impl(impl, q.dtype)
     _check_kernel_inputs(q, {"k": k, "v": v}, q_ids, kv_ids, mode, dropout=dropout)
     b, h, s, d = q.shape
-    dim = kernel_head_dim(d)
-    q, k, v = (pad_head_dim(t, dim) for t in (q, k, v))
+    width = row_width(d, q.dtype, impl)
+    q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if impl == "mma":
+    if impl != "simt":
         _check_mma_alignment({"q": q, "k": k, "v": v, "o": o})
-    fn = _build.load("attention_fwd").attn_fwd
+    fn = _fwd_entry(impl)
     fn.restype = ctypes.c_int
     fn.argtypes = _FWD_ARGTYPES
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ids.data_ptr(), kv_ids.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, s, dim, float(scale),
+        o.data_ptr(), lse.data_ptr(), b, h, s, width, float(scale),
         int(mode == "bias"), int(causal), int(skip_tiles), int(q.dtype == torch.bfloat16), IMPLS.index(impl),
         *_drop_args(dropout), _build.stream_ptr(q.device),
     )
@@ -381,7 +422,7 @@ def attention_fwd_cuda(
     else:
         LAUNCHES += 1
     LAUNCHES_FWD_IMPL[impl] += 1
-    return (o if dim == d else o[..., :d].contiguous()), lse
+    return (o if width == d else o[..., :d].contiguous()), lse
 
 
 def attention_fwd(
@@ -446,7 +487,7 @@ def attention_dq_cuda(
     prologue; ``attention_dkv_cuda`` takes it.  ``impl``: None takes the
     tensor-core kernel of the dtype ("mma" for bfloat16, "tf32x3" for
     float32); "simt" asks for the CUDA-core kernel; "mma" with float32 or
-    "tf32x3" with bfloat16 raises TypeError.  Head dims are padded as in
+    "tf32x3" with bfloat16 raises TypeError.  Head dims as in
     ``attention_fwd_cuda``.
     """
     global LAUNCHES_DQ, LAUNCHES_DQ_CAUSAL, LAUNCHES_DQ_DROPOUT
@@ -456,9 +497,9 @@ def attention_dq_cuda(
     like_q = {"k": k, "v": v, "o": o, "do": do}
     _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode, {"lse": lse}, dropout)
     b, h, s, d = q.shape
-    dim = kernel_head_dim(d)
-    q = pad_head_dim(q, dim)
-    like_q = {name: pad_head_dim(t, dim) for name, t in like_q.items()}
+    width = row_width(d, q.dtype, impl)
+    q = pad_head_dim(q, width)
+    like_q = {name: pad_head_dim(t, width) for name, t in like_q.items()}
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if impl != "simt":
@@ -470,7 +511,7 @@ def attention_dq_cuda(
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-        b, h, s, dim, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
+        b, h, s, width, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
         int(q.dtype == torch.bfloat16), IMPLS.index(impl), *_drop_args(dropout), _build.stream_ptr(q.device),
     )
     _build.check(err, f"attention_bwd dq ({impl})")
@@ -481,7 +522,7 @@ def attention_dq_cuda(
     else:
         LAUNCHES_DQ += 1
     LAUNCHES_BWD_IMPL[impl] += 1
-    return (dq if dim == d else dq[..., :d].contiguous()), delta
+    return (dq if width == d else dq[..., :d].contiguous()), delta
 
 
 def attention_dkv_cuda(
@@ -497,9 +538,9 @@ def attention_dkv_cuda(
     like_q = {"k": k, "v": v, "do": do}
     _check_kernel_inputs(q, like_q, q_ids, kv_ids, mode, {"lse": lse, "delta": delta}, dropout)
     b, h, s, d = q.shape
-    dim = kernel_head_dim(d)
-    q = pad_head_dim(q, dim)
-    like_q = {name: pad_head_dim(t, dim) for name, t in like_q.items()}
+    width = row_width(d, q.dtype, impl)
+    q = pad_head_dim(q, width)
+    like_q = {name: pad_head_dim(t, width) for name, t in like_q.items()}
     k, v, do = like_q["k"], like_q["v"], like_q["do"]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if impl != "simt":
@@ -510,7 +551,7 @@ def attention_dkv_cuda(
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         q_ids.data_ptr(), kv_ids.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, s, dim, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
+        b, h, s, width, float(scale), int(mode == "bias"), int(causal), int(skip_tiles),
         int(q.dtype == torch.bfloat16), IMPLS.index(impl), *_drop_args(dropout), _build.stream_ptr(q.device),
     )
     _build.check(err, f"attention_bwd dkv ({impl})")
@@ -521,7 +562,7 @@ def attention_dkv_cuda(
     else:
         LAUNCHES_DKV += 1
     LAUNCHES_BWD_IMPL[impl] += 1
-    if dim != d:
+    if width != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
@@ -542,7 +583,7 @@ def attention_kernel_info(
     impl = _kernel_impl(impl, dtype, kernel)
     out = (ctypes.c_int * 4)()
     dim = kernel_head_dim(d)
-    fn = _build.load("attention_fwd").attn_fwd_kernel_info if kernel == "fwd" else _bwd_entry(kernel, impl, info=True)
+    fn = _fwd_entry(impl, info=True) if kernel == "fwd" else _bwd_entry(kernel, impl, info=True)
     args = (IMPLS.index(impl), int(dtype == torch.bfloat16), dim, int(dropout))
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]

@@ -180,7 +180,7 @@ def test_bad_impl_raises_before_anything_is_built(monkeypatch, kernel, dtype, im
 
 def test_default_impl_follows_the_dtype():
     assert tatt._kernel_impl(None, torch.bfloat16) == "mma"
-    assert tatt._kernel_impl(None, torch.float32) == "simt"
+    assert tatt._kernel_impl(None, torch.float32) == "tf32x3"  # float32's tensor-core kernels, in 3xTF32
     assert tatt._kernel_impl("simt", torch.bfloat16) == "simt"
     assert tatt._kernel_impl("simt", torch.float32) == "simt"
     assert tatt._kernel_impl("mma", torch.bfloat16) == "mma"

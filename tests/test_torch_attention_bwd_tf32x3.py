@@ -22,8 +22,8 @@ products up to 3.5 x); one TF32 product (hi*hi alone) misses 1e-5, so the
 limit tells 3xTF32 from TF32.  The emulation is test code, not a path of
 the package: on the CPU the port runs ``attention_bwd_plain``.
 
-Also here: which implementation a float32 launch takes by default (the
-backward's is tf32x3, the forward's simt), and that a float32 backward
+Also here: which implementation a float32 launch takes by default (tf32x3,
+the backward's and, since its own kernel, the forward's), and that a float32 backward
 whose library does not build raises instead of falling back to simt.
 """
 import functools
@@ -159,11 +159,13 @@ def test_float32_takes_tf32x3_backward_and_simt_forward():
         assert tatt._kernel_impl("simt", torch.float32, kernel) == "simt"
         with pytest.raises(TypeError, match="float32"):
             tatt._kernel_impl("tf32x3", torch.bfloat16, kernel)
-    assert tatt._kernel_impl(None, torch.float32, "fwd") == tatt._kernel_impl(None, torch.float32) == "simt"
+    # the forward has its own 3xTF32 kernel now (tests/test_torch_attention_fwd_tf32x3.py)
+    assert tatt._kernel_impl(None, torch.float32, "fwd") == tatt._kernel_impl(None, torch.float32) == "tf32x3"
+    assert tatt._kernel_impl("simt", torch.float32, "fwd") == "simt"
     with pytest.raises(ValueError, match="impl"):
-        tatt._kernel_impl("tf32x3", torch.float32, "fwd")
+        tatt._kernel_impl("wgmma", torch.float32, "fwd")
     assert tatt.IMPLS.index("tf32x3") == 2  # the C entry points' number
-    assert set(tatt.LAUNCHES_BWD_IMPL) == set(tatt.IMPLS) and set(tatt.LAUNCHES_FWD_IMPL) == set(tatt.FWD_IMPLS)
+    assert set(tatt.LAUNCHES_BWD_IMPL) == set(tatt.IMPLS) and set(tatt.LAUNCHES_FWD_IMPL) == set(tatt.IMPLS)
 
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])

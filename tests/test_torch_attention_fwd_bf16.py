@@ -108,7 +108,7 @@ def test_bad_forward_impl_raises_before_anything_is_built(monkeypatch, dtype, im
     tk.reset_launch_counts()
     with pytest.raises(error, match="impl|bfloat16"):
         _forward_call(dtype, impl)
-    assert tk.fwd_impl_launch_counts() == {"mma": 0, "simt": 0}
+    assert tk.fwd_impl_launch_counts() == {"mma": 0, "simt": 0, "tf32x3": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -119,7 +119,7 @@ def test_cpu_forward_launches_nothing(dtype):
     tq, tk_, tv = (t.to(dtype) for t in _t(q, k, v))
     o = tatt.packed_flash_attention(tq, tk_, tv, *_t(ids, pad), 32**-0.5)
     assert o.dtype == dtype
-    assert tk.fwd_impl_launch_counts() == {"mma": 0, "simt": 0}
+    assert tk.fwd_impl_launch_counts() == {"mma": 0, "simt": 0, "tf32x3": 0}
     assert set(tk.launch_counts().values()) == {0}
 
 

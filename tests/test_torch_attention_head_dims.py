@@ -1,8 +1,11 @@
 """Every head dim 1 <= d <= 128 in the port's attention, on the CPU.
 
-The kernels are compiled for d = 16, 32, 64 and 128; the ``*_cuda``
-wrappers pad q, k, v (and o, do) with zero columns up to the next of them
-and cut the results back.  Here the padding is held to the unpadded plain
+The kernels are compiled for d = 16, 32, 64 and 128.  The tensor-core
+kernels read rows of d in place where a row is whole 16-byte chunks (their
+loads zero-fill the rest; tests/test_torch_attention_fwd_tf32x3.py holds the
+rule, the card tests the bits); elsewhere the ``*_cuda`` wrappers pad q, k,
+v (and o, do) with zero columns up to the next instantiation and cut the
+results back.  Both compute what padding computes.  Here the padding is held to the unpadded plain
 version (it is exact: zero columns add nothing to q.k and a padded v column
 only makes an o column that is cut off), and the plain version, which the
 CPU runs, to the JAX package's Pallas attention in interpret mode at head

@@ -62,7 +62,7 @@ def test_kernel_table_names_every_counter_and_source():
     # the backward kernels, whose launches are also counted by implementation
     assert set(chip_smoke.BWD_KERNELS) == {c for c in counters if "_dq" in c or "_dkv" in c}
     assert all(rows[c][2].endswith("attention_bwd.cu") for c in chip_smoke.BWD_KERNELS)
-    assert set(tk.fwd_impl_launch_counts()) == {"mma", "simt"}
+    assert set(tk.fwd_impl_launch_counts()) == {"mma", "simt", "tf32x3"}
     assert set(tk.bwd_impl_launch_counts()) == {"mma", "simt", "tf32x3"}
     # the forward kernels, counted by implementation too
     assert set(chip_smoke.FWD_KERNELS) == {c for c in counters if c.startswith("attention")} - set(chip_smoke.BWD_KERNELS)
@@ -168,29 +168,35 @@ AR_EXAMPLE = chip_smoke.PATH_IMPLS["ar_example"]
     "launches,impls,ok",
     [
         # serving: 40 forward launches on the tensor cores, no backward
-        (_fake_path(40, fwd_impl={"mma": 40, "simt": 0}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, True),
-        (_fake_path(40, fwd_impl={"mma": 39, "simt": 1}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, False),
+        (_fake_path(40, fwd_impl={"mma": 40, "simt": 0, "tf32x3": 0}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, True),
+        (_fake_path(40, fwd_impl={"mma": 39, "simt": 1, "tf32x3": 0}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, False),
         # a train step: 16 + 16 + 16
-        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0}, bwd_impl={"mma": 32, "simt": 0, "tf32x3": 0}), BF16, True),
-        (_fake_path(16, bwd=16, fwd_impl={"mma": 0, "simt": 16}, bwd_impl={"mma": 32, "simt": 0, "tf32x3": 0}), BF16, False),
-        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0}, bwd_impl={"mma": 16, "simt": 16, "tf32x3": 0}), BF16, False),
-        # the AR train step: causal only
-        (_fake_path(causal=8, bwd_causal=8, fwd_impl={"mma": 8, "simt": 0}, bwd_impl={"mma": 16, "simt": 0, "tf32x3": 0}),
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0, "tf32x3": 0}, bwd_impl={"mma": 32, "simt": 0, "tf32x3": 0}),
          BF16, True),
-        # the AR example: a bf16 tokenizer and an fp32 AR model (simt forward, tf32x3 backward)
-        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 24, "simt": 800},
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 0, "simt": 16, "tf32x3": 0}, bwd_impl={"mma": 32, "simt": 0, "tf32x3": 0}),
+         BF16, False),
+        (_fake_path(16, bwd=16, fwd_impl={"mma": 16, "simt": 0, "tf32x3": 0}, bwd_impl={"mma": 16, "simt": 16, "tf32x3": 0}),
+         BF16, False),
+        # the AR train step: causal only
+        (_fake_path(causal=8, bwd_causal=8, fwd_impl={"mma": 8, "simt": 0, "tf32x3": 0},
+                    bwd_impl={"mma": 16, "simt": 0, "tf32x3": 0}), BF16, True),
+        # the AR example: a bf16 tokenizer and an fp32 AR model (3xTF32 forward and backward)
+        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 24, "simt": 0, "tf32x3": 800},
                     bwd_impl={"mma": 0, "simt": 0, "tf32x3": 1600}), AR_EXAMPLE, True),
-        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 824, "simt": 0},
+        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 824, "simt": 0, "tf32x3": 0},
                     bwd_impl={"mma": 0, "simt": 0, "tf32x3": 1600}), AR_EXAMPLE, False),
         # the fp32 backward on the CUDA-core kernels where 3xTF32 is due
-        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 24, "simt": 800},
+        (_fake_path(24, causal=800, bwd_causal=800, fwd_impl={"mma": 24, "simt": 0, "tf32x3": 800},
                     bwd_impl={"mma": 0, "simt": 1600, "tf32x3": 0}), AR_EXAMPLE, False),
-        # the sweep (fp32): forward simt, backward tf32x3; one simt backward launch fails it
-        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 480}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 960}), FP32, True),
-        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 480}, bwd_impl={"mma": 0, "simt": 1, "tf32x3": 959}), FP32, False),
-        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 480}, bwd_impl={"mma": 0, "simt": 960, "tf32x3": 0}), FP32, False),
+        # the sweep (fp32): forward and backward tf32x3; one simt launch of either fails it
+        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 0, "tf32x3": 480},
+                    bwd_impl={"mma": 0, "simt": 0, "tf32x3": 960}), FP32, True),
+        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 0, "tf32x3": 480},
+                    bwd_impl={"mma": 0, "simt": 1, "tf32x3": 959}), FP32, False),
+        (_fake_path(480, bwd=480, fwd_impl={"mma": 0, "simt": 1, "tf32x3": 479},
+                    bwd_impl={"mma": 0, "simt": 0, "tf32x3": 960}), FP32, False),
         # no forward launch at all
-        (_fake_path(fwd_impl={"mma": 0, "simt": 0}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, False),
+        (_fake_path(fwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}, bwd_impl={"mma": 0, "simt": 0, "tf32x3": 0}), BF16, False),
     ],
 )
 def test_check_impl_launches_holds_every_path_to_its_implementations(launches, impls, ok):
@@ -610,16 +616,18 @@ def test_hold_bwd_to_f64_reads_the_ratio_and_the_floor():
 
 def test_fp32_figures_pick_each_kernel_s_numbers():
     row = {"shape": [4, 8, 3072, 32], "causal": False, "allowed_pairs_share": 1.0,
-           "ms": {"fwd": {"simt": 3.0}, "dq": {"simt": 4.0, "tf32x3": 1.4}, "dkv": {"simt": 5.4, "tf32x3": 1.7}},
-           "max_abs_err": {"fwd": 1e-7, "simt_dq": 2e-7, "simt_dk": 3e-7, "simt_dv": 4e-7, "tf32x3_dq": 5e-7,
-                           "tf32x3_dk": 6e-7, "tf32x3_dv": 7e-7},
+           "ms": {"fwd": {"simt": 3.0, "tf32x3": 1.0}, "dq": {"simt": 4.0, "tf32x3": 1.4},
+                  "dkv": {"simt": 5.4, "tf32x3": 1.7}},
+           "max_abs_err": {"simt_fwd": 1e-7, "tf32x3_fwd": 1.5e-7, "simt_dq": 2e-7, "simt_dk": 3e-7, "simt_dv": 4e-7,
+                           "tf32x3_dq": 5e-7, "tf32x3_dk": 6e-7, "tf32x3_dv": 7e-7},
            "bound_tf32x3": {"fwd": (0.23, "operations"), "dq": (0.35, "operations"), "dkv": (0.47, "operations")},
            "bound_fp32_cuda_cores": {"fwd": (0.58, "operations"), "dq": (0.87, "operations"), "dkv": (1.15, "operations")},
            "library_fwd_ms": 2.4, "library_bwd_ms": 5.1, "library_fwd_backend": "unpinned (EFFICIENT_ATTENTION)",
            "library_bwd_backend": "EFFICIENT_ATTENTION",
            "plain_fwd_ms": 7.0, "plain_bwd_ms": 11.0}
     fwd, dq, dkv = (chip_smoke.fp32_figures([row], k)[0] for k in ("fwd", "dq", "dkv"))
-    assert fwd["ms"] == {"simt": 3.0} and fwd["library_ms"] == 2.4 and fwd["plain_ms"] == 7.0 and fwd["max_abs_err"] == {"fwd": 1e-7}
+    assert fwd["ms"] == {"simt": 3.0, "tf32x3": 1.0} and fwd["library_ms"] == 2.4 and fwd["plain_ms"] == 7.0
+    assert fwd["max_abs_err"] == {"simt_fwd": 1e-7, "tf32x3_fwd": 1.5e-7}
     assert dq["ms"]["tf32x3"] == 1.4 and dq["bound_ms"] == 0.35 and dq["bound_fp32_cuda_cores_ms"] == 0.87
     assert set(dq["max_abs_err"]) == {"simt_dq", "tf32x3_dq"} and dq["library_ms"] == 5.1
     assert fwd["library_backend"] == "unpinned (EFFICIENT_ATTENTION)" and dq["library_backend"] == "EFFICIENT_ATTENTION"

@@ -21,11 +21,14 @@ are also held against the CUDA-core kernels (`impl="simt"`, p and ds in
 fp32), to the larger of 3e-2 and one bf16 ulp of the largest gradient (two
 results rounded once each can land one ulp apart, which from |g| = 4 on is
 3.1e-2), and two launches on the same inputs to the same bits.  In fp32
-the backward kernels multiply on the tensor cores in 3xTF32 (impl tf32x3);
-they are held to 1e-5 of the largest value against the plain version and
-against the CUDA-core kernels (impl simt), and against float64 to at most
-8 x the fp32 plain version's error (tests/test_torch_attention_bwd_tf32x3.py
-argues the limit on the CPU).  DCT and
+the forward and the backward kernels multiply on the tensor cores in 3xTF32
+(impl tf32x3); they are held to 1e-5 of the largest value against the plain
+version and against the CUDA-core kernels (impl simt), and against float64
+to at most 8 x the fp32 plain version's error
+(tests/test_torch_attention_fwd_tf32x3.py and
+tests/test_torch_attention_bwd_tf32x3.py argue the limit on the CPU).  The
+tensor-core kernels read head dims between the instantiations in place;
+they are held to the wrappers' padded run bit for bit.  DCT and
 IDCT (products on the tensor cores in 3xTF32) max|diff| <= 1e-5 x
 max|value| against the fp32 plain version; against the float64 plain
 version, each kernel's largest error at most 8 x the fp32 plain
@@ -385,7 +388,7 @@ def test_backward_impl_argument_on_cuda(cuda):
     tk.reset_launch_counts()
     tatt.attention_bwd(q, k, v, q_ids, kv_ids, o, lse, q, 1.0)
     assert tk.bwd_impl_launch_counts() == {"mma": 0, "simt": 0, "tf32x3": 2}
-    assert tk.fwd_impl_launch_counts() == {"mma": 0, "simt": 0}
+    assert tk.fwd_impl_launch_counts() == {"mma": 0, "simt": 0, "tf32x3": 0}
     tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, q, 1.0, impl="simt")
     assert tk.bwd_impl_launch_counts() == {"mma": 0, "simt": 1, "tf32x3": 2}
     with pytest.raises(TypeError):
@@ -468,7 +471,7 @@ def test_tensor_core_forward_kernel(cuda, b, h, s, d, mode, causal):
     tk.reset_launch_counts()
     o, lse = run()
     torch.cuda.synchronize()
-    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 0}
+    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 0, "tf32x3": 0}
     o_ref, lse_ref = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, causal)
     assert torch.isfinite(o).all()
     torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=0)
@@ -476,7 +479,7 @@ def test_tensor_core_forward_kernel(cuda, b, h, s, d, mode, causal):
     if mode == "block" and pad.any():
         assert (o.transpose(1, 2)[pad] == 0).all()
     o_simt, lse_simt = run(impl="simt")
-    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 1}
+    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 1, "tf32x3": 0}
     atol = max(2e-2, _bf16_ulp(o_simt.float().abs().max().item()))
     torch.testing.assert_close(o.float(), o_simt.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, lse_simt, atol=1e-4, rtol=1e-6)
@@ -484,14 +487,16 @@ def test_tensor_core_forward_kernel(cuda, b, h, s, d, mode, causal):
     assert all(torch.equal(x, y) for x, y in zip((o, lse), run(skip_tiles=False)))
 
 
-@pytest.mark.parametrize("impl", ["mma", "simt"])
+@pytest.mark.parametrize("impl", ["mma", "simt", "tf32x3"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_forward_fully_masked_rows(cuda, impl, causal):
     """'block' mode: padded queries, and a query whose image has no key
     (its keys are padding), give o = 0 and lse = -5e8 + log(1e-9), as the
-    reference's clamps give; the other rows are untouched."""
+    reference's clamps give; the other rows are untouched (bf16, and fp32
+    for tf32x3)."""
     b, h, s, d = 2, 4, 150, 64
-    q, k, v, ids, _ = _attn_inputs(b, h, s, d, torch.bfloat16, cuda, seed=9)
+    dtype = torch.float32 if impl == "tf32x3" else torch.bfloat16
+    q, k, v, ids, _ = _attn_inputs(b, h, s, d, dtype, cuda, seed=9)
     pad = torch.zeros(b, s, dtype=torch.bool, device=cuda)
     pad[:, 120:] = True
     q_ids, kv_ids = tatt.segment_ids(ids, pad)
@@ -505,31 +510,108 @@ def test_forward_fully_masked_rows(cuda, impl, causal):
     assert (o.transpose(1, 2)[masked] == 0).all()
     assert (lse.transpose(1, 2)[masked] == floor).all()
     o_ref, lse_ref = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, d**-0.5, "block", causal)
-    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2 if dtype == torch.bfloat16 else 1e-5, rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
 
 
 def test_forward_impl_argument_and_kernel_info_on_cuda(cuda):
-    """fp32 takes the CUDA-core forward whatever is left out, bf16 the tensor
-    cores; mma with fp32 raises.  The tensor-core forward's registers and
-    blocks per SM (on an NVIDIA H100 80GB HBM3: 168 registers at d = 64 and
-    125 at d = 32, no spill, 3 and 4 blocks an SM)."""
+    """fp32 takes the 3xTF32 forward (tf32x3) whatever is left out, bf16 the
+    tensor cores (mma); mma with fp32 and tf32x3 with bf16 raise.  The
+    tensor-core forward's registers and blocks per SM (on an NVIDIA H100 80GB
+    HBM3: 160-168 registers at d = 64 and 121-125 at d = 32, no spill, 3 and 4
+    blocks an SM); the tf32x3 forward's at every instantiation."""
     q, k, v, ids, pad = _attn_inputs(1, 2, 64, 32, torch.float32, cuda)
     q_ids, kv_ids = tatt.segment_ids(ids, pad)
     tk.reset_launch_counts()
     tatt.attention_fwd(q, k, v, q_ids, kv_ids, 1.0)
     tatt.attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), q_ids, kv_ids, 1.0, causal=True)
-    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 1}
+    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 0, "tf32x3": 1}
     assert tk.launch_counts()["attention"] == 1 and tk.launch_counts()["attention_causal"] == 1
     with pytest.raises(TypeError):
         tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, 1.0, impl="mma")
-    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 1}
+    with pytest.raises(TypeError):
+        tatt.attention_fwd_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16(), q_ids, kv_ids, 1.0, impl="tf32x3")
+    tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, 1.0, impl="simt")
+    assert tk.fwd_impl_launch_counts() == {"mma": 1, "simt": 1, "tf32x3": 1}
     for d in (32, 64):
         mma = tatt.attention_kernel_info("fwd", "mma", torch.bfloat16, d)
         simt = tatt.attention_kernel_info("fwd", "simt", torch.bfloat16, d)
         assert 0 < mma["num_regs"] <= 168 and mma["blocks_per_sm"] >= 3 and mma["local_size_bytes"] == 0
         assert mma["blocks_per_sm"] > simt["blocks_per_sm"]
     assert tatt.attention_kernel_info("fwd", "simt", torch.float32, 64)["num_regs"] > 0
+    for d in tatt.HEAD_DIMS:
+        info = tatt.attention_kernel_info("fwd", "tf32x3", torch.float32, d)
+        assert info["num_regs"] > 0 and info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("s", [1, 64, 173, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mode", ["block", "bias"])
+@pytest.mark.parametrize("d", [16, 24, 32, 48, 64, 80, 128])
+def test_tf32x3_forward_kernel(cuda, d, mode, causal, s):
+    """The fp32 forward (impl tf32x3) against the plain version (o and lse
+    within 1e-5 of the largest value), against impl simt (the same), and
+    against float64 (at most 8 x the fp32 plain version's error, or 1e-6 of
+    the largest value); deterministic; tile skipping changes no bit; padded
+    queries 0 in 'block' mode; counted under tf32x3, with no pad copy."""
+    b, h = 2, 3
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, torch.float32, cuda, seed=s + d)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    scale = d**-0.5
+    run = lambda **kw: tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, **kw)
+    tk.reset_launch_counts()
+    o, lse = run()
+    torch.cuda.synchronize()
+    assert tk.fwd_impl_launch_counts() == {"mma": 0, "simt": 0, "tf32x3": 1} and tk.pad_copy_count() == 0
+    o_ref, lse_ref = tatt.attention_fwd_plain(q, k, v, q_ids, kv_ids, scale, mode, causal)
+    o64, _ = chip_smoke.attention_fwd_f64(q, k, v, q_ids, kv_ids, scale, mode, causal)
+    o_simt, lse_simt = run(impl="simt")
+    tol = 1e-5 * max(1.0, o_ref.abs().max().item())
+    valid = lse_ref > -1e8  # rows that attend to something; a fully masked one's lse is -5e8 on every side
+    lse_tol = 1e-5 * max(1.0, lse_ref[valid].abs().max().item() if valid.any() else 0.0)
+    assert torch.isfinite(o).all()
+    assert (o - o_ref).abs().max().item() <= tol and (o - o_simt).abs().max().item() <= tol
+    assert (lse - lse_ref).abs().max().item() <= lse_tol and (lse - lse_simt).abs().max().item() <= lse_tol
+    e64, p64 = (o.double() - o64).abs().max().item(), (o_ref.double() - o64).abs().max().item()
+    assert e64 <= max(8.0 * p64, 1e-6 * o64.abs().max().item()), (e64, p64)
+    if mode == "block" and pad.any():
+        assert (o.transpose(1, 2)[pad] == 0).all()
+    assert all(torch.equal(x, y) for x, y in zip((o, lse), run()))
+    assert all(torch.equal(x, y) for x, y in zip((o, lse), run(skip_tiles=False)))
+
+
+@pytest.mark.parametrize("d", [24, 48, 80])
+@pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "mma"), (torch.float32, "tf32x3")])
+def test_in_place_head_dims_equal_the_padded_run(cuda, dtype, impl, d):
+    """The tensor-core kernels read and write rows of d in place (no pad copy)
+    and give the bits of the same kernels on rows padded with zero columns to
+    the next instantiation and cut back, in the three kernels, causal or not,
+    with dropout or not."""
+    b, h, s = 2, 3, 173
+    dim = tatt.kernel_head_dim(d)
+    q, k, v, ids, pad = _attn_inputs(b, h, s, d, dtype, cuda, seed=d)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(dtype).to(cuda)
+    q_ids, kv_ids = tatt.segment_ids(ids, pad)
+    seed = torch.tensor([99], dtype=torch.int64, device=cuda)
+    for mode, causal, rate in (("block", False, 0.0), ("bias", True, 0.0), ("block", True, 0.2)):
+        drop = tatt.AttentionDropout(rate, seed) if rate else None
+        kw = dict(impl=impl, dropout=drop)
+
+        def kernels(q, k, v, do):
+            o, lse = tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, d**-0.5, mode, causal, **kw)
+            dq, delta = tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, d**-0.5, mode, causal, **kw)
+            return (o, lse, dq, delta, *tatt.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, d**-0.5, mode,
+                                                                causal, **kw))
+
+        tk.reset_launch_counts()
+        got = kernels(q, k, v, do)
+        torch.cuda.synchronize()
+        assert tk.pad_copy_count() == 0
+        padded = kernels(*(tatt.pad_head_dim(t, dim) for t in (q, k, v, do)))
+        assert tk.pad_copy_count() == 4  # the four padded by hand; the kernels took them as they came
+        want = [w[..., :d] if w.dim() == 4 else w for w in padded]
+        assert all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+        assert not any(w[..., d:].any() for w in padded if w.dim() == 4)
 
 
 def _tol(dtype, limit, ref):
@@ -546,7 +628,7 @@ def _kernels_against_plain(q, k, v, ids, pad, mode, causal, impl=None, dropout=N
     scale = d**-0.5
     q_ids, kv_ids = tatt.segment_ids(ids, pad)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(q.dtype).to(q.device)
-    o, lse = tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=chip_smoke._fwd_impl(impl), dropout=dropout)
+    o, lse = tatt.attention_fwd_cuda(q, k, v, q_ids, kv_ids, scale, mode, causal, impl=impl, dropout=dropout)
     dq, delta = tatt.attention_dq_cuda(q, k, v, q_ids, kv_ids, o, lse, do, scale, mode, causal, impl=impl, dropout=dropout)
     dk, dv = tatt.attention_dkv_cuda(q, k, v, q_ids, kv_ids, lse, delta, do, scale, mode, causal, impl=impl, dropout=dropout)
     torch.cuda.synchronize()
@@ -588,13 +670,13 @@ def test_attention_dropout_kernels_match_plain(cuda, rate, dtype, impl):
     for mode, causal in (("block", False), ("bias", False), ("block", True)):
         q, k, v, ids, pad = _attn_inputs(2, 4, 200, 64, dtype, cuda, seed=7)
         o, *_ = _kernels_against_plain(q, k, v, ids, pad, mode, causal, impl, drop)
-        o0, _ = tatt.attention_fwd_cuda(q, k, v, *tatt.segment_ids(ids, pad), 0.125, mode, causal, impl=chip_smoke._fwd_impl(impl))
+        o0, _ = tatt.attention_fwd_cuda(q, k, v, *tatt.segment_ids(ids, pad), 0.125, mode, causal, impl=impl)
         assert not torch.equal(o, o0)
     counts = tk.launch_counts()
     assert counts["attention_dropout"] == counts["attention_dq_dropout"] == counts["attention_dkv_dropout"] == 3
 
 
-@pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
+@pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "mma"), (torch.float32, "simt"), (torch.float32, "tf32x3")])
 def test_attention_dropout_mask_equals_the_twin_bit_for_bit(cuda, dtype, impl):
     """With every p = 1/s (q = 0) and v = I, the forward's o is z / ((1 - rate) s):
     its nonzeros are the kernel's keep bits, which equal the plain twin's."""
