@@ -77,6 +77,18 @@ the paths themselves:
     random init, bf16, 16 x 256 synthetic patches, every variant;
   * the native packing library (ext/packing.cpp, built with g++) against
     the port's numpy packing, bit for bit, on 1,000 images' token counts;
+  * the CLIP warm start (tools/copy_clip_into.py): a random-init stand-in of
+    CLIP-L/14's vision tower at its published widths transplanted into
+    patch14-L, checked bit for bit, saved and loaded, then an encode +
+    decode of 16 448 x 448 images in bf16; without transformers, the tool's
+    main must refuse by name;
+  * the reference tools (tools/convert_reference_weights.py,
+    tools/parity_vs_reference.py): a stand-in of the reference model at
+    patch14-L's widths converted and run on the same 16 images in the
+    reference's 'bias' attention mode (its encode timed beside the warm
+    start's 'block' one), a stand-in holding r3b's trained weights
+    converted and held to the CPU fp32 run, and the harness's round trip
+    (the DCT and IDCT kernels) on the card against the CPU;
   * data, tensor and sequence parallelism at world 1: a process group of one
     over NCCL and a (1, 1) mesh, 8 patch14-L train steps (64 x 256, bf16)
     through the sharded step with ZeRO-1 and sequence parallelism beside 8
@@ -194,7 +206,13 @@ MAX_AR_LOSS0_FROM_LN_Z = 0.7
 MIN_VQ_CODE_AGREEMENT = 0.95
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets `t_s`, the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1419,11 +1437,16 @@ def fp32_figures(rows, kernel: str) -> list:
 
 def smooth_images(n, size, seed):
     """Seeded smooth random RGB fields in [0, 1]: a few low-frequency waves per channel."""
+    return smooth_fields([(size, size)] * n, seed)
+
+
+def smooth_fields(sizes, seed):
+    """smooth_images at the (h, w) of each of `sizes`."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size), indexing="ij")
     ims = []
-    for _ in range(n):
-        im = np.full((3, size, size), 0.5)
+    for h, w in sizes:
+        yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+        im = np.full((3, h, w), 0.5)
         for c in range(3):
             for _ in range(6):
                 fy, fx = rng.uniform(-4, 4, size=2)
@@ -2960,7 +2983,9 @@ def phase_sweep_small_448(shards, trials=5, max_iters=6, batch_size=4):
     torch.cuda.synchronize()
     K.reset_launch_counts()
     logs = []
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: the breakdown reads kernels only, and the host's
+    # events of 60 steps took over a minute to aggregate (PR 17's timed run)
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         results = sweep.run_onchip(shards, model_config_path=SMALL_448, trials=trials, max_iters=max_iters,
                                    batch_size=batch_size, score_last=2, calib_steps=1, out_file=out_file, log=logs.append)
         torch.cuda.synchronize()
@@ -2979,8 +3004,8 @@ def phase_sweep_small_448(shards, trials=5, max_iters=6, batch_size=4):
         "dtype": "float32", "records": [{k: r[k] for k in ("method", "trial", "rec_loss", "loss", "wall_s", "hp")} for r in recs],
         "s_per_trial": statistics.mean(r["wall_s"] for r in recs),
         "best": {m: results[m]["rec_loss"] for m in ("tpe", "random")}, "data_log": [x for x in logs if "sweep data" in x],
-        "launches": launches, "phase_s": time.perf_counter() - t_phase,
         "device_per_step": _device_by_kernel(prof, 2 * trials * max_iters),
+        "launches": launches, "phase_s": time.perf_counter() - t_phase,
     })
     return launches
 
@@ -3478,6 +3503,243 @@ def phase_native_packing(n_images=1000, beta=0.02, max_seq_len=256, reps=5):
                     "attn_mask_native": mask_native_ms, "attn_mask_numpy": mask_numpy_ms},
         "phase_s": time.perf_counter() - t_phase,
     })
+
+
+# ---------------------------------------------------------------- the CLIP warm start and the reference tools
+
+
+# openai/clip-vit-large-patch14's vision tower at its published widths
+CLIP_L_VISION = dict(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24, num_attention_heads=16,
+                     layer_norm_eps=1e-5, hidden_act="quick_gelu")
+# parity_vs_reference's round trip, card against CPU: the same PSNR to this
+MAX_PARITY_PSNR_DELTA_DB = 0.01
+
+
+def _pipeline_of(model, sample_patches_beta=0.02):
+    """A DCTPipeline around `model` with the processor that from_pretrained would give it."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch.models.factory import get_max_seq_length
+
+    cfg = model.config
+    proc = dt.DCTAutoencoderFeatureExtractor(
+        channels=cfg.image_channels, patch_size=cfg.patch_size, sample_patches_beta=sample_patches_beta,
+        max_patch_h=cfg.max_patch_h, max_patch_w=cfg.max_patch_w,
+        max_seq_len=get_max_seq_length(cfg, sample_patches_beta), device=model.device,
+    )
+    return dt.DCTPipeline(model, proc)
+
+
+def _roundtrip_launches(pipe, ims):
+    """(records, reconstructions, launches, wall ms) of one encode + decode of
+    `ims` on the card, with the token budget reseeded."""
+    from dct_autoencoder_torch import kernels as K
+
+    def run():
+        pipe.processor.rng = random.Random(0)
+        records = pipe.encode(ims)
+        return records, pipe.decode(records)
+
+    K.reset_launch_counts()
+    (records, recon), wall_s = _timed(run)
+    return records, recon, path_launches(), wall_s * 1e3
+
+
+def _check_roundtrip(what, launches, recon, ims, cfg, mode):
+    """encode's one forward (both stacks) and decode's decoder stack and IDCT
+    once a record, every attention launch in `mode`."""
+    n_dec = cfg.decoder_config.num_hidden_layers
+    want = cfg.encoder_config.num_hidden_layers + n_dec + n_dec * len(ims)
+    other = "block" if mode == "bias" else "bias"
+    check(launches["fwd_mode"][mode] == want and launches["fwd_mode"][other] == 0,
+          f"{what}: attention forward launches by mask mode {launches['fwd_mode']}, want {want} in {mode!r}")
+    check(launches["attention"] == want and launches["dct_patchify"] >= 1 and launches["idct_unpatchify"] == len(ims),
+          f"{what} launches {launches}")
+    check(all(launches[k] == 0 for k in BWD_KERNELS), f"{what} ran a backward kernel: {launches}")
+    check(len(recon) == len(ims) and all(r.shape == im.shape and np.isfinite(r).all() for r, im in zip(recon, ims)),
+          f"{what}: reconstructions have the wrong shape or are not finite")
+
+
+def _system_exit_message(fn) -> "str | None":
+    """The message of the SystemExit that fn() raises, None if it returns."""
+    try:
+        fn()
+    except SystemExit as e:
+        return str(e)
+    return None
+
+
+def phase_tools_warm_start_patch14l(n_images=16, size=448):
+    """tools/copy_clip_into.py at the full width of patch14-L: a random-init
+    stand-in of CLIP-L/14's vision tower at its published widths (24 layers;
+    plain torch.nn modules with HF's attribute names, since this machine may
+    have no transformers) transplanted into patch14-L's 8 + 8 layers on the
+    card, every transplanted tensor equal to its source bit for bit;
+    save_pretrained and from_pretrained give the same bits; then one encode
+    + decode of 16 448 x 448 images in bf16 (attention in 'block' mode).
+    Without transformers, the tool's main must raise SystemExit naming it;
+    with it, main warm-starts from a CLIPVisionModel directory.  Returns the
+    path's launches and its pipeline (for the next phase's timing)."""
+    import importlib.util
+
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch.tools import copy_clip_into as CC
+
+    t_phase = time.perf_counter()
+    cfg = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    n_enc, n_dec = cfg.encoder_config.num_hidden_layers, cfg.decoder_config.num_hidden_layers
+    widths = {k: CLIP_L_VISION[k] for k in ("hidden_size", "intermediate_size", "num_hidden_layers", "layer_norm_eps")}
+    clip, standin_s = _timed(lambda: CC.clip_vision_standin(**widths, seed=0))
+    model = dt.DCTAutoencoder(cfg, dtype=torch.bfloat16, seed=0)
+    _, transplant_s = _timed(lambda: CC.transplant(model, clip))
+    src = clip.vision_model.encoder.layers
+    pairs = [(f"{side}.layers.{i}.{name}", t) for side, first, n in (("encoder", 0, n_enc), ("decoder", n_enc, n_dec))
+             for i in range(n) for name, t in CC.layer_tensors(src[first + i]).items()]
+    params = dict(model.module.named_parameters())
+    differ = [k for k, t in pairs if not torch.equal(params[k].detach().cpu(), t)]
+    check(len(pairs) == 16 * (n_enc + n_dec) and not differ, f"{len(differ)} of {len(pairs)} transplanted tensors differ: {differ[:4]}")
+    del clip, src
+
+    with tempfile.TemporaryDirectory(prefix="warm_start_") as d:
+        _, save_s = _timed(lambda: model.save_pretrained(d))
+        back, load_s = _timed(lambda: dt.DCTAutoencoder.from_pretrained(d, dtype=torch.bfloat16))
+        sd, sd_back = model.module.state_dict(), back.module.state_dict()
+        check(sd.keys() == sd_back.keys() and all(torch.equal(sd[k], sd_back[k]) for k in sd),
+              "save_pretrained / from_pretrained changed the warm-started weights")
+        del model, sd, sd_back
+        if importlib.util.find_spec("transformers") is None:
+            message = _system_exit_message(lambda: CC.main(PATCH14_L, output_path=os.path.join(d, "main")))
+            check(message is not None and "transformers" in message, f"copy_clip_into.main without transformers: {message!r}")
+            main_run = f"SystemExit: {message}"
+        else:
+            from transformers import CLIPVisionConfig, CLIPVisionModel
+
+            # the layers that the transplant reads: CLIP-L's widths, its depth cut to n_enc + n_dec
+            hf_clip = CLIPVisionModel(CLIPVisionConfig(**{**CLIP_L_VISION, "num_hidden_layers": n_enc + n_dec}))
+            hf_clip.save_pretrained(os.path.join(d, "clip"))
+            CC.main(PATCH14_L, os.path.join(d, "clip"), os.path.join(d, "main"))
+            # CLIP layer n_enc + 1 is the decoder's layer 1; the checkpoint holds JAX's (in, out) kernels
+            with np.load(os.path.join(d, "main", "params.npz")) as saved:
+                got = saved["decoder/layers_1/fc2/kernel"]
+            want = hf_clip.vision_model.encoder.layers[n_enc + 1].mlp.fc2.weight.detach().numpy().T
+            check(np.array_equal(got, want), "copy_clip_into.main did not write CLIP's decoder layer 1")
+            main_run = "warm-started from a random-init CLIPVisionModel directory"
+            del hf_clip
+
+    pipe = _pipeline_of(back)
+    ims = smooth_images(n_images, size, seed=5)
+    _roundtrip_launches(pipe, ims)  # warm-up
+    records, recon, launches, wall_ms = _roundtrip_launches(pipe, ims)
+    _check_roundtrip("warm-started patch14-L", launches, recon, ims, cfg, "block")
+    emit({
+        "phase": "tools_warm_start_patch14l", "clip_standin": CLIP_L_VISION, "transplanted_tensors": len(pairs),
+        "clip_layers_used": n_enc + n_dec, "standin_s": standin_s, "transplant_s": transplant_s,
+        "save_s": save_s, "load_s": load_s, "main": main_run,
+        "images": n_images, "size": size, "dtype": "bfloat16", "attn_mask_mode": back.config.attn_mask_mode,
+        "tokens": sum(len(r["codes"]) for r in records), "wall_ms": wall_ms,
+        "psnr_db": statistics.mean(psnr(r, im) for r, im in zip(recon, ims)),
+        "launches": launches, "card_name": _card(), "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches, pipe
+
+
+def phase_tools_reference_convert(block_pipe, n_images=16, size=448, n_r3b_images=8):
+    """tools/convert_reference_weights.py and tools/parity_vs_reference.py.
+    A random-init stand-in of the reference model (its attribute layout in
+    plain torch.nn modules) at patch14-L's widths, converted on the host and
+    run on the card in bf16: the converted config keeps the reference's
+    'bias' attention mode, which no other patch14-L path takes; its encode
+    is timed beside the warm-started 'block' model's on the same images.
+    At r3b's widths, a stand-in holding the trained checkpoint's tensors,
+    converted: token ids on the card against the CPU fp32 run of the same
+    converted model.  Then the harness's own round trip at its defaults
+    (p = 16, max_patch 32, 6 images of at most 256 px) on the card (the DCT
+    and IDCT kernels) and on the CPU: the same PSNR to 0.01 dB."""
+    import dct_autoencoder_torch as dt
+    from dct_autoencoder_torch import kernels as K
+    from dct_autoencoder_torch.ops import stats
+    from dct_autoencoder_torch.tools import convert_reference_weights as CR
+    from dct_autoencoder_torch.tools import parity_vs_reference as PR
+
+    t_phase = time.perf_counter()
+    cfg = dt.DCTAutoencoderConfig.from_json_file(PATCH14_L)
+    ref, standin_s = _timed(lambda: CR.reference_standin(cfg, seed=1))
+    model, convert_s = _timed(lambda: CR.convert(ref, dtype=torch.bfloat16))
+    check(model.config.attn_mask_mode == "bias", f"the converted config's mask mode is {model.config.attn_mask_mode!r}")
+    check(model.device.type == "cuda", "the converted model is not on the card")
+    del ref
+    pipe = _pipeline_of(model)
+    ims = smooth_images(n_images, size, seed=5)
+    _roundtrip_launches(pipe, ims)  # warm-up
+    records, recon, launches, wall_ms = _roundtrip_launches(pipe, ims)
+    _check_roundtrip("converted patch14-L", launches, recon, ims, cfg, "bias")
+
+    def encode(p):
+        def run():
+            p.processor.rng = random.Random(0)
+            return p.encode(ims)
+        return run
+
+    encode_ms = _warm_wall_ms({"bias": encode(pipe), "block": encode(block_pipe)})
+    encode_device = {mode: profile_device(encode(p), reps=3, top=6) for mode, p in (("bias", pipe), ("block", block_pipe))}
+    del pipe, model
+    torch.cuda.empty_cache()
+
+    # r3b's widths: the trained weights in the reference layout, converted
+    r3b = dt.DCTAutoencoder.from_pretrained(R3B, device="cpu")
+    ref = CR.reference_standin(r3b.config, state_dict=r3b.module.state_dict(), patchnorm=r3b.patchnorm)
+    card = _pipeline_of(CR.convert(ref, dtype=torch.bfloat16))
+    cpu = _pipeline_of(CR.convert(ref, device="cpu"))
+    ims_r3b = smooth_images(n_r3b_images, size, seed=0)
+    card_records, card_recon, r3b_launches, _ = _roundtrip_launches(card, ims_r3b)
+    _check_roundtrip("converted r3b", r3b_launches, card_recon, ims_r3b, r3b.config, "bias")
+    cpu.processor.rng = random.Random(0)
+    cpu_records = cpu.encode(ims_r3b)
+    cpu_recon = cpu.decode(cpu_records)
+    agree = code_agreement(card_records, cpu_records)
+    card_psnr = statistics.mean(psnr(r, im) for r, im in zip(card_recon, ims_r3b))
+    cpu_psnr = statistics.mean(psnr(r, im) for r, im in zip(cpu_recon, ims_r3b))
+    check(agree >= MIN_CODE_AGREEMENT, f"converted r3b: code agreement with the CPU fp32 run {agree} < {MIN_CODE_AGREEMENT}")
+    check(abs(card_psnr - cpu_psnr) <= MAX_PSNR_DELTA_DB, f"converted r3b: PSNR {card_psnr} vs CPU fp32 {cpu_psnr}")
+    del card, cpu, ref, r3b
+
+    # the parity harness's own round trip, at the tool's defaults, on grainy
+    # fields shaped as photos that the tool shrinks to 256 px (3:2, 4:3, 16:9,
+    # 1:1, 2:3, 5:4): whole patch grids keep every DCT coefficient, the rest
+    # lose their last columns or rows of frequencies
+    rng = np.random.default_rng(9)
+    parity_ims = [np.clip(im + 0.03 * rng.standard_normal(im.shape), 0, 1).astype(np.float32) for im in smooth_fields(
+        [(170, 256), (192, 256), (144, 256), (256, 256), (256, 170), (204, 256)], seed=9)]
+    K.reset_launch_counts()
+    card_out, parity_s = _timed(lambda: PR.run_ours_roundtrip(parity_ims, 16, 32))
+    parity_launches = path_launches()
+    check(parity_launches["dct_patchify"] == parity_launches["idct_unpatchify"] == len(parity_ims)
+          and parity_launches["attention"] == 0, f"parity round trip launches {parity_launches}")
+    cpu_out = PR.run_ours_roundtrip(parity_ims, 16, 32, device="cpu")
+    rows = [(stats.psnr(c, im), stats.psnr(o, im)) for im, c, o in zip(parity_ims, card_out, cpu_out)]
+    # a lossless round trip's PSNR measures rounding alone (and ops.stats.psnr
+    # caps it at 120 dB): those must both clear the no-model limit instead
+    lossless = [im.shape[1] % 16 == 0 and im.shape[2] % 16 == 0 for im in parity_ims]
+    worst = max(abs(c - o) for (c, o), whole in zip(rows, lossless) if not whole)
+    check(worst <= MAX_PARITY_PSNR_DELTA_DB, f"parity round trip PSNR card vs CPU {rows}")
+    check(all(min(r) > MIN_LOSSLESS_PSNR_DB for r, whole in zip(rows, lossless) if whole),
+          f"lossless parity round trips under {MIN_LOSSLESS_PSNR_DB} dB: {rows}")
+    emit({
+        "phase": "tools_reference_convert", "standin_s": standin_s, "convert_s": convert_s,
+        "patch14l": {"images": n_images, "size": size, "dtype": "bfloat16", "attn_mask_mode": "bias",
+                     "tokens": sum(len(r["codes"]) for r in records), "wall_ms": wall_ms,
+                     "psnr_db": statistics.mean(psnr(r, im) for r, im in zip(recon, ims)),
+                     "encode_wall_ms": encode_ms, "encode_device": encode_device, "launches": launches},
+        "r3b": {"images": n_r3b_images, "size": size, "weights": "r3b's float weights in the reference layout",
+                "code_agreement_vs_cpu_fp32": agree, "psnr_db": card_psnr, "cpu_fp32_psnr_db": cpu_psnr,
+                "limits": {"code_agreement": MIN_CODE_AGREEMENT, "psnr_db": MAX_PSNR_DELTA_DB},
+                "launches": r3b_launches},
+        "parity_roundtrip": {"sizes": [list(im.shape[1:]) for im in parity_ims], "psnr_card_cpu_db": rows,
+                             "lossless": lossless, "max_delta_db_lossy": worst, "limit_db": MAX_PARITY_PSNR_DELTA_DB,
+                             "lossless_limit_db": MIN_LOSSLESS_PSNR_DB, "wall_s": parity_s,
+                             "launches": parity_launches},
+        "card_name": _card(), "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches, r3b_launches, parity_launches
 
 
 # ---------------------------------------------------------------- data, tensor and sequence parallelism
@@ -4207,8 +4469,9 @@ BWD_KERNELS = ("attention_dq", "attention_dkv", "attention_dq_causal", "attentio
 # tokenizes in bfloat16 (non-causal forward) and trains its AR model in
 # float32 (causal); the offline tools that run float32 (eval on r3b as the
 # phase asks, decode_gif and diagnose as their tools do) launch forwards
-# only.  testpipe runs no model, so no attention: its launches are read by
-# its phase and listed in launches_by_path only
+# only.  testpipe and the parity harness's round trip run no model, so no
+# attention: their launches are read by their phases and listed in
+# launches_by_path only
 BF16_PATH = (("mma", "mma"), ("mma", "mma"))
 FP32_PATH = (("tf32x3", "tf32x3"), ("tf32x3", "tf32x3"))
 PATH_IMPLS = {
@@ -4222,14 +4485,18 @@ PATH_IMPLS = {
     "tools_eval_r3b": FP32_PATH, "tools_decode_gif": FP32_PATH, "tools_diagnose": FP32_PATH,
     "parallel_patch14l": BF16_PATH, "pipeline_patch14l": BF16_PATH,
     "compile_probe": BF16_PATH, "train_dropout_patch14l": BF16_PATH,
+    "tools_warm_start_patch14l": BF16_PATH, "tools_reference_convert": BF16_PATH,
+    "tools_reference_convert_r3b": BF16_PATH,
 }
 
 
 def path_launches() -> dict:
-    """The launch counts of every kernel, and of the attention kernels by implementation."""
+    """The launch counts of every kernel, and of the attention kernels by
+    implementation and (the forward) by mask mode."""
     from dct_autoencoder_torch import kernels as K
 
-    return {**K.launch_counts(), "fwd_impl": K.fwd_impl_launch_counts(), "bwd_impl": K.bwd_impl_launch_counts()}
+    return {**K.launch_counts(), "fwd_impl": K.fwd_impl_launch_counts(), "bwd_impl": K.bwd_impl_launch_counts(),
+            "fwd_mode": K.fwd_mode_launch_counts()}
 
 
 def check_impl_launches(launches: dict, fwd_impls: tuple, bwd_impls: tuple) -> None:
@@ -4303,6 +4570,11 @@ def main() -> int:
     launches["int8_study"] = phase_int8_study_patch14l()
     torch.cuda.empty_cache()
     phase_native_packing()
+    launches["tools_warm_start_patch14l"], block_pipe = phase_tools_warm_start_patch14l()
+    (launches["tools_reference_convert"], launches["tools_reference_convert_r3b"],
+     launches["tools_parity_roundtrip"]) = phase_tools_reference_convert(block_pipe)
+    del block_pipe
+    torch.cuda.empty_cache()
     launches["parallel_patch14l"] = phase_parallel_patch14l()
     torch.cuda.empty_cache()
     launches["pipeline_patch14l"], launches["compile_probe"] = phase_pipeline_patch14l()
@@ -4330,6 +4602,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[path][counter], "launches_on": path,
             "launches_by_path": {p: n.get(counter, 0) for p, n in launches.items()},
+            "bias_mode_launches_by_path": {p: n["fwd_mode"]["bias"] for p, n in launches.items()
+                                           if n.get("fwd_mode", {}).get("bias")} if key == "attention" else None,
             "max_abs_err": max(c["max_abs_err"] for c in cases[key]),
             "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],

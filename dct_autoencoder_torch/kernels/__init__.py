@@ -25,7 +25,7 @@ COUNTERS = {
 def reset_launch_counts() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
-    for counts in (attention.LAUNCHES_FWD_IMPL, attention.LAUNCHES_BWD_IMPL):
+    for counts in (attention.LAUNCHES_FWD_IMPL, attention.LAUNCHES_BWD_IMPL, attention.LAUNCHES_FWD_MODE):
         for impl in counts:
             counts[impl] = 0
     attention.LAUNCHES_PAD = 0
@@ -43,6 +43,11 @@ def fwd_impl_launch_counts() -> dict:
 def bwd_impl_launch_counts() -> dict:
     """Launches of the two attention backward kernels by implementation ("mma", "simt", "tf32x3")."""
     return dict(attention.LAUNCHES_BWD_IMPL)
+
+
+def fwd_mode_launch_counts() -> dict:
+    """Launches of the attention forward kernel, causal or not, by mask mode ("block", "bias")."""
+    return dict(attention.LAUNCHES_FWD_MODE)
 
 
 def pad_copy_count() -> int:

@@ -79,7 +79,8 @@ and ``LAUNCHES_DKV_CAUSAL`` the causal ones; ``LAUNCHES_DROPOUT``,
 ``LAUNCHES_DQ_DROPOUT`` and ``LAUNCHES_DKV_DROPOUT`` the launches in the
 dropout mode, causal or not.  ``LAUNCHES_FWD_IMPL`` counts the
 forward's launches, causal or not, and ``LAUNCHES_BWD_IMPL`` those of both
-backward kernels, by implementation ("mma", "simt", "tf32x3").
+backward kernels, by implementation ("mma", "simt", "tf32x3");
+``LAUNCHES_FWD_MODE`` the forward's launches by mask mode ("block", "bias").
 ``LAUNCHES_PAD`` counts the tensors ``pad_head_dim`` copied.
 """
 from __future__ import annotations
@@ -105,6 +106,7 @@ LAUNCHES_DQ_DROPOUT = 0
 LAUNCHES_DKV_DROPOUT = 0
 LAUNCHES_FWD_IMPL = {"mma": 0, "simt": 0, "tf32x3": 0}
 LAUNCHES_BWD_IMPL = {"mma": 0, "simt": 0, "tf32x3": 0}
+LAUNCHES_FWD_MODE = {"block": 0, "bias": 0}
 LAUNCHES_PAD = 0
 
 IMPLS = ("simt", "mma", "tf32x3")  # the index is the `impl` argument of the C entry points
@@ -422,6 +424,7 @@ def attention_fwd_cuda(
     else:
         LAUNCHES += 1
     LAUNCHES_FWD_IMPL[impl] += 1
+    LAUNCHES_FWD_MODE[mode] += 1
     return (o if width == d else o[..., :d].contiguous()), lse
 
 

@@ -38,6 +38,7 @@ from dct_autoencoder_torch.tools import train_ar_example as texample
 from dct_autoencoder_tpu.models import ar as jar
 from dct_autoencoder_tpu.models.config import TransformerConfig as JaxTransformerConfig
 from dct_autoencoder_tpu.tools.train_ar_example import records_to_arrays as jax_records_to_arrays
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 GRAD_REL_ATOL = 2e-3
 CODEBOOK, C = 32, 4

@@ -23,6 +23,7 @@ from dct_autoencoder_torch import kernels as tk
 from dct_autoencoder_torch.kernels import attention as tatt
 from dct_autoencoder_tpu.kernels import attention as jatt
 from test_torch_kernels import _t, make_inputs
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 def _ids(ids, pad):

@@ -42,6 +42,7 @@ from dct_autoencoder_torch.kernels import attention as tatt  # noqa: E402
 from dct_autoencoder_torch.ops.dct import tf32_round, tf32_split  # noqa: E402
 from dct_autoencoder_tpu.kernels import attention as jatt  # noqa: E402
 from test_torch_kernels import make_inputs  # noqa: E402
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 def _round_toward_zero(x64: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ from test_torch_ar import _GRID, _TRANSFORMER, make_data, packed_ids
 from test_torch_ar import flat as ar_flat
 from test_torch_kernels import _t, make_inputs
 from test_torch_train import flat, make_case, port_of, to_torch_batch
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 U32 = 0xFFFFFFFF
 

@@ -24,6 +24,7 @@ from dct_autoencoder_torch.models.autoencoder import DCTAutoencoder as TorchAE
 from dct_autoencoder_torch.train import loop as tloop
 from test_model import tiny_config
 from test_torch_parallel import Ranks, assert_params_close, payload_of, port_case
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 RATE = 0.3
 LR = 1e-3

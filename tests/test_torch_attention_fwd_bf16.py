@@ -27,6 +27,7 @@ from dct_autoencoder_torch.kernels import attention as tatt
 from dct_autoencoder_tpu.kernels import attention as jatt
 from test_torch_attention_bwd_bf16 import _bf16_ulp, _ids, _to_torch_bf16
 from test_torch_kernels import _t, make_inputs
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -42,6 +42,7 @@ from dct_autoencoder_torch.kernels import attention as tatt  # noqa: E402
 from dct_autoencoder_tpu.kernels import attention as jatt  # noqa: E402
 from test_torch_attention_bwd_tf32x3 import _ids, _kernel_split, _round_toward_zero, _tc_product, _tf32_product  # noqa: E402
 from test_torch_kernels import make_inputs  # noqa: E402
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 TILE = 64  # keys a streamed tile: the online softmax rescales once a tile
 

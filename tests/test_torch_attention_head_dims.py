@@ -27,6 +27,7 @@ from dct_autoencoder_torch.kernels import _build
 from dct_autoencoder_torch.kernels import attention as tatt
 from dct_autoencoder_tpu.kernels import attention as jatt
 from test_torch_kernels import _t, make_inputs
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 @pytest.mark.parametrize("d,want", [(1, 16), (15, 16), (16, 16), (17, 32), (24, 32), (33, 64), (48, 64), (80, 128), (128, 128)])

@@ -18,6 +18,7 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 
 from dct_autoencoder_torch import kernels as tk  # noqa: E402
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 def test_exits_nonzero_without_a_card():

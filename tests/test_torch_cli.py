@@ -22,6 +22,7 @@ from dct_autoencoder_torch.data.shards import ShardWriter
 from dct_autoencoder_torch.train import cli as tcli
 from dct_autoencoder_tpu.train import cli as jcli
 from test_model import tiny_config
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

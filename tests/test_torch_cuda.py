@@ -54,6 +54,7 @@ from dct_autoencoder_torch import kernels as tk  # noqa: E402
 from dct_autoencoder_torch.kernels import attention as tatt  # noqa: E402
 from dct_autoencoder_torch.kernels import dct_patchify as tdp  # noqa: E402
 from dct_autoencoder_torch.kernels import idct_unpatchify as tid  # noqa: E402
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
 

@@ -30,6 +30,7 @@ from dct_autoencoder_tpu.data import dataset as jds
 from dct_autoencoder_tpu.data import shards as jsh
 from dct_autoencoder_tpu.patches.extractor import DCTAutoencoderFeatureExtractor as JaxExtractor
 from test_torch_pipeline import _token_map
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 PROC_KW = dict(channels=3, patch_size=8, sample_patches_beta=0.0, max_patch_h=12, max_patch_w=12, max_seq_len=432)
 

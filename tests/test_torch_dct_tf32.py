@@ -31,6 +31,7 @@ import torch
 from dct_autoencoder_torch.kernels import dct_patchify as tdp
 from dct_autoencoder_torch.kernels import idct_unpatchify as tid
 from dct_autoencoder_torch.ops import dct as tdct
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 F64_RATIO = 8.0  # chip_smoke.py DCT_F64_RATIO, tests/test_torch_cuda.py
 

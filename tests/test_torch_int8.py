@@ -32,6 +32,7 @@ from dct_autoencoder_tpu.pipeline import DCTPipeline as JaxPipeline
 from test_model import make_batch, tiny_config
 from test_torch_model import R3B, assert_codes_match, jax_pre_sign, to_torch_batch
 from test_torch_train import flat
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 INT8_SIBLING = os.path.join(os.path.dirname(R3B), "model-int8-wo")
 

@@ -22,6 +22,7 @@ from dct_autoencoder_torch.kernels import idct_unpatchify as tid
 from dct_autoencoder_tpu.kernels import attention as jatt
 from dct_autoencoder_tpu.kernels.dct_patchify import fused_ipt_dct_patchify
 from dct_autoencoder_tpu.kernels.idct_unpatchify import fused_idct_unpatchify_rgb
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 def make_inputs(b=2, h=4, s=128, d=32, n_img=3, seed=0):

@@ -35,6 +35,7 @@ from dct_autoencoder_torch.patches.container import DCTPatches as TorchPatches
 from dct_autoencoder_tpu.models.autoencoder import DCTAutoencoder as JaxAE
 from dct_autoencoder_tpu.models.config import DCTAutoencoderConfig, TransformerConfig
 from dct_autoencoder_tpu.patches.extractor import DCTAutoencoderFeatureExtractor
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 R3B = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs", "calibrated_run_r3b", "model")
 PRE_SIGN_SLACK = 1e-4

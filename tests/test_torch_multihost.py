@@ -12,6 +12,7 @@ is held to the JAX package's step in tests/test_torch_parallel_ranks.py.
 import numpy as np
 
 from dct_autoencoder_torch.parallel.multiproc_check import run_two_process_check
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 def test_two_process_full_train_step_and_encode(tmp_path):

@@ -18,6 +18,7 @@ from dct_autoencoder_torch.kernels._build import BUILD_DIR
 from dct_autoencoder_torch.patches import native
 from dct_autoencoder_torch.patches.packing import build_attn_mask, fill_batch, group_patches_by_max_seq_len
 from dct_autoencoder_tpu.patches import native as jax_native
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

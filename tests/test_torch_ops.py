@@ -13,6 +13,7 @@ from dct_autoencoder_torch.ops import colorspace as tcs
 from dct_autoencoder_torch.ops import dct as tdct
 from dct_autoencoder_tpu.ops import colorspace as jcs
 from dct_autoencoder_tpu.ops import dct as jdct
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 ATOL = 2e-4
 SHAPES = [(40, 56), (43, 61)]

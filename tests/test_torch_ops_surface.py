@@ -25,6 +25,7 @@ from dct_autoencoder_tpu.ops import colorspace as jc
 from dct_autoencoder_tpu.ops import dct as jdct
 from dct_autoencoder_tpu.ops import masks as jm
 from dct_autoencoder_tpu.ops import stats as js
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 # the JAX package's ops/__init__ exports the function zigzag under the module's name
 jz = importlib.import_module("dct_autoencoder_tpu.ops.zigzag")

@@ -34,6 +34,7 @@ from dct_autoencoder_torch.train import opt8bit as t8
 from dct_autoencoder_tpu.train import loop as jloop
 from dct_autoencoder_tpu.train import opt8bit as j8
 from test_torch_train import make_case, port_of, to_torch_batch
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 SHAPES = {"a": (64, 64), "b": (300,), "c": (7, 5, 3), "d": (513,), "e": (256,)}
 

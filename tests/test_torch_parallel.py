@@ -36,6 +36,7 @@ from dct_autoencoder_tpu.models.patchnorm import PatchNormState as JaxPatchNorm
 from dct_autoencoder_tpu.parallel import mesh as jmesh
 from dct_autoencoder_tpu.patches.container import DCTPatches as JaxPatches
 from test_model import tiny_config
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # images of several sizes, so that rows pack several images and end in padding

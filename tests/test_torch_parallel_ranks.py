@@ -44,6 +44,7 @@ from test_torch_parallel import (
     payload_of,
     port_case,
 )
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 WORLD = [[0, 1, 2, 3]]
 PAIRS = [[0, 1], [2, 3]]

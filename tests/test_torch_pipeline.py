@@ -27,6 +27,7 @@ from dct_autoencoder_torch.patches import extractor as text
 from dct_autoencoder_tpu.patches import extractor as jext
 from dct_autoencoder_tpu.pipeline import DCTPipeline as JaxPipeline
 from test_torch_model import R3B, to_torch_batch
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(channels=3, patch_size=8, sample_patches_beta=0.0, max_patch_h=8, max_patch_w=8, max_seq_len=192)

@@ -36,6 +36,7 @@ from dct_autoencoder_torch.train import loop as tloop
 from test_torch_parallel import Ranks, payload_of, port_case
 from test_torch_parallel_ranks import jax_step, port_step
 from test_torch_pipeline_train import assert_step_matches
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 WORLD = [[0, 1, 2, 3]]
 SCENARIOS = [

@@ -34,6 +34,7 @@ from dct_autoencoder_tpu.parallel.pipeline import PipelineSpec as JaxSpec
 from dct_autoencoder_tpu.parallel.pipeline import pipeline_stack_apply as jax_stack_apply
 from dct_autoencoder_tpu.parallel.pipeline_1f1b import pipeline_1f1b_loss_and_grad as jax_1f1b
 from test_torch_parallel import Ranks
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 # (name, kind, n_model, microbatches, remat)
 CASES = [

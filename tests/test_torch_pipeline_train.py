@@ -34,6 +34,7 @@ from test_torch_parallel import (
     port_case,
 )
 from test_torch_parallel_ranks import LR, _assert_codes_equal, jax_step, port_step
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 WORLD = [[0, 1, 2, 3]]
 

@@ -42,6 +42,7 @@ from test_model import tiny_config
 from test_pixel_loss import make_bucketed_batch
 from test_torch_model import to_torch_batch
 from test_torch_train import GRAD_REL_ATOL, _assert_params_close, flat, make_case, port_of
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 LOSS_RTOL = 1e-5
 GRAD_ATOL = 1e-6

@@ -43,6 +43,7 @@ from dct_autoencoder_tpu.models.patchnorm import calibrate_patchnorm_batch as ja
 from test_model import make_batch, tiny_config
 from test_torch_model import PRE_SIGN_SLACK, assert_codes_match, jax_pre_sign, to_torch_batch
 from test_torch_train import flat, port_of
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 def _config(layers=2):

@@ -29,6 +29,7 @@ from dct_autoencoder_tpu.tools import int8_study as jstudy
 from dct_autoencoder_tpu.tools import quantize_checkpoint as jqc
 from test_torch_quant import _jax_model
 from test_torch_train import flat
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 def test_noise_equiv_model_matches_jax(tmp_path):

@@ -45,6 +45,7 @@ from dct_autoencoder_tpu.train import pixel_loss as jpl
 from test_model import tiny_config
 from test_torch_model import to_torch_batch
 from test_torch_train import port_of
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 @pytest.fixture(scope="module")

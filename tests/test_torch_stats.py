@@ -14,6 +14,7 @@ import torch
 
 from dct_autoencoder_torch.ops import stats as ts
 from dct_autoencoder_tpu.ops import stats as js
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 @pytest.mark.parametrize("dim", [None, 0])

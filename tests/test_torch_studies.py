@@ -26,6 +26,7 @@ from dct_autoencoder_torch.tools import ab_report, int8_study, nu_codebook_study
 from dct_autoencoder_torch.train.opt8bit import _unsigned_codebook
 from dct_autoencoder_tpu.tools import ab_report as jax_ab_report
 from dct_autoencoder_tpu.tools import nu_codebook_study as jax_nu
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 # ---------------------------------------------------------------- ab_report

@@ -35,7 +35,7 @@ from dct_autoencoder_tpu.pipeline import DCTPipeline as JaxPipeline
 from dct_autoencoder_tpu.train import sweep as jsweep
 from test_model import tiny_config
 from test_torch_train import TorchConfig, flat, tloop, torch_model_and_processor
-from test_torch_vq import one_cpu_thread  # noqa: F401  (fixture)
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -27,6 +27,7 @@ from dct_autoencoder_tpu.patches.container import from_dict as jax_from_dict
 from dct_autoencoder_tpu.tools import prepare_autoregressive_dataset as jax_ar
 from test_model import tiny_config
 from test_torch_train import port_of
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 N_IMAGES = 10
 BETA = 0.05  # about 20 tokens an image: several images share a packed row

@@ -33,6 +33,7 @@ from test_model import tiny_config
 from test_tools import make_images_dir
 from test_torch_model import R3B
 from test_torch_train import port_of
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 NUMBER = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
 

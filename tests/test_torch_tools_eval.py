@@ -23,6 +23,7 @@ from dct_autoencoder_torch.tools import eval as teval
 from dct_autoencoder_tpu.pipeline import DCTPipeline as JaxPipeline
 from dct_autoencoder_tpu.tools import eval as jeval
 from test_torch_model import R3B
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 SIZE = 112
 PSNR_ATOL_DB = 1e-3

@@ -58,6 +58,7 @@ from dct_autoencoder_tpu.train import loop as jloop
 from dct_autoencoder_tpu.train import losses as jlosses
 from test_model import make_batch, tiny_config
 from test_torch_model import R3B, assert_codes_match, jax_pre_sign, packed_batch, tiny_bias_config, to_torch_batch
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 GRAD_REL_ATOL = 2e-3
 LOSS_KEYS = ("entropy_loss", "rec_loss", "commit_loss", "rec_loss_unnormalized", "perplexity")

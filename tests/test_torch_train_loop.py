@@ -30,6 +30,7 @@ from test_torch_train import (
     tiny_config,
     to_torch_batch,
 )
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 @pytest.mark.parametrize("max_iters,warmup", [(40, 8), (10000, 200), (5, 200), (30, 0), (1, 200)])

@@ -36,6 +36,7 @@ from test_torch_train import (
     tiny_config,
     to_torch_batch,
 )
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 def test_train_patch_norm_phase():

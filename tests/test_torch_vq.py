@@ -24,6 +24,7 @@ import torch
 
 import dct_autoencoder_torch.models.vq as tvq
 import dct_autoencoder_tpu.models.vq as jvq
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 ID_MARGIN = 1e-5
 MAX_NEAR_TIE_SHARE = 0.01
@@ -96,18 +97,6 @@ def nn_apply(module, variables, fn, *args):
     from flax import linen as nn
 
     return nn.apply(fn, module)(variables, *args)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_cpu_thread():
-    """One intra-op thread for the port: these models are tiny, and under
-    the suite's parallel workers more threads than cores slow each small
-    op many times over.  The other VQ test files and the sweep's import
-    this fixture."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -26,7 +26,7 @@ from dct_autoencoder_tpu.pipeline import DCTPipeline as JaxPipeline
 from test_model import tiny_config
 from test_torch_model import to_torch_batch
 from test_torch_train import TorchAE, TorchConfig, TorchPatchNorm, flat, tloop, torch_model_and_processor
-from test_torch_vq import one_cpu_thread  # noqa: F401  (fixture)
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 from test_torch_vq_train import (  # noqa: F401  (fixtures)
     _jax_eval,
     assert_vq_codes_match,

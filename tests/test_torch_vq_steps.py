@@ -25,7 +25,7 @@ from test_torch_train import (
     tloop,
     torch_model_and_processor,
 )
-from test_torch_vq import one_cpu_thread  # noqa: F401  (fixture)
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 from test_torch_vq_train import no_gumbel, vq_case, vq_port_of  # noqa: F401  (fixture)
 
 

@@ -19,7 +19,7 @@ import torch
 
 import dct_autoencoder_torch.models.vq as tvq
 import dct_autoencoder_tpu.models.vq as jvq
-from test_torch_vq import one_cpu_thread  # noqa: F401  (fixture)
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 
 # ---------------------------------------------------------------- surgery, given JAX's draws

@@ -45,7 +45,7 @@ from test_torch_train import (
     tloop,
     torch_patchnorm,
 )
-from test_torch_vq import one_cpu_thread  # noqa: F401  (fixture)
+from torch_threads import one_cpu_thread  # noqa: F401  (fixture)
 
 @pytest.fixture
 def no_gumbel(monkeypatch):
