@@ -19,6 +19,10 @@ the generator's finally sets a stop event, drains the queue so a blocked
 put() releases, and joins the worker, so that no thread is left inside a
 device call when the interpreter exits.
 
+Spans (obs.py): each `next(source)` of the worker is `dct.prefetch.produce`,
+on the thread named `batch-prefetch`, and the consumer's wait for an item is
+`dct.prefetch.wait`.
+
 Exceptions raised by the source propagate to the consumer at the point of
 `next()`; a sentinel marks exhaustion.  `buffer_size` bounds host memory
 (packed batches are a few MB each).
@@ -28,6 +32,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
+
+from .. import obs
 
 T = TypeVar("T")
 
@@ -56,7 +62,12 @@ def prefetch(source: Iterable[T], buffer_size: int = 2) -> Iterator[T]:
 
     def worker():
         try:
-            for item in source:
+            items = iter(source)
+            while True:
+                with obs.span("dct.prefetch.produce"):
+                    item = next(items, _DONE)
+                if item is _DONE:
+                    break
                 if not _put(item):
                     return
         except BaseException as e:  # handed to the consumer, which re-raises it
@@ -69,7 +80,8 @@ def prefetch(source: Iterable[T], buffer_size: int = 2) -> Iterator[T]:
 
     try:
         while True:
-            item = q.get()
+            with obs.span("dct.prefetch.wait"):
+                item = q.get()
             if item is _DONE:
                 return
             if isinstance(item, _Failure):

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import obs
 from ..patches.container import DCTPatches
 from .config import DCTAutoencoderConfig
 from .lfq import LFQ
@@ -114,19 +115,21 @@ class DCTAutoencoderModule(nn.Module):
         data-parallel batch, and the quantizer's statistics are summed over
         the shard's group, and the encoder's attention dropout draws the
         single-device mask's block of the shard's rows."""
-        feats = self.patch_embed_norm(self.patch_embed_linear(x.patches.to(self.dtype)))
-        feats = feats + self._pos_embedding("encoder", x)
-        feats = self._stack(self.encoder, feats, x, training, generator, 0 if shard is None else shard.row_start)
+        with obs.span("dct.model.encoder"):
+            feats = self.patch_embed_norm(self.patch_embed_linear(x.patches.to(self.dtype)))
+            feats = feats + self._pos_embedding("encoder", x)
+            feats = self._stack(self.encoder, feats, x, training, generator, 0 if shard is None else shard.row_start)
         mask = ~x.key_pad_mask
-        if self.config.vq_type == "vq":
-            quantized, codes, commit_loss, vq_z = self.vq_model(
-                feats, mask=mask, training=training, generator=vq_generator, update_stats=update_vq_stats,
-                shard=shard,
+        with obs.span("dct.model.quantize"):
+            if self.config.vq_type == "vq":
+                quantized, codes, commit_loss, vq_z = self.vq_model(
+                    feats, mask=mask, training=training, generator=vq_generator, update_stats=update_vq_stats,
+                    shard=shard,
+                )
+                return x.replace(patches=quantized), codes, commit_loss, quantized.new_zeros(()), vq_z
+            quantized, codes, commit_loss, distances = self.vq_model(
+                feats, mask=mask, training=training, group=None if shard is None else shard.group
             )
-            return x.replace(patches=quantized), codes, commit_loss, quantized.new_zeros(()), vq_z
-        quantized, codes, commit_loss, distances = self.vq_model(
-            feats, mask=mask, training=training, group=None if shard is None else shard.group
-        )
         return x.replace(patches=quantized), codes, commit_loss, distances, None
 
     def decode(self, x: DCTPatches) -> DCTPatches:
@@ -134,9 +137,10 @@ class DCTAutoencoderModule(nn.Module):
 
         Runs the decoder stack without dropout, in training too, as the JAX
         module does."""
-        feats = x.patches.to(self.dtype) + self._pos_embedding("decoder", x)
-        feats = self._stack(self.decoder, feats, x)
-        return x.replace(patches=self.proj_out_linear(self.proj_out_norm(feats)))
+        with obs.span("dct.model.decoder"):
+            feats = x.patches.to(self.dtype) + self._pos_embedding("decoder", x)
+            feats = self._stack(self.decoder, feats, x)
+            return x.replace(patches=self.proj_out_linear(self.proj_out_norm(feats)))
 
     def decode_from_codes(self, codes: torch.Tensor, x: DCTPatches) -> DCTPatches:
         return self.decode(x.replace(patches=self.vq_model.indices_to_codes(codes)))

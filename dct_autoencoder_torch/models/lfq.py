@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import obs
 from ..ops.stats import masked_mean
 
 
@@ -75,11 +76,12 @@ class LFQ(nn.Module):
             # straight-through: forward = quantized, backward = identity
             q = original + (quantized - original).detach()
             distances = torch.einsum("bncd,zd->bncz", original, self.neg2_codebook)
-            se = (original - quantized) ** 2
-            if mask is not None:
-                commit_loss = masked_mean(se, mask, dim=0, group=group).sum(dim=0).mean()
-            else:
-                commit_loss = se.mean()
+            with obs.span("dct.loss.commit"):
+                se = (original - quantized) ** 2
+                if mask is not None:
+                    commit_loss = masked_mean(se, mask, dim=0, group=group).sum(dim=0).mean()
+                else:
+                    commit_loss = se.mean()
         else:
             q = quantized
             distances = commit_loss = original.new_zeros(())

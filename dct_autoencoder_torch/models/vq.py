@@ -49,6 +49,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import obs
 from ..ops.stats import group_size, group_sum, group_sum_grad, masked_mean
 
 # elements of one chunk of distances (and of gumbel noise): 2^27 fp32 = 512 MiB
@@ -317,7 +318,8 @@ class VectorQuantize(nn.Module):
         new_stats = self._new_affine_stats(z, mask, group) if updating and self.affine_param else None
         codebook = self._normed_codebook(new_stats)
         temperature = self.sample_codebook_temp if training else 0.0
-        indices = choose_codes(z, codebook, temperature, generator, shard)
+        with obs.span("dct.vq.choose"):
+            indices = choose_codes(z, codebook, temperature, generator, shard)
 
         if new_stats is not None:
             with torch.no_grad():
@@ -330,21 +332,22 @@ class VectorQuantize(nn.Module):
 
         quantized = _gather_codes(codebook, indices)  # (b, n, h, d)
         if training:
-            # commitment: pull the encoder output toward the frozen codes
-            commit = masked_mean((z - quantized.detach()) ** 2, mask, dim=0, group=group).sum(dim=0).mean()
-            loss = self.commitment_weight * commit
-            if not self.ema_update:
-                # codebook: pull the codes toward the frozen encoder output
-                cb_loss = masked_mean((z.detach() - quantized) ** 2, mask, dim=0, group=group).sum(dim=0).mean()
-                loss = loss + self.codebook_weight * cb_loss
-            if self.orthogonal_reg_weight > 0.0:
-                cb2 = codebook.reshape(-1, d)
-                cbn = cb2 / (torch.linalg.vector_norm(cb2, dim=-1, keepdim=True) + 1e-8)
-                gram = cbn @ cbn.T
-                eye = torch.eye(gram.shape[0], dtype=gram.dtype, device=gram.device)
-                # alike on every rank of a data group: each share takes its part
-                ortho = torch.sum((gram - eye) ** 2) / gram.shape[0] ** 2
-                loss = loss + self.orthogonal_reg_weight * ortho / group_size(group)
+            with obs.span("dct.loss.commit"):
+                # commitment: pull the encoder output toward the frozen codes
+                commit = masked_mean((z - quantized.detach()) ** 2, mask, dim=0, group=group).sum(dim=0).mean()
+                loss = self.commitment_weight * commit
+                if not self.ema_update:
+                    # codebook: pull the codes toward the frozen encoder output
+                    cb_loss = masked_mean((z.detach() - quantized) ** 2, mask, dim=0, group=group).sum(dim=0).mean()
+                    loss = loss + self.codebook_weight * cb_loss
+                if self.orthogonal_reg_weight > 0.0:
+                    cb2 = codebook.reshape(-1, d)
+                    cbn = cb2 / (torch.linalg.vector_norm(cb2, dim=-1, keepdim=True) + 1e-8)
+                    gram = cbn @ cbn.T
+                    eye = torch.eye(gram.shape[0], dtype=gram.dtype, device=gram.device)
+                    # alike on every rank of a data group: each share takes its part
+                    ortho = torch.sum((gram - eye) ** 2) / gram.shape[0] ** 2
+                    loss = loss + self.orthogonal_reg_weight * ortho / group_size(group)
             zq = z + (quantized - z).detach()  # straight-through
         else:
             loss = x.new_zeros(())

@@ -19,6 +19,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels.dct_patchify import fused_ipt_dct_patchify
 from ..kernels.idct_unpatchify import fused_idct_unpatchify_rgb
 from .container import DCTPatches
@@ -129,31 +130,36 @@ class DCTAutoencoderFeatureExtractor:
 
     def preprocess_many(self, images: Sequence) -> List[dict]:
         """Images (c, h, w), float in [0, 1] or uint8, grouped by shape into
-        one device call each.  Returns per-image dicts in input order:
+        one device call each (span `dct.front.preprocess`, with the copies
+        `dct.copy.h2d.images` and `dct.copy.d2h.tokens` inside).  Returns
+        per-image dicts in input order:
         patches (k, p*p), positions (k, 2), channels (k,), original_sizes,
         patch_sizes."""
-        by_shape = {}
-        for i, im in enumerate(images):
-            im = np.asarray(im)
-            by_shape.setdefault(im.shape, []).append((i, im))
+        with obs.span("dct.front.preprocess"):
+            by_shape = {}
+            for i, im in enumerate(images):
+                im = np.asarray(im)
+                by_shape.setdefault(im.shape, []).append((i, im))
 
-        out: List[Optional[dict]] = [None] * len(images)
-        for (c, h, w), group in by_shape.items():
-            if c != self.channels:
-                raise ValueError(f"expected {self.channels} channels, got {c}")
-            meta = self._meta(h, w)
-            stack = torch.from_numpy(np.stack([im for _, im in group])).to(self.device)
-            patches, positions, channels = (t.cpu().numpy() for t in self._sorted_tokens(stack, meta))
-            for j, (i, _) in enumerate(group):
-                k = self.sample_k(meta["total"])
-                out[i] = dict(
-                    patches=patches[j, :k],
-                    positions=positions[j, :k],
-                    channels=channels[j, :k],
-                    original_sizes=(h, w),
-                    patch_sizes=meta["grid"],
+            out: List[Optional[dict]] = [None] * len(images)
+            for (c, h, w), group in by_shape.items():
+                if c != self.channels:
+                    raise ValueError(f"expected {self.channels} channels, got {c}")
+                meta = self._meta(h, w)
+                stack = obs.to_device(np.stack([im for _, im in group]), self.device, "images")
+                patches, positions, channels = (
+                    obs.to_host(t, "tokens").numpy() for t in self._sorted_tokens(stack, meta)
                 )
-        return out  # type: ignore[return-value]
+                for j, (i, _) in enumerate(group):
+                    k = self.sample_k(meta["total"])
+                    out[i] = dict(
+                        patches=patches[j, :k],
+                        positions=positions[j, :k],
+                        channels=channels[j, :k],
+                        original_sizes=(h, w),
+                        patch_sizes=meta["grid"],
+                    )
+            return out  # type: ignore[return-value]
 
     def preprocess(self, im) -> dict:
         """One image (c, h, w) -> its token dict (see preprocess_many)."""
@@ -172,7 +178,8 @@ class DCTAutoencoderFeatureExtractor:
         )
 
     def iter_batches(self, dataloader: Iterable, batch_size: Optional[int] = None, drain: bool = False):
-        """Greedy-pack a stream of per-image dicts into DCTPatches batches.
+        """Greedy-pack a stream of per-image dicts into DCTPatches batches
+        (span `dct.pack.rows` for each pull, collation included).
 
         `dataloader` yields dicts of lists (column -> per-image values);
         open rows carry over between pulls.  With batch_size None every pull
@@ -194,28 +201,32 @@ class DCTAutoencoderFeatureExtractor:
             return self._batch(groups, psz, orig, data)
 
         for dict_data in dataloader:
-            cum_original_sizes += list(dict_data["original_sizes"])
-            cum_patch_sizes += list(dict_data["patch_sizes"])
-            core = {"patches", "positions", "channels", "original_sizes", "patch_sizes"}
-            for k, v in dict_data.items():
-                if k not in core:
-                    cum_data.setdefault(k, []).extend(v)
+            batch = None
+            with obs.span("dct.pack.rows"):
+                cum_original_sizes += list(dict_data["original_sizes"])
+                cum_patch_sizes += list(dict_data["patch_sizes"])
+                core = {"patches", "positions", "channels", "original_sizes", "patch_sizes"}
+                for k, v in dict_data.items():
+                    if k not in core:
+                        cum_data.setdefault(k, []).extend(v)
 
-            items = [
-                (np.asarray(p), np.asarray(pos), np.asarray(ch))
-                for p, pos, ch in zip(dict_data["patches"], dict_data["positions"], dict_data["channels"])
-            ]
-            state = group_patches_by_max_seq_len(items, self.max_seq_len, state)
+                items = [
+                    (np.asarray(p), np.asarray(pos), np.asarray(ch))
+                    for p, pos, ch in zip(dict_data["patches"], dict_data["positions"], dict_data["channels"])
+                ]
+                state = group_patches_by_max_seq_len(items, self.max_seq_len, state)
 
-            if batch_size is None and state.group:
-                state.groups.append(state.group)
-                state.group, state.seq_len = [], 0
+                if batch_size is None and state.group:
+                    state.groups.append(state.group)
+                    state.group, state.seq_len = [], 0
 
-            if batch_size is None or len(state.groups) > batch_size:
-                n_take = len(state.groups) if batch_size is None else batch_size
-                groups, rest = state.groups[:n_take], state.groups[n_take:]
-                state = GroupPatchesState(groups=rest, group=state.group, seq_len=state.seq_len)
-                yield take(groups)
+                if batch_size is None or len(state.groups) > batch_size:
+                    n_take = len(state.groups) if batch_size is None else batch_size
+                    groups, rest = state.groups[:n_take], state.groups[n_take:]
+                    state = GroupPatchesState(groups=rest, group=state.group, seq_len=state.seq_len)
+                    batch = take(groups)
+            if batch is not None:  # outside the span: the consumer runs while the generator waits
+                yield batch
 
         if drain and state is not None:
             if state.group:

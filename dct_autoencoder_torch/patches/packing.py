@@ -13,6 +13,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .container import DCTPatches
 
 Item = Tuple[np.ndarray, np.ndarray, np.ndarray]
@@ -97,18 +98,20 @@ def batch_groups(
     _data: Optional[Dict[str, List[Any]]] = None,
     device="cpu",
 ) -> DCTPatches:
-    """Collate completed rows into a DCTPatches batch on `device`."""
-    pz = next((item[0].shape[-1] for row in groups for item in row), 0)
-    patches, positions, channels, image_ids, pad = fill_batch(groups, max_seq_len, pz)
-    data_tuple = tuple((k, tuple(v)) for k, v in _data.items()) if _data else None
-    as_t = lambda a: torch.from_numpy(a).to(device)
-    return DCTPatches(
-        patches=as_t(patches),
-        key_pad_mask=as_t(pad),
-        batched_image_ids=as_t(image_ids),
-        patch_channels=as_t(channels),
-        patch_positions=as_t(positions),
-        patch_sizes=tuple(tuple(ps) for ps in patch_sizes),
-        original_sizes=tuple(tuple(os) for os in original_sizes),
-        _data=data_tuple,
-    )
+    """Collate completed rows into a DCTPatches batch on `device` (span
+    `dct.pack.collate`; the uploads are `dct.copy.h2d.batch`)."""
+    with obs.span("dct.pack.collate"):
+        pz = next((item[0].shape[-1] for row in groups for item in row), 0)
+        patches, positions, channels, image_ids, pad = fill_batch(groups, max_seq_len, pz)
+        data_tuple = tuple((k, tuple(v)) for k, v in _data.items()) if _data else None
+        as_t = lambda a: obs.to_device(a, device, "batch")
+        return DCTPatches(
+            patches=as_t(patches),
+            key_pad_mask=as_t(pad),
+            batched_image_ids=as_t(image_ids),
+            patch_channels=as_t(channels),
+            patch_positions=as_t(positions),
+            patch_sizes=tuple(tuple(ps) for ps in patch_sizes),
+            original_sizes=tuple(tuple(os) for os in original_sizes),
+            _data=data_tuple,
+        )

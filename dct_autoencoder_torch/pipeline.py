@@ -41,6 +41,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import obs
 from .kernels.idct_unpatchify import fused_idct_unpatchify_rgb
 from .models.autoencoder import DCTAutoencoder
 from .models.config import DCTAutoencoderConfig
@@ -204,20 +205,21 @@ class DCTPipeline:
     def _forward(self, batch) -> dict:
         """The eval forward of a normalized batch: dct_patches and codes, over
         the copies under data_parallel."""
-        if self._replicas is None:
-            return self.model.forward(batch)
-        batch = batch.to(self.model.device)
-        b, n = batch.patches.shape[0], len(self._replicas)
-        padded = pad_batch_rows(batch, n)
-        rows = padded.patches.shape[0] // n
-        outs = []
-        for i, (module, device) in enumerate(self._replicas):
-            # the hand kernels launch on the current card
-            with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
-                outs.append(module(take_rows(padded, i * rows, (i + 1) * rows).to(device), training=False))
-        patches = torch.cat([o["dct_patches"].patches.to(self.model.device) for o in outs])[:b]
-        codes = torch.cat([o["codes"].to(self.model.device) for o in outs])[:b]
-        return {"dct_patches": batch.replace(patches=patches), "codes": codes}
+        with obs.span("dct.serve.forward"):
+            if self._replicas is None:
+                return self.model.forward(batch)
+            batch = batch.to(self.model.device)
+            b, n = batch.patches.shape[0], len(self._replicas)
+            padded = pad_batch_rows(batch, n)
+            rows = padded.patches.shape[0] // n
+            outs = []
+            for i, (module, device) in enumerate(self._replicas):
+                # the hand kernels launch on the current card
+                with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+                    outs.append(module(take_rows(padded, i * rows, (i + 1) * rows).to(device), training=False))
+            patches = torch.cat([o["dct_patches"].patches.to(self.model.device) for o in outs])[:b]
+            codes = torch.cat([o["codes"].to(self.model.device) for o in outs])[:b]
+            return {"dct_patches": batch.replace(patches=patches), "codes": codes}
 
     def reconstruct(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         """encode + decode in one step (keeps the image order)."""
@@ -237,34 +239,36 @@ class DCTPipeline:
         plane) -> clamp, and with as_uint8 ``(x * 255 + 0.5)`` to uint8, on
         the device; the pixels come to the host in one copy.  Groups of mixed
         sizes take the host scatter and one back-end launch per size."""
-        ds = self.processor.preprocess_many(images)
-        cols = {k: [d[k] for d in ds] for k in ds[0]}
-        outs: List[np.ndarray] = []
-        for batch in self.processor.iter_batches(iter([cols]), batch_size=None):
-            if self.pad_rows_to:
-                batch = pad_batch_rows(batch, self.pad_rows_to)
-            out = self._forward(self.model.normalize_(batch))
-            decoded = self.model.inv_normalize_(out["dct_patches"])
-            n_images = len(batch.patch_sizes)
-            if len(set(batch.patch_sizes)) == 1 and len(set(batch.original_sizes)) == 1:
-                bucket = 1 << (n_images - 1).bit_length()
-                imgs = self._fused_reconstruct(decoded, batch.patch_sizes[0], batch.original_sizes[0], bucket, as_uint8)
-                outs.extend(imgs[i] for i in range(n_images))
-                continue
-            for im in self.processor.postprocess(decoded):
-                im = np.clip(im, 0.0, 1.0)
-                outs.append((im * 255.0 + 0.5).astype(np.uint8) if as_uint8 else im)
-        return outs
+        with obs.span("dct.serve.reconstruct"):
+            ds = self.processor.preprocess_many(images)
+            cols = {k: [d[k] for d in ds] for k in ds[0]}
+            outs: List[np.ndarray] = []
+            for batch in self.processor.iter_batches(iter([cols]), batch_size=None):
+                if self.pad_rows_to:
+                    batch = pad_batch_rows(batch, self.pad_rows_to)
+                out = self._forward(self.model.normalize_(batch))
+                decoded = self.model.inv_normalize_(out["dct_patches"])
+                n_images = len(batch.patch_sizes)
+                if len(set(batch.patch_sizes)) == 1 and len(set(batch.original_sizes)) == 1:
+                    bucket = 1 << (n_images - 1).bit_length()
+                    imgs = self._fused_reconstruct(decoded, batch.patch_sizes[0], batch.original_sizes[0], bucket, as_uint8)
+                    outs.extend(imgs[i] for i in range(n_images))
+                    continue
+                for im in self.processor.postprocess(decoded):
+                    im = np.clip(im, 0.0, 1.0)
+                    outs.append((im * 255.0 + 0.5).astype(np.uint8) if as_uint8 else im)
+            return outs
 
     def _fused_reconstruct(self, decoded, grid, orig, max_images: int, as_uint8: bool) -> np.ndarray:
         """Decoded patches of one uniform group -> (max_images, c, h, w) pixels on the host."""
-        p, c = self.processor.patch_size, self.processor.channels
-        (ph, pw), (h, w) = grid, orig
-        if not (ph * p <= h and pw * p <= w):
-            raise ValueError(f"patch grid {grid} of {p}px patches does not fit the image size {orig}")
-        offsets, _ = row_image_layout(decoded)
-        planes = unpatch_to_planes(decoded.patches, decoded, offsets, (ph, pw), p, c, max_images)
-        rgb = fused_idct_unpatchify_rgb(planes, h, w).clamp_(0.0, 1.0)
-        if as_uint8:
-            rgb = (rgb * 255.0 + 0.5).to(torch.uint8)
-        return rgb.cpu().numpy()
+        with obs.span("dct.serve.backend"):
+            p, c = self.processor.patch_size, self.processor.channels
+            (ph, pw), (h, w) = grid, orig
+            if not (ph * p <= h and pw * p <= w):
+                raise ValueError(f"patch grid {grid} of {p}px patches does not fit the image size {orig}")
+            offsets, _ = row_image_layout(decoded)
+            planes = unpatch_to_planes(decoded.patches, decoded, offsets, (ph, pw), p, c, max_images)
+            rgb = fused_idct_unpatchify_rgb(planes, h, w).clamp_(0.0, 1.0)
+            if as_uint8:
+                rgb = (rgb * 255.0 + 0.5).to(torch.uint8)
+            return obs.to_host(rgb, "pixels").numpy()

@@ -30,7 +30,8 @@ without --n_model_parallel > 1.  Every rank reads the same stream with the
 same seeds and packs the same global batch, then runs its rows of it; rank 0
 writes the metrics, grids and checkpoints.
 --profile_dir writes a torch.profiler trace (trace.json) of the main
-training phase.  One default differs from JAX: --rss_limit_gb is 0 (off).
+training phase, every thread recorded, and the device's time put down to the
+program's spans with its counters (spans.json).  One default differs from JAX: --rss_limit_gb is 0 (off).
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from ..models.factory import get_model_and_processor
 from ..train.loop import RssLimitExceeded, check_pipeline, train, train_patch_norm
 
 _MODULE = "dct_autoencoder_torch.train.cli"
+PROFILED_SPAN = "cli.profiled"  # the profiled block: the edges spans.json reads between
 
 
 def create_output_directory(base: str = "out") -> str:
@@ -389,19 +391,36 @@ def _process_group(wanted: bool, device):
 @contextlib.contextmanager
 def _profiler(profile_dir: Optional[str], device):
     """A torch.profiler trace of the block, written to profile_dir/trace.json
-    (the device's kernels too on the card); nothing without a profile_dir."""
+    (the device's kernels too on the card), of every thread: the batch-prefetch
+    thread's spans too (obs.py); and the device's time put down to the
+    program's spans, with the program's counters over the block, in
+    profile_dir/spans.json (obs_trace.py).  Nothing without a profile_dir."""
     if not profile_dir:
         yield
         return
-    from torch.profiler import ProfilerActivity, profile
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from .. import obs, obs_trace
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    with profile(activities=activities) as prof:
-        yield
+    with profile(activities=activities, experimental_config=obs.all_threads_config()) as prof:
+        before = obs.counts()
+        with record_function(PROFILED_SPAN):
+            yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        after = obs.counts()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
     print("profiler trace written to", path)
+    summary = obs_trace.summarize(prof.profiler.kineto_results.events(), PROFILED_SPAN, before, after)
+    path = os.path.join(profile_dir, "spans.json")
+    with open(path, "w") as f:
+        json.dump(summary, f, indent=1)
+    shares = ", ".join(f"{k} {100 * v:.1f}%" for k, v in summary["root_share"].items())
+    print(f"program spans written to {path}; the device's operation time by outermost span: {shares or 'none'}")
 
 
 def _build_parser() -> argparse.ArgumentParser:

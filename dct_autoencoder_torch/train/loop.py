@@ -68,6 +68,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..models.autoencoder import DCTAutoencoder, DCTAutoencoderModule
 from ..models.patchnorm import PatchNormState, apply_patchnorm, calibrate_patchnorm_batch
 from ..parallel.mesh import DataShard, Mesh, all_gather_rows, pad_batch_rows, take_rows
@@ -381,22 +382,24 @@ def make_train_step(
         patchnorm, batch, step, micro, lw, grid_sizes=None, pixel_rows=None, pixel_weight=None, token_weight=None,
         shard=None,
     ):
-        normalized = batch.replace(patches=apply_patchnorm(patchnorm, batch))
-        device = batch.patches.device
-        losses = step_autoencoder(
-            module, patchnorm, batch, normalized, training=True, generator=dropout_generator(device),
-            pixel_grid_sizes=grid_sizes, pixel_rows=pixel_rows,
-            vq_generator=step_generator(seed, step, micro, device) if is_vq else None, update_vq_stats=is_vq,
-            shard=shard,
-        )
-        if pixel_weight is not None:
-            losses["pixel_loss"] = losses["pixel_loss"] * pixel_weight
-        if token_weight is not None:
-            for k in _TOKEN_MEAN_LOSSES:
-                losses[k] = losses[k] * token_weight
-        vq_z = losses.pop("vq_z", None)
-        total = weighted_total(losses, lw, warmup_dict, float(step))
-        total.backward()
+        with obs.span("dct.train.forward"):
+            normalized = batch.replace(patches=apply_patchnorm(patchnorm, batch))
+            device = batch.patches.device
+            losses = step_autoencoder(
+                module, patchnorm, batch, normalized, training=True, generator=dropout_generator(device),
+                pixel_grid_sizes=grid_sizes, pixel_rows=pixel_rows,
+                vq_generator=step_generator(seed, step, micro, device) if is_vq else None, update_vq_stats=is_vq,
+                shard=shard,
+            )
+            if pixel_weight is not None:
+                losses["pixel_loss"] = losses["pixel_loss"] * pixel_weight
+            if token_weight is not None:
+                for k in _TOKEN_MEAN_LOSSES:
+                    losses[k] = losses[k] * token_weight
+            vq_z = losses.pop("vq_z", None)
+            total = weighted_total(losses, lw, warmup_dict, float(step))
+        with obs.span("dct.train.backward"):
+            total.backward()
         metrics = {k: v.detach() for k, v in losses.items() if k not in ("codes", "rec_patches")}
         metrics["loss"] = total.detach()
         return metrics, vq_z
@@ -465,20 +468,23 @@ def make_train_step(
             surgery_mask = ~batch.key_pad_mask[(accum_steps - 1) * mb :]
 
         lr_scale = float(hparams["lr_scale"]) if dynamic_hparams else 1.0
-        if mesh is None:
-            grad_norm = tx.apply(state.adamw, params, state.step, lr_scale=lr_scale)
-        else:
-            grad_norm = state.adamw.step(tx, state.step, lr_scale=lr_scale)
+        with obs.span("dct.train.optimizer"):
+            if mesh is None:
+                grad_norm = tx.apply(state.adamw, params, state.step, lr_scale=lr_scale)
+            else:
+                grad_norm = state.adamw.step(tx, state.step, lr_scale=lr_scale)
+            state.adamw.zero_grad(set_to_none=True)
+        if mesh is not None:
             metrics = _sum_loss_metrics(metrics, mesh)
-        state.adamw.zero_grad(set_to_none=True)
         state.vq_replaced = None
-        if is_vq and mesh is not None:
-            vq_z = all_gather_rows(vq_z, mesh.data_group, mesh.n_data)
         if is_vq:
-            state.vq_replaced = _vq_codebook_surgery(
-                module.vq_model, state.adamw, vq_z, surgery_mask, state.step, seed,
-                vq_kmeans_init, vq_expire_threshold, vq_expire_every,
-            )
+            with obs.span("dct.train.vq_surgery"):
+                if mesh is not None:
+                    vq_z = all_gather_rows(vq_z, mesh.data_group, mesh.n_data)
+                state.vq_replaced = _vq_codebook_surgery(
+                    module.vq_model, state.adamw, vq_z, surgery_mask, state.step, seed,
+                    vq_kmeans_init, vq_expire_threshold, vq_expire_every,
+                )
         state.step += 1
         metrics["grad_norm"] = grad_norm
         return state, metrics
@@ -829,7 +835,10 @@ def _train(
 
         batch_iter = prefetch(batch_iter, prefetch_batches)
 
-    t0 = time.time()
+    # sec_per_step: the wall time since the previous log line (the loop's start
+    # before the first) over the steps since then, read after the log's floats
+    # have waited for the step
+    t_log, i_log = time.time(), -1
     i = -1
     start_step = state.step
     try:
@@ -837,18 +846,25 @@ def _train(
             if i >= max_iters - start_step:
                 break
             gstep = start_step + i  # global step across restarts
-            batch, grid_sizes = prepare_train_batch(raw_batch, pixel_loss_max_images if use_pixel_loss else 0, clip_grid)
-            # padding rows are fully masked, so grid sizes built before the pad stay aligned
-            batch = pad_batch_rows(batch.to(model.device), row_multiple)
-            if grid_sizes is not None:
-                grid_sizes = grid_sizes.to(model.device)
-            if mesh is not None and i % log_every == 0:
-                _check_same_batch(batch, mesh)
-            state, metrics = step_fn(state, model.patchnorm, batch, grid_sizes)
+            with obs.span("dct.train.step"):
+                batch, grid_sizes = prepare_train_batch(
+                    raw_batch, pixel_loss_max_images if use_pixel_loss else 0, clip_grid
+                )
+                # padding rows are fully masked, so grid sizes built before the pad stay aligned
+                batch = pad_batch_rows(batch.to(model.device), row_multiple)
+                if grid_sizes is not None:
+                    grid_sizes = grid_sizes.to(model.device)
+                if mesh is not None and i % log_every == 0:
+                    _check_same_batch(batch, mesh)
+                state, metrics = step_fn(state, model.patchnorm, batch, grid_sizes)
             stall_progress["t"] = time.monotonic()
 
             if i % log_every == 0:
-                metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+                with obs.span("dct.train.log"):
+                    metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+                now = time.time()
+                sec_per_step = (now - t_log) / (i - i_log)
+                t_log, i_log = now, i
                 if not np.isfinite(metrics["loss"]):
                     if nan_policy == "restore":
                         if out_dir and has_train_state(out_dir):
@@ -860,7 +876,7 @@ def _train(
                     log({"step": gstep, "error": "NAN LOSS: aborting"})
                     break
                 metrics.update(
-                    step=gstep, sec_per_step=(time.time() - t0) / max(i, 1), images_per_batch=len(raw_batch.original_sizes)
+                    step=gstep, sec_per_step=sec_per_step, images_per_batch=len(raw_batch.original_sizes)
                 )
                 log(metrics)
 

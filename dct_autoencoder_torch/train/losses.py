@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..models.autoencoder import DCTAutoencoderModule
 from ..models.patchnorm import PatchNormState, inverse_patchnorm
 from ..ops.stats import calculate_perplexity, compute_entropy_loss, group_sum
@@ -84,13 +85,16 @@ def step_autoencoder(
 
     losses: Dict[str, torch.Tensor] = {}
     if training and module.config.vq_type == "lfq":
-        losses["entropy_loss"] = compute_entropy_loss(out["distances"], mask, group=group)
+        with obs.span("dct.loss.entropy"):
+            losses["entropy_loss"] = compute_entropy_loss(out["distances"], mask, group=group)
     else:
         losses["entropy_loss"] = out["distances"].new_zeros(())
-    losses["rec_loss"] = masked_l1(output_patches.patches, normalized_batch.patches, mask, group)
+    with obs.span("dct.loss.rec"):
+        losses["rec_loss"] = masked_l1(output_patches.patches, normalized_batch.patches, mask, group)
     losses["commit_loss"] = out["commit_loss"]
-    unnormalized = inverse_patchnorm(patchnorm, output_patches)
-    losses["rec_loss_unnormalized"] = masked_l1(unnormalized, batch.patches, mask, group)
+    with obs.span("dct.loss.rec"):
+        unnormalized = inverse_patchnorm(patchnorm, output_patches)
+        losses["rec_loss_unnormalized"] = masked_l1(unnormalized, batch.patches, mask, group)
 
     if pixel_grid_sizes is not None:
         from .pixel_loss import packed_pixel_loss

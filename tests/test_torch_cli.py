@@ -106,6 +106,14 @@ def test_cli_trains_from_token_shards_with_the_slice_s_options(tmp_path):
     assert all(np.isfinite(d["loss"]) and np.isfinite(d["pixel_loss"]) for d in losses)
     trace = json.load(open(tmp_path / "prof" / "trace.json"))
     assert trace["traceEvents"]
+    # every thread is recorded: the packer's span on the batch-prefetch thread too
+    assert "dct.pack.rows" in {e.get("name") for e in trace["traceEvents"]}
+    # spans.json: the spans the profiled steps opened, on the CPU with no device time to put down
+    spans = json.load(open(tmp_path / "prof" / "spans.json"))
+    assert {k: spans["spans"][k]["opened"] for k in ("dct.train.step", "dct.train.optimizer")} == {
+        "dct.train.step": 4, "dct.train.optimizer": 4}
+    assert spans["spans"]["dct.pack.rows"]["host_s"] > 0 and spans["device_s"] == 0 and spans["root_share"] == {}
+    assert spans["counts"] == {}  # every copy stays on the host
 
 
 def test_restart_argv_matches_jax():

@@ -147,6 +147,28 @@ def test_train_loop_with_prefetch_equals_without(tmp_path):
     assert len(runs[2]) == 3 and runs[2] == runs[0]
 
 
+def test_sec_per_step_is_the_time_since_the_previous_log_line():
+    """sec_per_step is the wall time since the previous log line over the steps since then: a pause of
+    the stream between two logs shows in the second one alone."""
+    import time
+
+    def stream(pulls):
+        for i, pull in enumerate(pulls):
+            if i == 3:
+                time.sleep(1.0)
+            yield pull
+
+    model, proc = _port_setup(seed=5)
+    pulls = list(_stream(_port_setup()[1], 5, seed=21, n_images=3))
+    logs, at = [], []
+    tloop.train(model, proc, stream(pulls), batch_size=None, max_iters=5, prefetch_batches=0, log_every=2,
+                save_every=0, log=lambda d: (logs.append(d), at.append(time.time())))
+    sps = {d["step"]: d["sec_per_step"] for d in logs}
+    assert sorted(sps) == [0, 2, 4]
+    assert sps[4] >= 0.5 and sps[4] == pytest.approx((at[2] - at[1]) / 2, abs=0.02)
+    assert sps[2] < sps[4] - 0.3
+
+
 def test_attention_dropout_zero_trains_and_serves_as_before():
     """With attention_dropout 0 the same config trains (MLP dropout from the
     generator) and serving ignores dropout, as in JAX."""
